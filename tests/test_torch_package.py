@@ -1,0 +1,163 @@
+"""Package rules of the port (zebra_tpu_torch): it never imports JAX or the
+JAX package; entry points run on CUDA unless asked for the CPU and raise
+without a card; ids that f32 cannot hold raise; configurations outside the
+ported slice raise."""
+
+import dataclasses
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from zebra_tpu.config import Config as JaxConfig
+from zebra_tpu_torch import bridge, resolve_device
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.index import merge as pm
+from zebra_tpu_torch.index import streaming as pst
+from zebra_tpu_torch.models.memory import init_memory
+from zebra_tpu_torch.models.tgn import init_tgn_params
+from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    p.relative_to(ROOT).as_posix()
+    for p in (ROOT / "zebra_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|zebra_tpu)(\.|\s|,|$)", re.M)
+
+
+def test_import_leaves_jax_out():
+    """Importing the package, every submodule and chip_smoke pulls in
+    neither jax nor zebra_tpu (fresh interpreter)."""
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in PORT_FILES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'zebra_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_source_has_no_jax_import(path):
+    assert not FORBIDDEN.search((ROOT / path).read_text()), path
+
+
+def _small_cfg(**kw):
+    base = dict(node_dim=8, time_dim=8, memory_dim=8, topk=3, n_nodes=10,
+                n_edges=10, edge_dim=2)
+    return Config(**{**base, **kw})
+
+
+def _state(cfg):
+    return (init_memory(cfg.n_nodes, cfg.memory_dim, cfg.msg_table_dim,
+                        device="cpu"),
+            pst.init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk, "cpu"))
+
+
+ENTRY_POINTS = {
+    "resolve_device": lambda cfg: resolve_device(),
+    "init_tppr_state": lambda cfg: pst.init_tppr_state(1, 4, 2),
+    "init_memory": lambda cfg: init_memory(4, 8, 8),
+    "init_tgn_params": lambda cfg: init_tgn_params(cfg, torch.Generator()),
+    "bridge.to_tensor": lambda cfg: bridge.to_tensor(np.zeros(2)),
+    "LinkPredictor": lambda cfg: LinkPredictor(
+        cfg, init_tgn_params(cfg, torch.Generator(), "cpu"), *_state(cfg),
+        np.zeros((10, 2), np.float32)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_raise_without_cuda(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](_small_cfg())
+
+
+def test_cpu_runs_when_asked():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert pst.init_tppr_state(1, 4, 2, device="cpu").data.shape == (4, 9)
+
+
+def test_merge_wrapper_refuses_other_devices():
+    params = pst.TpprParams.create((0.1,), (0.9,), 2)
+    rows = torch.empty((1, 2, 9), device="meta")
+    one = torch.ones(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pm.merge_both(rows, one, one, one, one.float(), params)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: pst.init_tppr_state(1, 1 << 24, 2, device="cpu"),
+    lambda: pst.check_id_width(n_edges=1 << 24),
+    lambda: LinkPredictor(_small_cfg(n_edges=1 << 24),
+                          init_tgn_params(_small_cfg(), torch.Generator(),
+                                          "cpu"),
+                          *_state(_small_cfg()), np.zeros((10, 2), np.float32),
+                          device="cpu"),
+    lambda: pst.streaming_scan(
+        pst.init_tppr_state(1, 4, 2, device="cpu"),
+        pst.TpprParams.create((0.1,), (0.9,), 2), [1], [2], [3], [1.0],
+        [(1 << 24) - 1], [True]),
+], ids=["nodes", "edges", "predictor", "scan_edge_id"])
+def test_ids_past_f32_width_raise(call):
+    with pytest.raises(ValueError, match="2\\^24"):
+        call()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tppr_strategy", "pruning"),
+    ("embedding_module", "graph_attention"),
+    ("aggregator", "mean"),
+    ("message_function", "mlp"),
+    ("use_source_embedding_in_message", True),
+    ("use_destination_embedding_in_message", True),
+    ("interleave_shards", 2),
+    ("parallel_runs", 2),
+])
+def test_config_refuses_values_outside_the_slice(field, value):
+    with pytest.raises(ValueError, match=field):
+        Config.from_dict(dataclasses.asdict(JaxConfig(**{field: value})))
+
+
+def test_config_from_jax_dict_keeps_fields_and_derived_widths():
+    jcfg = JaxConfig(node_dim=100, time_dim=100, memory_dim=100, topk=20,
+                     alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95),
+                     n_nodes=40001, n_edges=120001, edge_dim=172)
+    cfg = Config.from_dict(dataclasses.asdict(jcfg))
+    for f in dataclasses.fields(cfg):
+        want = getattr(jcfg, f.name)
+        if f.name in ("alpha_list", "beta_list"):
+            want = tuple(want)
+        assert getattr(cfg, f.name) == want, f.name
+    for prop in ("n_tppr", "hidden_dim", "message_dim", "compact_messages",
+                 "msg_table_dim", "cell_input_dim"):
+        assert getattr(cfg, prop) == getattr(jcfg, prop), prop
+    assert cfg.mxu_dtype is None
+    assert Config(compute_dtype="bfloat16").mxu_dtype == torch.bfloat16
+    # defaults agree with the JAX Config's
+    base = Config()
+    for f in dataclasses.fields(base):
+        want = getattr(JaxConfig(), f.name)
+        assert getattr(base, f.name) == (tuple(want) if isinstance(
+            want, (list, tuple)) else want), f.name
+
+
+def test_unported_serving_parts_raise():
+    with pytest.raises(NotImplementedError):
+        LinkPredictor.from_checkpoint("x.ckpt")
+    with pytest.raises(NotImplementedError):
+        LinkPredictor.from_trainer(None)
+    with pytest.raises(NotImplementedError):
+        EnsemblePredictor()

@@ -1,0 +1,87 @@
+"""Carry weights and state between the JAX package and the port, through
+numpy (the port never imports JAX).
+
+- params: a numpy pytree ``{"fc1": {"w", "b"}, ..., "cell": {"w_ih", ...}}``
+  (``jax.tree.map(np.asarray, params)``) ↔ the port's ``nn.ModuleDict``;
+- memory: any object with ``MemoryState``'s five fields ↔ the port's
+  ``MemoryState``;
+- index: any object with a ``data`` field ↔ ``TpprState``.
+
+``np.asarray`` of a bf16 JAX array is an ``ml_dtypes.bfloat16`` array,
+which ``torch.from_numpy`` refuses: such arrays cross as float32 (a bf16 →
+f32 → bf16 round trip is exact) and come back from the port as float32.
+The memory tables take their dtypes from the config."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from zebra_tpu_torch.config import Config, torch_dtype
+from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.index.streaming import TpprState
+from zebra_tpu_torch.models.memory import MemoryState
+
+
+def to_tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """numpy (bf16 included) → tensor on ``device``, cast to ``dtype`` if
+    given; a bf16 array keeps bf16 when no ``dtype`` is asked for."""
+    a = np.asarray(a)
+    keep_bf16 = a.dtype.name == "bfloat16"
+    if keep_bf16:
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a, copy=True))
+    if dtype is None and keep_bf16:
+        dtype = torch.bfloat16
+    return t.to(device=resolve_device(device), dtype=dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor → numpy on the host; bf16 comes back as (exact) float32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_from_numpy(tree: Mapping[str, Mapping[str, Any]],
+                      device=None) -> nn.ModuleDict:
+    dev = resolve_device(device)
+    return nn.ModuleDict({
+        name: nn.ParameterDict({
+            key: to_tensor(v, dev, torch.float32) for key, v in layer.items()
+        })
+        for name, layer in tree.items()
+    }).requires_grad_(False)
+
+
+def params_to_numpy(params: nn.ModuleDict) -> Dict[str, Dict[str, np.ndarray]]:
+    return {
+        name: {key: to_numpy(v) for key, v in layer.items()}
+        for name, layer in params.items()
+    }
+
+
+def memory_from_numpy(mem, cfg: Config, device=None) -> MemoryState:
+    dev = resolve_device(device)
+    tables = {"memory": torch_dtype(cfg.memory_dtype),
+              "messages": torch_dtype(cfg.message_dtype)}
+    return MemoryState(*(
+        to_tensor(getattr(mem, f), dev, tables.get(f, torch.float32))
+        for f in MemoryState._fields
+    ))
+
+
+def memory_to_numpy(mem: MemoryState) -> MemoryState:
+    return MemoryState(*(to_numpy(x) for x in mem))
+
+
+def tppr_from_numpy(state, device=None) -> TpprState:
+    return TpprState(to_tensor(getattr(state, "data"), device, torch.float32))
+
+
+def tppr_to_numpy(state: TpprState) -> TpprState:
+    return TpprState(to_numpy(state.data))

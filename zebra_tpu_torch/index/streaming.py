@@ -1,0 +1,159 @@
+"""Streaming top-k temporal personalized PageRank (T-PPR) index, in PyTorch
+(counterpart of ``zebra_tpu/index/streaming.py``).
+
+The state is one packed f32 row per node, exactly the JAX layout
+(``layout.py``): ``data`` f32 [N, F], F = M·(4k+1).
+
+Ids are stored as f32 *values*, exact below 2^24; tables or edge ids at or
+above that width are refused (:func:`check_id_width`).
+
+The SANTA update of an edge reads the pre-edge rows of both endpoints and
+writes both new rows (:func:`edge_step`: gather → merge → masked scatter).
+Edges are strictly sequential, so :func:`streaming_scan` is a Python loop
+over edges; each step gathers the (src, dst, neg) rows into the scan's
+extraction output, merges them (``merge.merge_both``: the CUDA kernel on the
+card, its plain version on the CPU) and scatters the two new rows back into
+``data`` in place."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.index.layout import (  # noqa: F401  (re-exported)
+    _EIDX,
+    _NBR,
+    _TS,
+    _W,
+    TpprParams,
+    pack_rows,
+    row_width,
+    split_rows,
+)
+from zebra_tpu_torch.index.merge import merge_both
+
+# ids are held as f32 values: exact below 2^24
+ID_LIMIT = 1 << 24
+
+
+def check_id_width(n_nodes: int = 0, n_edges: int = 0) -> None:
+    """Raise when node or edge ids would not round-trip through f32."""
+    for what, n in (("n_nodes", n_nodes), ("n_edges", n_edges)):
+        if int(n) >= ID_LIMIT:
+            raise ValueError(
+                f"{what}={int(n)} ≥ 2^24: the packed T-PPR rows hold ids as "
+                "f32 values, exact only below 2^24"
+            )
+
+
+class TpprState(NamedTuple):
+    data: torch.Tensor  # f32 [N, F] packed rows (module docstring)
+
+
+class TpprQueries(NamedTuple):
+    """Extraction results, model-facing; fields [E, M, 3, k] from the scan,
+    [M, Q, k] once a caller flattens the query blocks. Empty slots hold
+    nbr 0 / eidx 0 / weight 0 and dt equal to the query time."""
+
+    nbr: torch.Tensor   # i32
+    eidx: torch.Tensor  # i32
+    dt: torch.Tensor    # f32
+    w: torch.Tensor     # f32
+
+
+def init_tppr_state(n_tppr: int, n_nodes: int, k: int,
+                    device=None) -> TpprState:
+    check_id_width(n_nodes=n_nodes)
+    dev = resolve_device(device)
+    return TpprState(data=torch.zeros((n_nodes, row_width(n_tppr, k)),
+                                      dtype=torch.float32, device=dev))
+
+
+def unpack_queries(rows3: torch.Tensor, e_ts: torch.Tensor, n_tppr: int,
+                   k: int) -> TpprQueries:
+    """Raw rows [E, 3, F] + query times [E] → TpprQueries fields
+    [E, M, 3, k]."""
+    fields, _ = split_rows(rows3, n_tppr, k)        # [E, 3, M, 4, k]
+    perm = (0, 2, 1, 3)
+    return TpprQueries(
+        nbr=fields[:, :, :, _NBR].to(torch.int32).permute(perm),
+        eidx=fields[:, :, :, _EIDX].to(torch.int32).permute(perm),
+        dt=(e_ts[:, None, None, None] - fields[:, :, :, _TS]).permute(perm),
+        w=fields[:, :, :, _W].permute(perm),
+    )
+
+
+def _step(data, sdn, sd, rows3, src, dst, e_idx, e_ts, valid, params):
+    """One batched SANTA step on W node-disjoint edges: gather the
+    (src, dst, neg) rows into ``rows3`` [W, 3, F], merge, scatter the two new
+    rows per edge back into ``data`` in place. ``sdn`` [W, 3] and ``sd``
+    [W, 2] are contiguous int64 row ids; ``valid`` None means all valid.
+
+    A self-loop (src == dst) computes two identical rows, so its duplicate
+    index in ``index_copy_`` writes one value whichever copy lands last."""
+    f = data.shape[1]
+    torch.index_select(data, 0, sdn.reshape(-1), out=rows3.view(-1, f))
+    new_rows = merge_both(rows3, src, dst, e_idx, e_ts, params)  # [W, 2, F]
+    if valid is not None:
+        new_rows = torch.where(valid[:, None, None], new_rows, rows3[:, :2])
+    data.index_copy_(0, sd.reshape(-1), new_rows.view(-1, f))
+
+
+def _columns(dev, src, dst, neg, e_ts, e_idx, valid):
+    as_t = lambda x, dt: torch.as_tensor(x).to(device=dev, dtype=dt)
+    src, dst, neg = (as_t(x, torch.int32) for x in (src, dst, neg))
+    e_idx = as_t(e_idx, torch.int32)
+    e_ts = as_t(e_ts, torch.float32)
+    valid = as_t(valid, torch.bool)
+    if e_idx.numel():
+        check_id_width(n_edges=int(e_idx.max()) + 1)
+    sdn = torch.stack([src, dst, neg], dim=1).to(torch.int64)
+    sd = sdn[:, :2].contiguous()
+    return src, dst, e_idx, e_ts, valid, sdn, sd
+
+
+def edge_step(state: TpprState, src, dst, neg, e_ts, e_idx, valid,
+              params: TpprParams) -> Tuple[TpprState, torch.Tensor]:
+    """The SANTA update of W edges whose rows are pairwise disjoint (one
+    wave): extraction rows [W, 3, F] from the pre-edge state, then the merge
+    and the masked scatter of both endpoints' new rows. Padding edges
+    (``valid`` False) leave their rows untouched. Updates ``state`` in
+    place and returns it with the extraction rows."""
+    data = state.data
+    src, dst, e_idx, e_ts, valid, sdn, sd = _columns(
+        data.device, src, dst, neg, e_ts, e_idx, valid)
+    rows3 = torch.empty((src.shape[0], 3, data.shape[1]), dtype=data.dtype,
+                        device=data.device)
+    _step(data, sdn, sd, rows3, src, dst, e_idx, e_ts,
+          None if bool(valid.all()) else valid, params)
+    return state, rows3
+
+
+def streaming_scan(state: TpprState, params: TpprParams, src, dst, neg, e_ts,
+                   e_idx, valid) -> Tuple[TpprState, TpprQueries]:
+    """Scan a chunk of the edge stream in order, one edge per step. Updates
+    ``state`` in place; returns it and the pre-edge queries, fields
+    [E, M, 3, k]."""
+    data = state.data
+    src, dst, e_idx, e_ts, valid, sdn, sd = _columns(
+        data.device, src, dst, neg, e_ts, e_idx, valid)
+    n = src.shape[0]
+    rows = torch.empty((n, 3, data.shape[1]), dtype=data.dtype,
+                       device=data.device)
+    all_valid = bool(valid.all())
+    for i in range(n):
+        j = slice(i, i + 1)
+        _step(data, sdn[j], sd[j], rows[j], src[j], dst[j], e_idx[j],
+              e_ts[j], None if all_valid else valid[j], params)
+    return state, unpack_queries(rows, e_ts, len(params.alpha), params.k)
+
+
+def read_topk(state: TpprState, nodes3: torch.Tensor, t_q: torch.Tensor,
+              n_tppr: int, k: int) -> TpprQueries:
+    """Read-only extraction: the current top-k of each query node at the
+    query time (one row gather; the serving fast path). nodes3 [B, nb] ids,
+    t_q [B] → fields [B, M, nb, k]."""
+    rows = state.data[nodes3.to(torch.int64)]
+    return unpack_queries(rows, t_q, n_tppr, k)

@@ -1,0 +1,120 @@
+"""TGN model stack of the ported slice (counterpart of
+``zebra_tpu/models/tgn.py``): parameter init and the eval-mode forward.
+
+- diffusion tower: a neighbor MLP fc2(relu(fc1([mem_nbr; edge_feat;
+  time_enc(Δt)]))) with a weight-normalized top-k sum per ensemble member,
+  plus a source MLP on the query node's memory → [·, node_dim·(M+1)];
+- the GRU/RNN memory-updater cell on the raw message;
+- the MergeLayer link head.
+
+Parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s with the JAX
+pytree's keys (``affinity_fc1/2``, ``cell``, ``fc1``, ``fc2``, ``fc1_src``,
+``fc2_src``) and JAX's [in, out] weight layout, so ``params["fc1"]["w"]``
+reads like the JAX code and :mod:`zebra_tpu_torch.bridge` copies weights
+across one to one. Init follows the JAX distributions: Xavier-normal
+tower/head weights, U(±1/√in) biases, U(±1/√H) cell parameters; the numbers
+differ because the generators differ."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.models.cells import CELLS, matmul
+from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
+
+
+def _linear_init(generator: torch.Generator, d_in: int,
+                 d_out: int) -> nn.ParameterDict:
+    std = (2.0 / (d_in + d_out)) ** 0.5
+    bound = 1.0 / d_in ** 0.5
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
+                    device=generator.device) * std
+    u = torch.rand((d_out,), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return nn.ParameterDict({"w": w, "b": u * (2 * bound) - bound})
+
+
+def init_tgn_params(cfg: Config, generator: torch.Generator,
+                    device=None) -> nn.ModuleDict:
+    """Random parameters for ``cfg`` drawn from ``generator`` (on its own
+    device, so a seed gives the same weights whatever ``device`` is), then
+    placed on ``device``."""
+    if cfg.node_dim != cfg.memory_dim:
+        raise ValueError("the towers feed memory rows as node "
+                         "representations: node_dim must equal memory_dim")
+    dev = resolve_device(device)
+    d = cfg.node_dim
+    h = cfg.hidden_dim
+    cell_init, _ = CELLS[cfg.memory_updater]
+    params = nn.ModuleDict({
+        "fc1": _linear_init(generator, d + cfg.time_dim + cfg.edge_dim, d),
+        "fc2": _linear_init(generator, d, d),
+        "fc1_src": _linear_init(generator, d, d),
+        "fc2_src": _linear_init(generator, d, d),
+        "affinity_fc1": _linear_init(generator, 2 * h, h),
+        "affinity_fc2": _linear_init(generator, h, 1),
+        "cell": cell_init(generator, cfg.cell_input_dim, cfg.memory_dim),
+    })
+    return params.to(dev).requires_grad_(False)
+
+
+def _mlp2(p1, p2, x, mxu=None):
+    """fc2(relu(fc1(x))) — eval mode, no dropout."""
+    hidden = torch.relu(matmul(x, p1["w"], mxu) + p1["b"])
+    return matmul(hidden, p2["w"], mxu) + p2["b"]
+
+
+def cell_apply(cfg: Config, params, msgs, mem):
+    _, apply = CELLS[cfg.memory_updater]
+    return apply(params["cell"], msgs, mem, cfg.mxu_dtype)
+
+
+def message_cell_input(cfg: Config, params, raw, self_rows):
+    """Updater-cell input from a raw stored message: under the compact
+    layout the sender-memory part is re-attached from ``self_rows`` (in the
+    promoted dtype of the two, as JAX does: bf16 when both are bf16)."""
+    if cfg.compact_messages:
+        dt = torch.promote_types(self_rows.dtype, raw.dtype)
+        raw = torch.cat([self_rows.to(dt), raw.to(dt)], dim=-1)
+    return raw
+
+
+def diffusion_static_input(cfg: Config, edge_feats, eidx, dt) -> torch.Tensor:
+    """``[edge_feat; time_enc(Δt)]`` → [M, Q, k, De+Dt]. Edge ids past the
+    feature table (fresh events a server observes) read the zero row 0."""
+    basis = time_basis(cfg.time_dim, edge_feats.device)
+    safe = torch.where(eidx < edge_feats.shape[0], eidx, 0)
+    return torch.cat([edge_feats[safe], time_encode(dt, basis)], dim=-1)
+
+
+def diffusion_embed(cfg: Config, params, src_mem: torch.Tensor,
+                    nbr_mem: torch.Tensor, nbr_static: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """Ensemble diffusion embedding, eval mode → [Q, d·(M+1)].
+
+    src_mem [Q, d] and nbr_mem [M, Q, k, d] in the memory table's dtype,
+    nbr_static [M, Q, k, De+Dt] f32, w [M, Q, k] T-PPR weights."""
+    src_emb = _mlp2(params["fc1_src"], params["fc2_src"], src_mem,
+                    cfg.mxu_dtype)
+    dt = torch.promote_types(nbr_mem.dtype, nbr_static.dtype)
+    nbr_in = torch.cat([nbr_mem.to(dt), nbr_static.to(dt)], dim=-1)
+    nbr_emb = _mlp2(params["fc1"], params["fc2"], nbr_in, cfg.mxu_dtype)
+
+    # weight-normalize with the zero-sum guard
+    w_sum = w.sum(-1, keepdim=True)                          # [M, Q, 1]
+    w_n = torch.where(w_sum > 0, w / torch.where(w_sum > 0, w_sum, 1.0), 0.0)
+    agg = (nbr_emb * w_n[..., None]).sum(2)                  # [M, Q, d]
+    return torch.cat([src_emb] + list(agg.unbind(0)), dim=-1)
+
+
+def affinity_score(params, e1: torch.Tensor, e2: torch.Tensor,
+                   mxu=None) -> torch.Tensor:
+    """MergeLayer link head → logits [B]."""
+    x = torch.cat([e1, e2], dim=-1)
+    hidden = torch.relu(matmul(x, params["affinity_fc1"]["w"], mxu)
+                        + params["affinity_fc1"]["b"])
+    return (matmul(hidden, params["affinity_fc2"]["w"], mxu)
+            + params["affinity_fc2"]["b"])[..., 0]

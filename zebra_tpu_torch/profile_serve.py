@@ -1,0 +1,150 @@
+"""Where ``LinkPredictor.observe``'s time goes on the card.
+
+    python3 -m zebra_tpu_torch.profile_serve
+
+Builds the flagship serving configuration at full width (the one
+``chip_smoke.py`` serves), warms it with 2,000 observed events, then splits
+one b = 200 observe into its two parts, timed apart with the host clock
+around synchronized calls:
+- the index scan (``streaming_scan``: per event a row gather, the merge
+  kernel and a row scatter), and the host cost of one merge-wrapper call;
+- the memory protocol (``eval_store_commit``);
+and traces one more observe with ``torch.profiler`` for the device-busy
+share and the kernels that take the device time. Prints one JSON line.
+Needs a CUDA device."""
+
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.data.synthetic import synthetic_stream
+from zebra_tpu_torch.index import merge
+from zebra_tpu_torch.index.streaming import init_tppr_state, streaming_scan
+from zebra_tpu_torch.models.memory import init_memory
+from zebra_tpu_torch.models.tgn import init_tgn_params
+from zebra_tpu_torch.serve import LinkPredictor
+from zebra_tpu_torch.train.step import eval_store_commit
+
+B, WARM = 200, 2000
+
+
+def _median_s(fn, n=10):
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def flagship(seed: int = 0):
+    """The flagship serving configuration at full width (``bench.py:93-104``,
+    ``scripts/serve_bench.py:54-59``) on the bench stream of 120,000 events:
+    returns (cfg, params, mem, index, edge_feats, cols), all on the CPU:
+    params drawn from ``seed``, bf16 memory tables and an index that are
+    empty, and cols the (src, dst, ts f32, eidx) numpy columns."""
+    data, edge_feats = synthetic_stream(120_000, 20_000, 20_000,
+                                        edge_dim=172, seed=seed)
+    cfg = Config(
+        node_dim=100, time_dim=100, memory_dim=100, topk=20,
+        alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95),
+        n_nodes=int(max(data.sources.max(), data.destinations.max())) + 1,
+        n_edges=int(data.edge_idxs.max()) + 1, edge_dim=172,
+    )
+    params = init_tgn_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    mem = init_memory(cfg.n_nodes, cfg.memory_dim, cfg.msg_table_dim,
+                      torch.bfloat16, torch.bfloat16, device="cpu")
+    index = init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk, device="cpu")
+    cols = (data.sources, data.destinations,
+            data.timestamps.astype(np.float32), data.edge_idxs)
+    return cfg, params, mem, index, edge_feats, cols
+
+
+def main() -> None:
+    cfg, params, mem, index, edge_feats, cols = flagship()
+    pred = LinkPredictor(cfg, params, mem, index, edge_feats, device="cuda")
+    for lo in range(0, WARM, B):
+        pred.observe(*(c[lo: lo + B] for c in cols))
+    dev = pred.device
+    sl = slice(WARM, WARM + B)
+    src, dst, eidx = (torch.as_tensor(c[sl]).to(dev)
+                      for c in (cols[0], cols[1], cols[3]))
+    t = torch.as_tensor(cols[2][sl]).to(dev)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+
+    # the parts are timed on throw-away copies of the state
+    def scan():
+        state = pred.index_state._replace(data=pred.index_state.data.clone())
+        streaming_scan(state, pred._tppr, src, dst, dst, t, eidx, valid)
+
+    def protocol():
+        mem = pred.mem._replace(**{f: getattr(pred.mem, f).clone()
+                                   for f in pred.mem._fields})
+        with torch.no_grad():
+            eval_store_commit(cfg, pred.params, mem, pred.edge_feats, src,
+                              dst, t, eidx, valid)
+
+    def clone_only():
+        pred.index_state.data.clone()
+        for f in pred.mem._fields:
+            getattr(pred.mem, f).clone()
+
+    rows = pred.index_state.data[torch.stack([src, dst, dst], 1)[:1].long()]
+    one = lambda x: x[:1].contiguous()
+    merge_call = lambda: merge.merge_both(rows, one(src), one(dst), one(eidx),
+                                          one(t), pred._tppr)
+    merge_call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        merge_call()
+    merge_host_us = (time.perf_counter() - t0) / 1000 * 1e6
+    torch.cuda.synchronize()
+
+    observe = lambda: pred.observe(*(c[sl] for c in cols))
+    res = dict(
+        b=B,
+        observe_ms=_median_s(observe) * 1e3,
+        scan_ms=_median_s(scan) * 1e3,
+        protocol_ms=_median_s(protocol) * 1e3,
+        state_clone_ms=_median_s(clone_only) * 1e3,
+        merge_wrapper_host_us=merge_host_us,
+    )
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        observe()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (kernels, copies): one stream, no overlap
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = per_kernel.get(e.name, (0, 0.0))
+            per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    res.update(
+        traced_observe_wall_us=wall_us,
+        device_busy_us=busy_us,
+        device_busy_share=busy_us / wall_us,
+        top_device_ops=[(name[:60], n, round(us, 1))
+                        for name, (n, us) in top],
+        card=torch.cuda.get_device_name(0),
+    )
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Online serving: score candidate links against live state and ingest
+observed interactions (counterpart of ``zebra_tpu/serve.py``).
+
+Example::
+
+    predictor = LinkPredictor(cfg, params, mem, index_state, edge_feats)
+    probs = predictor.score(src, dst, t)        # link probabilities [B]
+    predictor.observe(src, dst, t, eidx)        # stream new interactions
+
+The predictor runs on CUDA unless ``device="cpu"`` is passed. ``observe``
+streams the events through the T-PPR index, one SANTA merge per event
+(the CUDA kernel on the card), then applies the eval-mode memory protocol;
+``score`` is read-only."""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.index.streaming import (
+    TpprParams,
+    TpprQueries,
+    TpprState,
+    check_id_width,
+    read_topk,
+    streaming_scan,
+)
+from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.models.tgn import affinity_score
+from zebra_tpu_torch.train.step import _forward, eval_store_commit
+
+
+class LinkPredictor:
+    """Stateful scorer over a (params, memory, index) snapshot.
+
+    The predictor keeps its own copies of the state on ``device`` and
+    updates memory and index in place as it observes events."""
+
+    def __init__(self, cfg: Config, params, mem: MemoryState,
+                 index_state: TpprState, edge_feats, device=None):
+        self.device = resolve_device(device)
+        check_id_width(cfg.n_nodes, cfg.n_edges)
+        self.cfg = cfg
+        dev = self.device
+        self.params = copy.deepcopy(params).to(dev)
+        self.mem = MemoryState(*(x.to(dev, copy=True) for x in mem))
+        self.index_state = TpprState(index_state.data.to(dev, copy=True))
+        self.edge_feats = torch.as_tensor(edge_feats).to(
+            dev, torch.float32, copy=True)
+        self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
+
+    @classmethod
+    def from_checkpoint(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "zebra_tpu_torch has no checkpoint reader yet (ROADMAP.md)")
+
+    @classmethod
+    def from_trainer(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "zebra_tpu_torch has no Trainer yet (ROADMAP.md)")
+
+    def _ids(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.int32)).to(self.device)
+
+    def _times(self, t) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(t, np.float32)).to(self.device)
+
+    def _queries(self, src, dst, t, with_neg: bool = True) -> TpprQueries:
+        """Read-only T-PPR top-k at the query times, fields [M, nb·b, k]:
+        src‖dst‖dst blocks when ``with_neg`` (the training layout),
+        src‖dst for plain scoring."""
+        cols = [src, dst] + ([dst] if with_neg else [])
+        q = read_topk(self.index_state, torch.stack(cols, dim=1), t,
+                      self.cfg.n_tppr, self.cfg.topk)       # [B, M, nb, k]
+        m, k = self.cfg.n_tppr, self.cfg.topk
+        return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(m, -1, k)
+                             for x in q))
+
+    def score(self, src, dst, t) -> np.ndarray:
+        """P(interaction) for each (src, dst) candidate at its timestamp."""
+        with torch.no_grad():
+            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
+            b = src.shape[0]
+            q = self._queries(src, dst, t, with_neg=False)
+            nodes2 = torch.cat([src, dst])
+            emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
+                           nodes2, q)
+            logit = affinity_score(self.params, emb[:b], emb[b:],
+                                   self.cfg.mxu_dtype)
+            return torch.sigmoid(logit).cpu().numpy()
+
+    def observe(self, src, dst, t, eidx) -> None:
+        """Ingest observed interactions: stream them through the T-PPR index
+        (updated in place), then store-and-commit their messages into
+        memory (the eval protocol). Edge ids must stay below 2^24
+        (``streaming_scan`` checks)."""
+        with torch.no_grad():
+            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
+            eidx = self._ids(eidx)
+            valid = torch.ones(src.shape[0], dtype=torch.bool,
+                               device=self.device)
+            # the scan's pre-edge queries would feed embedding-sourced
+            # messages, which this slice's Config refuses
+            self.index_state, _ = streaming_scan(
+                self.index_state, self._tppr, src, dst, dst, t, eidx, valid)
+            self.mem = self._updated_mem(src, dst, t, eidx, valid)
+
+    def _updated_mem(self, src, dst, t, eidx, valid) -> MemoryState:
+        """Eval-protocol memory update for observe()."""
+        return eval_store_commit(self.cfg, self.params, self.mem,
+                                 self.edge_feats, src, dst, t, eidx, valid)
+
+
+class EnsemblePredictor(LinkPredictor):
+    """Deep-ensemble serving over a seed-parallel snapshot: not ported yet
+    (ROADMAP.md)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "zebra_tpu_torch serves one model; EnsemblePredictor is not "
+            "ported yet (ROADMAP.md)")
