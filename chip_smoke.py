@@ -4,16 +4,24 @@
 
 Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile every CUDA kernel from zebra_tpu_torch/csrc (nvcc, sm_90a);
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path and the training wave give it, with its time, the
-   plain version's time and the least time the card could take;
+2. build: compile every CUDA kernel from zebra_tpu_torch/csrc, one nvcc per
+   source, all started together (sm_90a);
+3. kernels: each kernel against its plain PyTorch version on the card, bit
+   for bit, with its time, the plain version's time and the least time the
+   card could take:
+   - santa_merge at the shapes a serving event and a training wave give it;
+   - santa_scan on 200-event chunks of a dense 301-node stream with
+     self-loops, invalid events and rows shared with the previous event;
 4. serve: the flagship serving configuration at full width (streaming T-PPR,
    top-20, two-member ensemble, diffusion tower, GRU, bf16 tables) on the
    bench stream, through ``LinkPredictor.observe``/``score`` on the card,
-   replayed on the CPU and compared; the kernel launch counts of this phase;
-5. one ``{"kernels": [...]}`` line;
-6. last line ``{"ok": true, "device": {...}}``.
+   replayed on the CPU and compared; one santa_scan launch per observe call;
+5. waves: ``edge_step`` on waves of node-disjoint events of the same stream
+   (the santa_merge path), against ``fill_scan`` of the same events;
+6. fill: the whole 120,000-event bench stream through ``fill_scan`` in one
+   launch, and the count of live weights that are subnormal;
+7. one ``{"kernels": [...]}`` line;
+8. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
@@ -29,9 +37,13 @@ import torch
 
 from zebra_tpu_torch import build
 from zebra_tpu_torch.data.synthetic import synthetic_stream
-from zebra_tpu_torch.index import merge
+from zebra_tpu_torch.index import merge, scan
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
+    TpprState,
+    _columns,
+    edge_step,
+    fill_scan,
     init_tppr_state,
     row_width,
     streaming_scan,
@@ -48,6 +60,10 @@ BETA = (0.05, 0.95, 0.5)
 # (what gives the kernel this shape, W edges, M members, top-k)
 MERGE_SHAPES = [("serving observe", 1, 2, 20), ("training wave", 64, 2, 20),
                 ("large k", 64, 3, 40)]
+# (what gives the scan this shape, E events, M members, top-k)
+SCAN_SHAPES = [("serving observe", 200, 2, 20), ("large k", 200, 3, 40)]
+WAVE_EVENTS, WAVE_CAP = 2000, 64
+FLT_MIN = 1.17549435e-38
 
 # The kernel rounds exactly like its plain version (same operation order,
 # -fmad=false), so kernel results and the serve index are held bit-equal.
@@ -97,14 +113,13 @@ def device_ms(fn, n: int = 100, per_round: int = 100, warmup: int = 10) -> float
     return float(np.median(times))
 
 
-def merge_bound(rows: torch.Tensor, m: int, k: int):
-    """Least time (ms) for one merge of these rows: the larger of the bytes
-    the function must move (rows 0-1 of each edge and its 4 scalars in, the
-    two new rows out) over the HBM rate, and the operations it needs over
-    the f32 rate. For a lane (edge, direction, member) whose two rows hold
-    L live entries that is a top-k selection over C = L + 1 candidates,
-    at least C·⌈log2 C⌉ comparisons, 2L for the twin lookup and the weight
-    scaling, and 8 for the scales. Returns (ms, 'bytes' | 'operations')."""
+def merge_work(rows: torch.Tensor, m: int, k: int):
+    """What one merge of these gathered rows [W, R, F] must do: bytes
+    (rows 0-1 of each edge and its 4 scalars in, the two new rows out) and
+    operations. For a lane (edge, direction, member) whose two rows hold L
+    live entries that is a top-k selection over C = L + 1 candidates, at
+    least C·⌈log2 C⌉ comparisons, 2L for the twin lookup and the weight
+    scaling, and 8 for the scales."""
     w = rows.shape[0]
     f = row_width(m, k)
     nbytes = w * 2 * f * 4 + w * 16 + w * 2 * f * 4
@@ -112,56 +127,172 @@ def merge_bound(rows: torch.Tensor, m: int, k: int):
     live = (weights > 0).sum((1, 3)).double()          # [W, M], both rows
     c = live + 1
     per_lane = c * torch.ceil(torch.log2(c.clamp(min=2))) + 2 * live + 8
-    ops = 2 * float(per_lane.sum())                    # two directions
+    return nbytes, 2 * float(per_lane.sum())            # two directions
+
+
+def scan_work(rows: torch.Tensor, cols, m: int, k: int, extract: bool):
+    """What one scan of a chunk must do, from its pre-edge rows [E, 3, F]
+    and its columns (src, dst, neg, ts, eidx, valid). Bytes: each distinct
+    row whose pre-chunk value the chunk needs read once (src and dst of the
+    valid events; of every event, and neg too, when extracting), each
+    distinct row a valid event writes written once, the columns (4 bytes
+    for each of src, dst, eidx, ts, 1 for valid, 4 for neg when
+    extracting) and the extraction rows [E, 3, F]. A row that an event
+    writes and a later one reads stays on the chip. Operations: the merges
+    of the events whose result is used (:func:`merge_work`)."""
+    src, dst, neg, _, _, valid = cols
+    n, f = src.shape[0], row_width(m, k)
+    distinct = lambda *ids: int(torch.unique(torch.cat(ids)).numel())
+    used = slice(None) if extract else valid
+    read = (distinct(src, dst, neg) if extract
+            else distinct(src[valid], dst[valid]))
+    written = distinct(src[valid], dst[valid])
+    nbytes = ((read + written) * f * 4 + n * (17 + 4 * extract)
+              + extract * n * 3 * f * 4)
+    _, ops = merge_work(rows[used], m, k)
+    return nbytes, ops
+
+
+def bound(nbytes: float, ops: float):
+    """Least time (ms) for this work on the card: the larger of bytes over
+    the HBM rate and operations over the f32 rate. Returns (ms, 'bytes' |
+    'operations')."""
     t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def realistic_rows(w: int, m: int, k: int, seed: int):
-    """Gathered rows [W, 3, F] on the card, taken after a plain (CPU)
-    streaming_scan over a 1,500-event synthetic stream, for the W events
-    that follow it, with their (src, dst, eidx, ts)."""
-    data, _ = synthetic_stream(1500 + w, 150, 150, seed=seed)
-    n_nodes = 301
+def warm_stream(m: int, k: int, seed: int, extra: int):
+    """The index after a plain (CPU) streaming_scan over a 1,500-event
+    synthetic stream on 301 nodes, and the (src, dst, neg, ts f32, eidx)
+    numpy columns of the ``extra`` events that follow."""
+    data, _ = synthetic_stream(1500 + extra, 150, 150, seed=seed)
     e = 1500
     params = TpprParams.create(ALPHA[:m], BETA[:m], k)
     rng = np.random.RandomState(seed)
-    neg = rng.randint(1, n_nodes, 1500 + w).astype(np.int32)
+    neg = rng.randint(1, 301, 1500 + extra).astype(np.int32)
     ts = data.timestamps.astype(np.float32)
-    state = init_tppr_state(m, n_nodes, k, device="cpu")
+    state = init_tppr_state(m, 301, k, device="cpu")
     state, _ = streaming_scan(state, params, data.sources[:e],
                               data.destinations[:e], neg[:e], ts[:e],
                               data.edge_idxs[:e], np.ones(e, bool))
-    sl = slice(e, e + w)
-    sdn = np.stack([data.sources[sl], data.destinations[sl], neg[sl]], 1)
+    sl = slice(e, e + extra)
+    cols = (data.sources[sl].copy(), data.destinations[sl].copy(),
+            neg[sl].copy(), ts[sl], data.edge_idxs[sl])
+    return params, state.data, cols
+
+
+def realistic_rows(w: int, m: int, k: int, seed: int):
+    """Gathered rows [W, 3, F] on the card of the W events that follow
+    :func:`warm_stream`'s 1,500, with their (src, dst, eidx, ts)."""
+    params, data, (src, dst, neg, ts, eidx) = warm_stream(m, k, seed, w)
+    sdn = np.stack([src, dst, neg], 1)
     cuda = lambda a: torch.as_tensor(a).cuda()
-    rows = cuda(state.data[torch.from_numpy(sdn).long()])
-    return (params, rows, cuda(data.sources[sl]), cuda(data.destinations[sl]),
-            cuda(data.edge_idxs[sl]), cuda(ts[sl]))
+    rows = cuda(data[torch.from_numpy(sdn).long()])
+    return params, rows, cuda(src), cuda(dst), cuda(eidx), cuda(ts)
 
 
-def kernel_phase(card: str):
+def scan_stream(n: int, m: int, k: int, seed: int):
+    """:func:`warm_stream`'s index on the card and its next ``n`` events,
+    with the cases where a fused scan most easily differs from the loop:
+    self-loops (every 9th event), invalid events (every 7th), neg equal to
+    the previous event's src (every 5th) or dst (every 6th), and src equal
+    to the previous dst (every 8th). The 301-node stream shares nodes
+    between near events all the time besides. Returns (params, data,
+    columns on the card)."""
+    params, data, (src, dst, neg, ts, eidx) = warm_stream(m, k, seed, n)
+    valid = np.ones(n, bool)
+    valid[3::7] = False
+    for step, col, prev in ((8, src, dst), (5, neg, src), (6, neg, dst)):
+        i = np.arange(step // 4, n, step)
+        col[i] = prev[i - 1]
+    dst[::9] = src[::9]
+    data = data.cuda()
+    return params, data, _columns(data, src, dst, neg, ts, eidx, valid)
+
+
+def _equal(got, want, what):
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    assert torch.equal(got, want), f"{what}: max abs err {err}"
+    return err
+
+
+def merge_phase(card: str):
     results = []
     for what, w, m, k in MERGE_SHAPES:
         params, rows, src, dst, eidx, ts = realistic_rows(w, m, k, seed=w + k)
-        kernel = lambda: merge.merge_both(rows, src, dst, eidx, ts, params)
+        kernel = lambda: merge.SANTA_MERGE(rows, src, dst, eidx, ts, params)
         plain = lambda: merge.merge_both_reference(rows, src, dst, eidx, ts,
                                                    params)
-        got, want = kernel(), plain()
+        want = plain()
         want_cpu = merge.merge_both_reference(
             rows.cpu(), src.cpu(), dst.cpu(), eidx.cpu(), ts.cpu(), params)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        assert torch.equal(got, want), f"santa_merge {what}: max abs err {err}"
+        err = _equal(kernel(), want, f"santa_merge {what}")
         plain_cpu_same = bool(torch.equal(want.cpu(), want_cpu))
         # the plain version makes 70 device operations per call
-        ms, plain_ms = device_ms(kernel), device_ms(plain, n=60, per_round=10)
-        bound_ms, bound_by = merge_bound(rows, m, k)
-        res = dict(shape=what, W=w, M=m, k=k, max_abs_err=err,
-                   plain_cuda_equals_plain_cpu=plain_cpu_same, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=None, card=card)
+        ms = device_ms(kernel)
+        plain_ms = device_ms(plain, n=60, per_round=10)
+        bound_ms, bound_by = bound(*merge_work(rows, m, k))
+        res = dict(shape=what, W=w, M=m, k=k,
+                   max_abs_err=err, plain_cuda_equals_plain_cpu=plain_cpu_same,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None, card=card)
         print("kernel santa_merge " + json.dumps(res), flush=True)
+        results.append(res)
+    return results
+
+
+def _event_ms(fn, n: int = 3) -> float:
+    """Median device time of ``fn()`` in ms over ``n`` calls, each between
+    two CUDA events (for the plain scan: thousands of launches a call, so
+    the host's enqueue rate sets it)."""
+    times = []
+    for _ in range(n):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def scan_phase(card: str):
+    """santa_scan against scan_reference on the card, with and without
+    extraction; bit for bit in the table and the extraction rows."""
+    results = []
+    for what, n, m, k in SCAN_SHAPES:
+        params, start, cols = scan_stream(n, m, k, seed=n + k)
+        f = row_width(m, k)
+        want = start.clone()
+        want_rows = scan.scan_reference(want, params, *cols)
+        cpu = start.to("cpu", copy=True)
+        cpu_rows = scan.scan_reference(cpu, params, *(c.cpu() for c in cols))
+        plain_cpu_same = bool(torch.equal(want.cpu(), cpu)
+                              and torch.equal(want_rows.cpu(), cpu_rows))
+        err = 0.0
+        for extract in (True, False):
+            got = start.clone()
+            ext = torch.empty((n, 3, f), device="cuda") if extract else None
+            scan.SANTA_SCAN(got, params, *cols, ext=ext)
+            tag = f"santa_scan {what} extract={extract}"
+            err = max(err, _equal(got, want, tag + " data"))
+            if extract:
+                err = max(err, _equal(ext, want_rows, tag + " rows"))
+        work = start.clone()
+        ext = torch.empty((n, 3, f), device="cuda")
+        run = lambda e=None: scan.SANTA_SCAN(work, params, *cols, ext=e)
+        ms = device_ms(run, n=20, per_round=20)
+        ms_extract = device_ms(lambda: run(ext), n=20, per_round=20)
+        plain_ms = _event_ms(lambda: scan.scan_reference(
+            work.clone(), params, *cols, extract=False))
+        bound_ms, bound_by = bound(*scan_work(want_rows, cols, m, k, False))
+        bound_ext_ms, _ = bound(*scan_work(want_rows, cols, m, k, True))
+        res = dict(shape=what, E=n, M=m, k=k,
+                   max_abs_err=err, plain_cuda_equals_plain_cpu=plain_cpu_same,
+                   ms=ms, us_per_event=1e3 * ms / n, ms_extract=ms_extract,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_extract_ms=bound_ext_ms, library_ms=None, card=card)
+        print("kernel santa_scan " + json.dumps(res), flush=True)
         results.append(res)
     return results
 
@@ -205,13 +336,16 @@ def serve_phase(card: str):
     cpu = LinkPredictor(cfg, params, mem, index, edge_feats, device="cpu")
 
     torch.cuda.reset_peak_memory_stats()
-    merge.SANTA_MERGE.launches = 0
+    scan.SANTA_SCAN.launches = merge.SANTA_MERGE.launches = 0
     t0 = time.perf_counter()
     gpu_scores, timing = _drive(gpu, cols, timed=True)
     main_s = time.perf_counter() - t0
-    launches = merge.SANTA_MERGE.launches
+    launches = scan.SANTA_SCAN.launches
+    merge_launches = merge.SANTA_MERGE.launches
     observed = WARM_EVENTS + FINAL_OBSERVE_B
-    assert launches == observed > 0, (launches, observed)
+    observe_calls = WARM_EVENTS // OBSERVE_BS + 1
+    assert launches == observe_calls and merge_launches == 0, (
+        launches, merge_launches, observe_calls)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     cpu_scores, _ = _drive(cpu, cols, timed=False)
@@ -249,14 +383,79 @@ def serve_phase(card: str):
           f"{FINAL_OBSERVE_B / s:.1f} events/s  (one call; {card})",
           flush=True)
     res = dict(n_nodes=cfg.n_nodes, n_edges=cfg.n_edges,
-               observed_events=observed, santa_merge_launches=launches,
-               launches_per_observed_event=launches / observed,
+               observed_events=observed, observe_calls=observe_calls,
+               santa_scan_launches=launches,
+               santa_merge_launches=merge_launches,
                main_path_s=main_s, peak_device_gib=peak_gib,
                index_bitwise_cuda_vs_cpu=index_bitwise,
                memory_max_abs_err=mem_err, memory_diff_share=mem_share,
                score_max_abs_err=score_err, card=card)
     print("serve " + json.dumps(res), flush=True)
+    return launches, gpu, cols
+
+
+def wave_phase(gpu: LinkPredictor, cols, card: str):
+    """The santa_merge path: ``edge_step`` on waves of consecutive,
+    node-disjoint events (at most WAVE_CAP each; such a wave equals its
+    events in sequence) after the served ones, from the served index,
+    against ``fill_scan`` of the same events from the same index. Returns
+    santa_merge's launches."""
+    lo = WARM_EVENTS + FINAL_OBSERVE_B
+    src, dst, ts, eidx = (c[lo: lo + WAVE_EVENTS] for c in cols)
+    waves, seen = [[]], set()
+    for i, (s, d) in enumerate(zip(src, dst)):
+        if {s, d} & seen or len(waves[-1]) == WAVE_CAP:
+            waves.append([])
+            seen = set()
+        waves[-1].append(i)
+        seen |= {s, d}
+    start = gpu.index_state.data
+    by_wave = TpprState(start.clone())
+    merge.SANTA_MERGE.launches = scan.SANTA_SCAN.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in waves:
+        edge_step(by_wave, src[w], dst[w], src[w], ts[w], eidx[w],
+                  np.ones(len(w), bool), gpu._tppr)
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    launches = merge.SANTA_MERGE.launches
+    assert launches == len(waves) and scan.SANTA_SCAN.launches == 0, (
+        launches, len(waves))
+    seq = fill_scan(TpprState(start.clone()), gpu._tppr, src, dst, ts, eidx,
+                    np.ones(len(src), bool))
+    _equal(by_wave.data, seq.data, "edge_step waves vs fill_scan")
+    res = dict(events=len(src), waves=len(waves),
+               mean_wave=len(src) / len(waves), santa_merge_launches=launches,
+               waves_s=wave_s, index_bitwise_waves_vs_scan=True, card=card)
+    print("waves " + json.dumps(res), flush=True)
     return launches
+
+
+def fill_phase(cfg, cols, card: str):
+    """The whole bench stream through ``fill_scan`` in one launch, from an
+    empty index; counts the live weights that are subnormal
+    (0 < w < 2^-126), which the XLA reference flushes to zero and the port
+    keeps."""
+    src, dst, ts, eidx = cols
+    state = init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk, device="cuda")
+    valid = np.ones(len(src), bool)
+    cols = [torch.as_tensor(c).cuda() for c in (src, dst, ts, eidx, valid)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fill_scan(state, TpprParams.create(cfg.alpha_list, cfg.beta_list,
+                                       cfg.topk), *cols)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    m, k = cfg.n_tppr, cfg.topk
+    w = state.data[:, : 4 * m * k].reshape(-1, m, 4, k)[:, :, 0]
+    assert bool(torch.isfinite(state.data).all())
+    res = dict(events=len(src), nodes=cfg.n_nodes, fill_s=fill_s,
+               us_per_event=1e6 * fill_s / len(src),
+               live_entries=int((w > 0).sum()),
+               subnormal_live_entries=int(((w > 0) & (w < FLT_MIN)).sum()),
+               min_live_weight=float(w[w > 0].min()), card=card)
+    print("fill " + json.dumps(res), flush=True)
 
 
 def main() -> int:
@@ -285,23 +484,28 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    shapes = kernel_phase(card)
-    launches = serve_phase(card)
+    merges = merge_phase(card)
+    scans = scan_phase(card)
+    scan_launches, gpu, cols = serve_phase(card)
+    merge_launches = wave_phase(gpu, cols, card)
+    fill_phase(gpu.cfg, cols, card)
 
-    main = shapes[0]
-    print(json.dumps({"kernels": [{
-        "name": "santa_merge",
-        "route": "cuda",
-        "source": "zebra_tpu_torch/csrc/santa_merge.cu",
-        "replaces": "zebra_tpu/index/pallas_merge.py:43",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    def entry(name, results, main, launches):
+        return dict(
+            name=name, route="cuda",
+            source=f"zebra_tpu_torch/csrc/{name}.cu",
+            replaces="zebra_tpu/index/pallas_merge.py:43",
+            launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in results),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")})
+
+    # each kernel at the shape its path gives it: a training wave for
+    # santa_merge, a b = 200 observe for santa_scan
+    print(json.dumps({"kernels": [
+        entry("santa_merge", merges, merges[1], merge_launches),
+        entry("santa_scan", scans, scans[0], scan_launches),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The build runs at first use into ``zebra_tpu_torch/_build/``,
-keyed by a hash of the sources and flags, so a fresh checkout builds by
-itself and an edited source rebuilds. Nothing here runs at import time."""
+seconds); :class:`Kernel` binds one entry point and counts its launches.
+The build runs at first use into ``zebra_tpu_torch/_build/``, keyed by a
+hash of the source, the shared ``*.cuh`` headers and the flags, so a fresh
+checkout builds by itself and an edited source rebuilds. Nothing here runs
+at import time."""
 
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("santa_merge",)
+SOURCES = ("santa_merge", "santa_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -96,3 +98,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+class Kernel:
+    """The C entry point ``<name>`` of ``csrc/<name>.cu``: bound with ctypes
+    at its first launch (building the library if needed), with a count of
+    its launches. The entry point returns a ``cudaError_t``; a launch that
+    was refused raises."""
+
+    def __init__(self, name: str, argtypes: Sequence):
+        self.name = name
+        self.launches = 0
+        self._argtypes = list(argtypes)
+        self._fn = None
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(load(self.name), self.name)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = self._fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed: cudaError {rc}")
+        self.launches += 1

@@ -1,4 +1,5 @@
 from zebra_tpu_torch.index.streaming import (
+    fill_scan,
     TpprParams,
     TpprQueries,
     TpprState,
@@ -8,6 +9,7 @@ from zebra_tpu_torch.index.streaming import (
 )
 
 __all__ = [
+    "fill_scan",
     "TpprParams",
     "TpprQueries",
     "TpprState",

@@ -4,11 +4,13 @@ PyTorch version (counterpart of ``zebra_tpu/index/pallas_merge.py``).
 Both work on packed rows: they read the gathered rows [W, R, F] of W edges
 (row 0 = src, row 1 = dst, further rows such as the negative are not read)
 and return the two new rows per edge [W, 2, F], which the caller scatters
-back (``streaming._step``). The row layout is ``layout.py``'s.
+back (``scan.step``). The row layout is ``layout.py``'s.
 
-``merge_both`` is the wrapper the scan calls: a tensor on the CPU goes to
-:func:`merge_both_reference`; a CUDA tensor launches the kernel or raises.
-:data:`SANTA_MERGE` counts the kernel's launches."""
+``merge_both`` is the wrapper a wave step calls (``scan.step``): a tensor
+on the CPU goes to :func:`merge_both_reference`; a CUDA tensor launches the
+kernel or raises. :data:`SANTA_MERGE` counts the kernel's launches. The
+serving scan runs the same merge body inside its own kernel
+(``scan.py``)."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import functools
 
 import torch
 
+from zebra_tpu_torch.build import Kernel
 from zebra_tpu_torch.index.layout import (
     TpprParams,
     pack_rows,
@@ -97,36 +100,35 @@ def merge_both_reference(rows: torch.Tensor, src, dst, e_idx, e_ts,
     return pack_rows(new_fields, new_norm)
 
 
-class SantaMergeKernel:
+def check_limits(kernel: str, m: int, k: int) -> None:
+    """Raise before any build when M or k exceed the kernels' static
+    limits."""
+    if not (1 <= m <= MAX_M and 1 <= k <= MAX_K):
+        raise ValueError(
+            f"{kernel} supports M ≤ {MAX_M} members and k ≤ {MAX_K} "
+            f"(got M={m}, k={k})"
+        )
+
+
+def host_coefficients(params: TpprParams):
+    """α and β as C float arrays: the kernels take them by value."""
+    m = len(params.alpha)
+    return (ctypes.c_float * m)(*params.alpha), (ctypes.c_float * m)(*params.beta)
+
+
+class SantaMergeKernel(Kernel):
     """ctypes binding of ``csrc/santa_merge.cu``: builds at first call,
     launches on the current stream, counts its launches."""
 
-    name = "santa_merge"
-
     def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def _function(self):
-        if self._fn is None:
-            from zebra_tpu_torch.build import load
-
-            fn = load(self.name).santa_merge
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p,
-                           i, i, i, p]
-            fn.restype = i
-            self._fn = fn
-        return self._fn
+        p, i = ctypes.c_void_p, ctypes.c_int
+        super().__init__("santa_merge", [p, ctypes.c_longlong, p, p, p, p, p,
+                                         p, p, i, i, i, p])
 
     def __call__(self, rows, src, dst, e_idx, e_ts,
                  params: TpprParams) -> torch.Tensor:
         m, k = len(params.alpha), params.k
-        if not (1 <= m <= MAX_M and 1 <= k <= MAX_K):
-            raise ValueError(
-                f"santa_merge supports M ≤ {MAX_M} members and k ≤ {MAX_K} "
-                f"(got M={m}, k={k})"
-            )
+        check_limits(self.name, m, k)
         f = row_width(m, k)
         dev = rows.device
         if (rows.dtype != torch.float32 or rows.dim() != 3
@@ -149,17 +151,13 @@ class SantaMergeKernel:
         out = torch.empty((n_w, 2, f), dtype=torch.float32, device=dev)
         if n_w == 0:
             return out
-        alpha = (ctypes.c_float * m)(*params.alpha)
-        beta = (ctypes.c_float * m)(*params.beta)
-        rc = self._function()(
+        alpha, beta = host_coefficients(params)
+        self.launch(
             rows.data_ptr(), rows.stride(0), src.data_ptr(), dst.data_ptr(),
             e_idx.data_ptr(), e_ts.data_ptr(), ctypes.addressof(alpha),
             ctypes.addressof(beta), out.data_ptr(), n_w, m, k,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-        if rc != 0:
-            raise RuntimeError(f"santa_merge launch failed: cudaError {rc}")
-        self.launches += 1
         return out
 
 

@@ -1,0 +1,143 @@
+"""The streaming scan of a chunk of events in stream order: the CUDA kernel
+``csrc/santa_scan.cu`` (one launch per chunk) and its plain PyTorch version
+(counterpart of the ``lax.scan`` in ``zebra_tpu/index/streaming.py``).
+
+Per event the scan reads the pre-edge rows of src and dst (and neg when it
+extracts them for queries), merges them (``merge.py``) and, for a valid
+event, writes both new rows back into ``data`` in place. :func:`scan`
+dispatches: a CPU tensor runs :func:`scan_reference`, a CUDA tensor launches
+the kernel once (:data:`SANTA_SCAN` counts the launches) or raises."""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from zebra_tpu_torch.build import Kernel
+from zebra_tpu_torch.index.layout import TpprParams, row_width
+from zebra_tpu_torch.index.merge import (
+    check_limits,
+    host_coefficients,
+    merge_both,
+    merge_both_reference,
+)
+
+
+def step(data, ids, rows, src, dst, e_idx, e_ts, valid, params,
+         merge=merge_both):
+    """One batched SANTA step on W node-disjoint edges: gather the rows
+    ``ids`` [W, R≥2] (src, dst, then any rows to extract) into ``rows``
+    [W, R, F], merge, scatter the two new rows per edge back into ``data``
+    in place. ``valid`` None means all valid.
+
+    A self-loop (src == dst) computes two identical rows, so its duplicate
+    index in ``index_copy_`` writes one value whichever copy lands last."""
+    f = data.shape[1]
+    torch.index_select(data, 0, ids.reshape(-1), out=rows.view(-1, f))
+    new_rows = merge(rows, src, dst, e_idx, e_ts, params)  # [W, 2, F]
+    if valid is not None:
+        new_rows = torch.where(valid[:, None, None], new_rows, rows[:, :2])
+    data.index_copy_(0, ids[:, :2].reshape(-1), new_rows.view(-1, f))
+
+
+def scan_reference(data: torch.Tensor, params: TpprParams, src, dst, neg,
+                   e_ts, e_idx, valid,
+                   extract: bool = True) -> Optional[torch.Tensor]:
+    """Plain PyTorch scan, one :func:`step` with ``merge_both_reference``
+    per event, on the CPU or the card. Updates ``data`` [N, F] in place;
+    returns the pre-edge (src, dst, neg) rows [E, 3, F] when ``extract``,
+    else None (neg is then not read). Columns: i32 ids, f32 times, bool
+    valid, all on ``data``'s device."""
+    n_in = 3 if extract else 2
+    cols = (src, dst, neg)[:n_in]
+    ids = torch.stack(cols, dim=1).to(torch.int64)
+    rows = torch.empty((src.shape[0], n_in, data.shape[1]), dtype=data.dtype,
+                       device=data.device)
+    all_valid = bool(valid.all())
+    for i in range(src.shape[0]):
+        j = slice(i, i + 1)
+        step(data, ids[j], rows[j], src[j], dst[j], e_idx[j], e_ts[j],
+             None if all_valid else valid[j], params, merge_both_reference)
+    return rows if extract else None
+
+
+class SantaScanKernel(Kernel):
+    """ctypes binding of ``csrc/santa_scan.cu``: builds at first call,
+    launches one block on the current stream, does not synchronise, counts
+    its launches."""
+
+    def __init__(self):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        super().__init__("santa_scan", [p, p, p, p, p, p, p, p, p, p,
+                                        ctypes.c_longlong, i, i, p])
+
+    def __call__(self, data, params: TpprParams, src, dst, neg, e_ts, e_idx,
+                 valid, ext: Optional[torch.Tensor] = None
+                 ) -> Optional[torch.Tensor]:
+        """Scan the events into ``data`` in place; fills ``ext``
+        [E, 3, F] with the pre-edge rows when given and returns it."""
+        m, k = len(params.alpha), params.k
+        check_limits(self.name, m, k)
+        f = row_width(m, k)
+        dev = data.device
+        if (data.dtype != torch.float32 or data.dim() != 2
+                or data.shape[1] != f or not data.is_contiguous()):
+            raise ValueError(
+                f"data must be a contiguous f32 [N, {f}], got {data.dtype} "
+                f"{tuple(data.shape)} strides {data.stride()}"
+            )
+        n = src.shape[0] if src.dim() == 1 else -1
+        for name, t, dt in (("src", src, torch.int32), ("dst", dst, torch.int32),
+                            ("neg", neg, torch.int32),
+                            ("e_idx", e_idx, torch.int32),
+                            ("e_ts", e_ts, torch.float32),
+                            ("valid", valid, torch.bool)):
+            if (t.dtype != dt or t.shape != (n,) or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name} must be a contiguous {dt} [E] on {dev} like src, "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                )
+        if ext is not None and (
+                ext.dtype != torch.float32 or ext.shape != (n, 3, f)
+                or ext.device != dev or not ext.is_contiguous()):
+            raise ValueError(
+                f"ext must be a contiguous f32 [{n}, 3, {f}] on {dev}, got "
+                f"{ext.dtype} {tuple(ext.shape)} on {ext.device}"
+            )
+        if dev.type != "cuda":
+            raise ValueError(f"santa_scan runs on cuda tensors, not {dev}")
+        if n == 0:
+            return ext
+        alpha, beta = host_coefficients(params)
+        self.launch(
+            data.data_ptr(), src.data_ptr(), dst.data_ptr(), neg.data_ptr(),
+            e_idx.data_ptr(), e_ts.data_ptr(), valid.data_ptr(),
+            ctypes.addressof(alpha), ctypes.addressof(beta),
+            None if ext is None else ext.data_ptr(), n, m, k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        return ext
+
+
+SANTA_SCAN = SantaScanKernel()
+
+
+def scan(data: torch.Tensor, params: TpprParams, src, dst, neg, e_ts, e_idx,
+         valid, extract: bool = True) -> Optional[torch.Tensor]:
+    """The scan of a chunk: the plain version for a CPU tensor, one kernel
+    launch for a CUDA tensor (no fallback). Returns the pre-edge rows
+    [E, 3, F] when ``extract``, else None."""
+    if data.device.type == "cpu":
+        return scan_reference(data, params, src, dst, neg, e_ts, e_idx, valid,
+                              extract)
+    if data.device.type == "cuda":
+        ext = None
+        if extract:
+            ext = torch.empty((src.shape[0], 3, data.shape[1]),
+                              dtype=data.dtype, device=data.device)
+        return SANTA_SCAN(data, params, src, dst, neg, e_ts, e_idx, valid,
+                          ext)
+    raise ValueError(f"the scan runs on cpu or cuda tensors, not {data.device}")

@@ -8,12 +8,12 @@ Ids are stored as f32 *values*, exact below 2^24; tables or edge ids at or
 above that width are refused (:func:`check_id_width`).
 
 The SANTA update of an edge reads the pre-edge rows of both endpoints and
-writes both new rows (:func:`edge_step`: gather → merge → masked scatter).
-Edges are strictly sequential, so :func:`streaming_scan` is a Python loop
-over edges; each step gathers the (src, dst, neg) rows into the scan's
-extraction output, merges them (``merge.merge_both``: the CUDA kernel on the
-card, its plain version on the CPU) and scatters the two new rows back into
-``data`` in place."""
+writes both new rows. :func:`edge_step` does it for one wave of
+node-disjoint edges (gather → ``santa_merge`` kernel → masked scatter).
+:func:`streaming_scan` and :func:`fill_scan` run a chunk of events in
+stream order through ``scan.scan``: one ``santa_scan`` kernel launch on the
+card, a loop of steps of the plain merge on the CPU. Both update ``data``
+in place."""
 
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from zebra_tpu_torch.index.layout import (  # noqa: F401  (re-exported)
     row_width,
     split_rows,
 )
-from zebra_tpu_torch.index.merge import merge_both
+from zebra_tpu_torch.index.scan import scan, step
 
 # ids are held as f32 values: exact below 2^24
 ID_LIMIT = 1 << 24
@@ -85,69 +85,69 @@ def unpack_queries(rows3: torch.Tensor, e_ts: torch.Tensor, n_tppr: int,
     )
 
 
-def _step(data, sdn, sd, rows3, src, dst, e_idx, e_ts, valid, params):
-    """One batched SANTA step on W node-disjoint edges: gather the
-    (src, dst, neg) rows into ``rows3`` [W, 3, F], merge, scatter the two new
-    rows per edge back into ``data`` in place. ``sdn`` [W, 3] and ``sd``
-    [W, 2] are contiguous int64 row ids; ``valid`` None means all valid.
-
-    A self-loop (src == dst) computes two identical rows, so its duplicate
-    index in ``index_copy_`` writes one value whichever copy lands last."""
-    f = data.shape[1]
-    torch.index_select(data, 0, sdn.reshape(-1), out=rows3.view(-1, f))
-    new_rows = merge_both(rows3, src, dst, e_idx, e_ts, params)  # [W, 2, F]
-    if valid is not None:
-        new_rows = torch.where(valid[:, None, None], new_rows, rows3[:, :2])
-    data.index_copy_(0, sd.reshape(-1), new_rows.view(-1, f))
-
-
-def _columns(dev, src, dst, neg, e_ts, e_idx, valid):
-    as_t = lambda x, dt: torch.as_tensor(x).to(device=dev, dtype=dt)
-    src, dst, neg = (as_t(x, torch.int32) for x in (src, dst, neg))
-    e_idx = as_t(e_idx, torch.int32)
+def _columns(data, src, dst, neg, e_ts, e_idx, valid):
+    """The event columns on ``data``'s device: i32 ids, f32 times, bool
+    valid, contiguous. One host read checks, on the ids as given (before
+    they narrow to i32), that node ids lie in [0, N) and edge ids below
+    2^24."""
+    dev = data.device
+    as_t = lambda x, dt: torch.as_tensor(x).to(device=dev,
+                                               dtype=dt).contiguous()
+    src, dst, neg, e_idx = (as_t(x, torch.int64)
+                            for x in (src, dst, neg, e_idx))
     e_ts = as_t(e_ts, torch.float32)
     valid = as_t(valid, torch.bool)
     if e_idx.numel():
-        check_id_width(n_edges=int(e_idx.max()) + 1)
-    sdn = torch.stack([src, dst, neg], dim=1).to(torch.int64)
-    sd = sdn[:, :2].contiguous()
-    return src, dst, e_idx, e_ts, valid, sdn, sd
+        ids = torch.cat([src, dst, neg])
+        lo, hi, e_max = torch.stack([ids.min(), ids.max(),
+                                     e_idx.max()]).tolist()
+        check_id_width(n_edges=e_max + 1)
+        if lo < 0 or hi >= data.shape[0]:
+            raise ValueError(
+                f"node ids must lie in [0, {data.shape[0]}), got "
+                f"[{lo}, {hi}]")
+    src, dst, neg, e_idx = (x.to(torch.int32) for x in (src, dst, neg, e_idx))
+    return src, dst, neg, e_ts, e_idx, valid
 
 
 def edge_step(state: TpprState, src, dst, neg, e_ts, e_idx, valid,
               params: TpprParams) -> Tuple[TpprState, torch.Tensor]:
     """The SANTA update of W edges whose rows are pairwise disjoint (one
     wave): extraction rows [W, 3, F] from the pre-edge state, then the merge
-    and the masked scatter of both endpoints' new rows. Padding edges
-    (``valid`` False) leave their rows untouched. Updates ``state`` in
-    place and returns it with the extraction rows."""
+    (the ``santa_merge`` kernel on the card) and the masked scatter of both
+    endpoints' new rows. Padding edges (``valid`` False) leave their rows
+    untouched. Updates ``state`` in place and returns it with the extraction
+    rows."""
     data = state.data
-    src, dst, e_idx, e_ts, valid, sdn, sd = _columns(
-        data.device, src, dst, neg, e_ts, e_idx, valid)
+    src, dst, neg, e_ts, e_idx, valid = _columns(data, src, dst, neg, e_ts,
+                                                 e_idx, valid)
+    ids = torch.stack([src, dst, neg], dim=1).to(torch.int64)
     rows3 = torch.empty((src.shape[0], 3, data.shape[1]), dtype=data.dtype,
                         device=data.device)
-    _step(data, sdn, sd, rows3, src, dst, e_idx, e_ts,
-          None if bool(valid.all()) else valid, params)
+    step(data, ids, rows3, src, dst, e_idx, e_ts,
+         None if bool(valid.all()) else valid, params)
     return state, rows3
 
 
 def streaming_scan(state: TpprState, params: TpprParams, src, dst, neg, e_ts,
                    e_idx, valid) -> Tuple[TpprState, TpprQueries]:
-    """Scan a chunk of the edge stream in order, one edge per step. Updates
-    ``state`` in place; returns it and the pre-edge queries, fields
-    [E, M, 3, k]."""
-    data = state.data
-    src, dst, e_idx, e_ts, valid, sdn, sd = _columns(
-        data.device, src, dst, neg, e_ts, e_idx, valid)
-    n = src.shape[0]
-    rows = torch.empty((n, 3, data.shape[1]), dtype=data.dtype,
-                       device=data.device)
-    all_valid = bool(valid.all())
-    for i in range(n):
-        j = slice(i, i + 1)
-        _step(data, sdn[j], sd[j], rows[j], src[j], dst[j], e_idx[j],
-              e_ts[j], None if all_valid else valid[j], params)
-    return state, unpack_queries(rows, e_ts, len(params.alpha), params.k)
+    """Scan a chunk of the edge stream in order (``scan.scan``: one
+    ``santa_scan`` launch on the card). Updates ``state`` in place; returns
+    it and the pre-edge queries, fields [E, M, 3, k]."""
+    cols = _columns(state.data, src, dst, neg, e_ts, e_idx, valid)
+    rows = scan(state.data, params, *cols, extract=True)
+    return state, unpack_queries(rows, cols[3], len(params.alpha), params.k)
+
+
+def fill_scan(state: TpprState, params: TpprParams, src, dst, e_ts, e_idx,
+              valid) -> TpprState:
+    """Replay a chunk of the stream into the state without extraction
+    (``zebra_tpu/index/streaming.py:fill_scan``; neg is src and never read).
+    One ``santa_scan`` launch on the card. Updates ``state`` in place and
+    returns it."""
+    cols = _columns(state.data, src, dst, src, e_ts, e_idx, valid)
+    scan(state.data, params, *cols, extract=False)
+    return state
 
 
 def read_topk(state: TpprState, nodes3: torch.Tensor, t_q: torch.Tensor,

@@ -6,12 +6,15 @@ Builds the flagship serving configuration at full width (the one
 ``chip_smoke.py`` serves), warms it with 2,000 observed events, then splits
 one b = 200 observe into its two parts, timed apart with the host clock
 around synchronized calls:
-- the index scan (``streaming_scan``: per event a row gather, the merge
-  kernel and a row scatter), and the host cost of one merge-wrapper call;
+- the index scan (``fill_scan``: one ``santa_scan`` launch), and the host
+  cost of one scan-wrapper call (``SANTA_SCAN``, no synchronisation);
 - the memory protocol (``eval_store_commit``);
 and traces one more observe with ``torch.profiler`` for the device-busy
-share and the kernels that take the device time. Prints one JSON line.
-Needs a CUDA device."""
+share and the kernels that take the device time. ``paced_by`` names the
+larger of the two parts (host clock); ``device_share_of_observe`` is the
+traced device time over the untraced observe time, so well under 1 means
+the host sets the pace. Prints one JSON line. Needs a
+CUDA device."""
 
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ import torch
 
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data.synthetic import synthetic_stream
-from zebra_tpu_torch.index import merge
-from zebra_tpu_torch.index.streaming import init_tppr_state, streaming_scan
+from zebra_tpu_torch.index import scan as index_scan
+from zebra_tpu_torch.index.streaming import fill_scan, init_tppr_state
 from zebra_tpu_torch.models.memory import init_memory
 from zebra_tpu_torch.models.tgn import init_tgn_params
 from zebra_tpu_torch.serve import LinkPredictor
@@ -82,7 +85,7 @@ def main() -> None:
     # the parts are timed on throw-away copies of the state
     def scan():
         state = pred.index_state._replace(data=pred.index_state.data.clone())
-        streaming_scan(state, pred._tppr, src, dst, dst, t, eidx, valid)
+        fill_scan(state, pred._tppr, src, dst, t, eidx, valid)
 
     def protocol():
         mem = pred.mem._replace(**{f: getattr(pred.mem, f).clone()
@@ -96,16 +99,17 @@ def main() -> None:
         for f in pred.mem._fields:
             getattr(pred.mem, f).clone()
 
-    rows = pred.index_state.data[torch.stack([src, dst, dst], 1)[:1].long()]
-    one = lambda x: x[:1].contiguous()
-    merge_call = lambda: merge.merge_both(rows, one(src), one(dst), one(eidx),
-                                          one(t), pred._tppr)
-    merge_call()
+    # the wrapper alone, on a scratch table: argument checks, the ctypes
+    # call and the launch, never a synchronisation
+    scratch = pred.index_state.data.clone()
+    wrapper = lambda: index_scan.SANTA_SCAN(scratch, pred._tppr, src, dst,
+                                            src, t, eidx, valid)
+    wrapper()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(1000):
-        merge_call()
-    merge_host_us = (time.perf_counter() - t0) / 1000 * 1e6
+    for _ in range(50):
+        wrapper()
+    scan_host_us = (time.perf_counter() - t0) / 50 * 1e6
     torch.cuda.synchronize()
 
     observe = lambda: pred.observe(*(c[sl] for c in cols))
@@ -115,8 +119,10 @@ def main() -> None:
         scan_ms=_median_s(scan) * 1e3,
         protocol_ms=_median_s(protocol) * 1e3,
         state_clone_ms=_median_s(clone_only) * 1e3,
-        merge_wrapper_host_us=merge_host_us,
+        scan_wrapper_host_us=scan_host_us,
     )
+    parts = {"scan": res["scan_ms"], "protocol": res["protocol_ms"]}
+    res["paced_by"] = max(parts, key=parts.get)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -135,10 +141,15 @@ def main() -> None:
             per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    scan_us = sum(us for name, (_, us) in per_kernel.items()
+                  if "santa_scan" in name)
     res.update(
         traced_observe_wall_us=wall_us,
         device_busy_us=busy_us,
         device_busy_share=busy_us / wall_us,
+        scan_kernel_us=scan_us,
+        # the device's share of an untraced observe call
+        device_share_of_observe=busy_us / (1e3 * res["observe_ms"]),
         top_device_ops=[(name[:60], n, round(us, 1))
                         for name, (n, us) in top],
         card=torch.cuda.get_device_name(0),

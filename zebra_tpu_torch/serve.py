@@ -8,9 +8,9 @@ Example::
     predictor.observe(src, dst, t, eidx)        # stream new interactions
 
 The predictor runs on CUDA unless ``device="cpu"`` is passed. ``observe``
-streams the events through the T-PPR index, one SANTA merge per event
-(the CUDA kernel on the card), then applies the eval-mode memory protocol;
-``score`` is read-only."""
+streams the events through the T-PPR index (``fill_scan``: one
+``santa_scan`` kernel launch per call on the card), then applies the
+eval-mode memory protocol; ``score`` is read-only."""
 
 from __future__ import annotations
 
@@ -26,8 +26,8 @@ from zebra_tpu_torch.index.streaming import (
     TpprQueries,
     TpprState,
     check_id_width,
+    fill_scan,
     read_topk,
-    streaming_scan,
 )
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import affinity_score
@@ -97,16 +97,16 @@ class LinkPredictor:
         """Ingest observed interactions: stream them through the T-PPR index
         (updated in place), then store-and-commit their messages into
         memory (the eval protocol). Edge ids must stay below 2^24
-        (``streaming_scan`` checks)."""
+        (``fill_scan`` checks)."""
         with torch.no_grad():
             src, dst, t = self._ids(src), self._ids(dst), self._times(t)
             eidx = self._ids(eidx)
             valid = torch.ones(src.shape[0], dtype=torch.bool,
                                device=self.device)
-            # the scan's pre-edge queries would feed embedding-sourced
+            # no pre-edge queries: they would feed embedding-sourced
             # messages, which this slice's Config refuses
-            self.index_state, _ = streaming_scan(
-                self.index_state, self._tppr, src, dst, dst, t, eidx, valid)
+            self.index_state = fill_scan(self.index_state, self._tppr, src,
+                                         dst, t, eidx, valid)
             self.mem = self._updated_mem(src, dst, t, eidx, valid)
 
     def _updated_mem(self, src, dst, t, eidx, valid) -> MemoryState:
