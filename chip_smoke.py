@@ -20,8 +20,14 @@ Phases, in order; any failure exits non-zero:
    (the santa_merge path), against ``fill_scan`` of the same events;
 6. fill: the whole 120,000-event bench stream through ``fill_scan`` in one
    launch, and the count of live weights that are subnormal;
-7. one ``{"kernels": [...]}`` line;
-8. last line ``{"ok": true, "device": {...}}``.
+7. train: the flagship training configuration at full width on the bench
+   stream through ``Trainer`` on the card: two ``train_epoch``s (the first
+   a warm-up), ``validate()`` and ``test()``, one santa_merge launch per
+   index wave and no santa_scan launch; then the first 3,000 events
+   replayed with dropout 0 on the card and on the CPU from the same
+   params, one epoch and ``validate()``, and compared;
+8. one ``{"kernels": [...]}`` line;
+9. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
@@ -49,7 +55,9 @@ from zebra_tpu_torch.index.streaming import (
     streaming_scan,
 )
 from zebra_tpu_torch.profile_serve import flagship
+from zebra_tpu_torch.profile_train import flagship_training
 from zebra_tpu_torch.serve import LinkPredictor
+from zebra_tpu_torch.train.loop import Trainer
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -77,6 +85,15 @@ FLT_MIN = 1.17549435e-38
 MEMORY_ATOL, MEMORY_DIFF_SHARE = 2e-2, 0.01
 SCORE_ATOL = 5e-3
 WARM_EVENTS, OBSERVE_BS = 4000, 200
+# Train-replay bars, CUDA vs CPU from the same params with dropout 0:
+# - index tables: bit-equal (the kernel equals its plain version, and the
+#   index does not depend on the params);
+# - memory table (bf16): the serve phase's bars above, for the same reason;
+#   the params themselves differ by the products' summation order;
+# - per-batch losses: that order through the towers and the BCE
+#   (2.4e-7 measured between an H100 and the CPU of its host).
+TRAIN_REPLAY_EVENTS = 3000
+TRAIN_LOSS_ATOL = 1e-5
 SCORE_BS = (1, 32, 256, 2048)
 FINAL_OBSERVE_B = 256
 
@@ -458,6 +475,108 @@ def fill_phase(cfg, cols, card: str):
     print("fill " + json.dumps(res), flush=True)
 
 
+def _reset_counts() -> None:
+    merge.SANTA_MERGE.launches = scan.SANTA_SCAN.launches = 0
+
+
+def _metrics(r) -> str:
+    return f"loss {r.loss:.6f} ap {r.ap:.6f} auc {r.auc:.6f} acc {r.acc:.6f}"
+
+
+def train_phase(card: str):
+    """The training main path at full width on the bench stream, then the
+    CUDA-vs-CPU replay. Returns santa_merge's launches in the timed
+    epoch."""
+    cfg, splits, edge_feats = flagship_training(seed=0)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    setup_s = time.perf_counter() - t0
+    n_train = splits.train.n_interactions
+    torch.cuda.reset_peak_memory_stats()
+    epochs = []
+    for e in (1, 2):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = merge.SANTA_MERGE.launches
+        assert launches == r.waves and scan.SANTA_SCAN.launches == 0, (
+            e, launches, r.waves, scan.SANTA_SCAN.launches)
+        assert np.isfinite(r.per_batch[:, 0]).all(), e
+        print(f"train epoch {e}{' (warm-up)' if e == 1 else ''}: {s:.3f} s, "
+              f"{n_train / s:.1f} train events/s, index {r.index_seconds:.3f} "
+              f"s of host time, {r.waves} waves, {launches} santa_merge "
+              f"launches, {_metrics(r)}  ({card})", flush=True)
+        epochs.append(dict(seconds=s, events_per_s=n_train / s,
+                           index_host_s=r.index_seconds, waves=r.waves,
+                           santa_merge_launches=launches, loss=r.loss,
+                           ap=r.ap, auc=r.auc, acc=r.acc))
+    _reset_counts()
+    t0 = time.perf_counter()
+    val, nn_val = trainer.validate()
+    test, nn_test = trainer.test()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = merge.SANTA_MERGE.launches
+    phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
+    assert eval_launches == sum(r.waves for r in phases.values()), (
+        eval_launches, {k: r.waves for k, r in phases.items()})
+    assert scan.SANTA_SCAN.launches == 0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, r in phases.items():
+        print(f"{name:8s} {r.seconds:.3f} s, {r.waves} waves, {_metrics(r)}"
+              f"  ({card})", flush=True)
+    print(f"train peak device memory {peak_gib:.3f} GiB  ({card})", flush=True)
+    assert epochs[1]["ap"] > 0.5 and val.ap > 0.5 and test.ap > 0.5, (
+        epochs[1]["ap"], val.ap, test.ap)
+    res = dict(train_events=n_train, n_nodes=trainer.cfg.n_nodes,
+               setup_s=setup_s, epochs=epochs, eval_s=eval_s,
+               eval_santa_merge_launches=eval_launches,
+               phases={k: dict(seconds=r.seconds, waves=r.waves, ap=r.ap,
+                               auc=r.auc, acc=r.acc)
+                       for k, r in phases.items()},
+               peak_device_gib=peak_gib, card=card)
+    print("train " + json.dumps(res), flush=True)
+    replay_phase(card)
+    return epochs[1]["santa_merge_launches"]
+
+
+def replay_phase(card: str):
+    """The first TRAIN_REPLAY_EVENTS bench events at full width, dropout 0,
+    through one ``train_epoch`` and ``validate()`` on the card and on the
+    CPU; both Trainers draw the same params (a CPU generator)."""
+    cfg, splits, edge_feats = flagship_training(
+        seed=0, n_events=TRAIN_REPLAY_EVENTS, dropout=0.0)
+    gpu = Trainer(cfg, splits, edge_feats, device="cuda")
+    cpu = Trainer(cfg, splits, edge_feats, device="cpu")
+    for a, b in zip(gpu.params.parameters(), cpu.params.parameters()):
+        assert torch.equal(a.cpu(), b)
+    out = {}
+    for leg, run in (("train", lambda t: t.train_epoch()),
+                     ("val", lambda t: t.validate()[0])):
+        rg, rc = run(gpu), run(cpu)
+        got, want = gpu.index_state.data.cpu(), cpu.index_state.data
+        index_bitwise = bool(torch.equal(got, want))
+        assert index_bitwise, (leg, int((got != want).any(1).sum()))
+        diff = (gpu.mem.memory.cpu().float() - cpu.mem.memory.float()).abs()
+        mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
+        loss_err = float(np.abs(rg.per_batch[:, 0] - rc.per_batch[:, 0]).max())
+        out[leg] = dict(batches=int(rg.per_batch.shape[0]), waves=rg.waves,
+                        index_bitwise_cuda_vs_cpu=index_bitwise,
+                        memory_max_abs_err=mem_err,
+                        memory_diff_share=mem_share,
+                        batch_loss_max_abs_err=loss_err,
+                        ap_cuda=rg.ap, ap_cpu=rc.ap)
+        print(f"replay {leg}: " + json.dumps(out[leg]), flush=True)
+        assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
+            leg, mem_err, mem_share)
+        assert loss_err <= TRAIN_LOSS_ATOL, (leg, loss_err)
+    print("replay " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS, card=card,
+                                      **out)), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -476,9 +595,10 @@ def main() -> int:
     card = f"{kind}, {smi.splitlines()[0].split(',')[-1].strip()}"
 
     t0 = time.perf_counter()
-    logs = build.build()
+    sources = build.SOURCES + build.HOST_SOURCES
+    logs = build.build(sources)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{', '.join(build.SOURCES)}", flush=True)
+          f"{', '.join(sources)}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -487,8 +607,9 @@ def main() -> int:
     merges = merge_phase(card)
     scans = scan_phase(card)
     scan_launches, gpu, cols = serve_phase(card)
-    merge_launches = wave_phase(gpu, cols, card)
+    wave_phase(gpu, cols, card)
     fill_phase(gpu.cfg, cols, card)
+    merge_launches = train_phase(card)
 
     def entry(name, results, main, launches):
         return dict(
@@ -501,7 +622,8 @@ def main() -> int:
                                           "bound_by", "library_ms")})
 
     # each kernel at the shape its path gives it: a training wave for
-    # santa_merge, a b = 200 observe for santa_scan
+    # santa_merge (launches: the timed train epoch), a b = 200 observe for
+    # santa_scan (launches: the serve phase)
     print(json.dumps({"kernels": [
         entry("santa_merge", merges, merges[1], merge_launches),
         entry("santa_scan", scans, scans[0], scan_launches),

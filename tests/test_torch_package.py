@@ -1,7 +1,7 @@
 """Package rules of the port (zebra_tpu_torch): it never imports JAX or the
-JAX package; entry points run on CUDA unless asked for the CPU and raise
-without a card; ids that f32 cannot hold raise; configurations outside the
-ported slice raise."""
+JAX package, nor loads its native library; entry points run on CUDA unless
+asked for the CPU and raise without a card; ids that f32 cannot hold raise;
+configurations outside the ported slice raise."""
 
 import dataclasses
 import pathlib
@@ -16,11 +16,13 @@ import torch
 from zebra_tpu.config import Config as JaxConfig
 from zebra_tpu_torch import bridge, resolve_device
 from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.data import split_data, synthetic_stream
 from zebra_tpu_torch.index import merge as pm
 from zebra_tpu_torch.index import streaming as pst
 from zebra_tpu_torch.models.memory import init_memory
 from zebra_tpu_torch.models.tgn import init_tgn_params
 from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
+from zebra_tpu_torch.train.loop import Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
@@ -75,7 +77,14 @@ ENTRY_POINTS = {
     "LinkPredictor": lambda cfg: LinkPredictor(
         cfg, init_tgn_params(cfg, torch.Generator(), "cpu"), *_state(cfg),
         np.zeros((10, 2), np.float32)),
+    "Trainer": lambda cfg: Trainer(cfg, _splits(), None),
 }
+
+
+def _splits():
+    data, _ = synthetic_stream(60, 5, 5, seed=0)
+    return split_data(data.sources, data.destinations, data.timestamps,
+                      data.edge_idxs, data.labels)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -125,6 +134,9 @@ def test_ids_past_f32_width_raise(call):
     ("use_destination_embedding_in_message", True),
     ("interleave_shards", 2),
     ("parallel_runs", 2),
+    ("lazy_unique_cap", -1),
+    ("n_devices", 2),
+    ("owner_aligned_waves", True),
 ])
 def test_config_refuses_values_outside_the_slice(field, value):
     with pytest.raises(ValueError, match=field):
@@ -158,6 +170,20 @@ def test_unported_serving_parts_raise():
     with pytest.raises(NotImplementedError):
         LinkPredictor.from_checkpoint("x.ckpt")
     with pytest.raises(NotImplementedError):
-        LinkPredictor.from_trainer(None)
-    with pytest.raises(NotImplementedError):
         EnsemblePredictor()
+
+
+def test_scheduler_is_the_port_own_library():
+    """The wave scheduler loads the port's build of csrc/wave_schedule.cc,
+    never the JAX package's libzt_ingest.so (fresh interpreter)."""
+    code = (
+        "from zebra_tpu_torch.index.waves import wave_schedule\n"
+        "print(wave_schedule([1, 2], [3, 1], [2, 3], 4, 8)[2])\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libzt_ingest' not in maps\n"
+        "assert 'libwave_schedule-' in maps\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["2"]

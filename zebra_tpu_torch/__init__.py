@@ -9,11 +9,14 @@ and plain functions on tensors.
 This package never imports ``jax`` or ``zebra_tpu``. Its entry points run on
 CUDA unless the caller passes ``device="cpu"`` (see :mod:`.device`); on a
 CUDA tensor every hand-written kernel launches (the SANTA merge,
-``csrc/santa_merge.cu``), and on a CPU tensor its plain PyTorch version runs.
+``csrc/santa_merge.cu`` and ``csrc/santa_scan.cu``), and on a CPU tensor its
+plain PyTorch version runs.
 
-Ported so far: the streaming serving path — ``serve.LinkPredictor``'s
-``observe``/``score`` for the streaming strategy, the diffusion tower, the
-GRU/RNN updater and the ``last`` aggregator.
+Ported so far, for the streaming strategy, the diffusion tower, the GRU/RNN
+updater and the ``last`` aggregator: training on one device
+(``train.loop.Trainer``: ``train_epoch``, ``validate``, ``test``) and
+serving (``serve.LinkPredictor``: ``observe``, ``score``,
+``from_trainer``).
 """
 
 import torch

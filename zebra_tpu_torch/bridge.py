@@ -2,7 +2,9 @@
 numpy (the port never imports JAX).
 
 - params: a numpy pytree ``{"fc1": {"w", "b"}, ..., "cell": {"w_ih", ...}}``
-  (``jax.tree.map(np.asarray, params)``) ↔ the port's ``nn.ModuleDict``;
+  (``jax.tree.map(np.asarray, params)``) ↔ the port's ``nn.ModuleDict``,
+  also into a port ``Trainer`` (:func:`load_trainer_params`), whose
+  ``params`` come back through :func:`params_to_numpy`;
 - memory: any object with ``MemoryState``'s five fields ↔ the port's
   ``MemoryState``;
 - index: any object with a ``data`` field ↔ ``TpprState``.
@@ -56,6 +58,12 @@ def params_from_numpy(tree: Mapping[str, Mapping[str, Any]],
         })
         for name, layer in tree.items()
     }).requires_grad_(False)
+
+
+def load_trainer_params(trainer, tree: Mapping[str, Mapping[str, Any]]) -> None:
+    """Train a port ``Trainer`` from the numpy params ``tree`` (a JAX
+    Trainer's, say) from here on, with a fresh Adam state."""
+    trainer.set_params(params_from_numpy(tree, trainer.device))
 
 
 def params_to_numpy(params: nn.ModuleDict) -> Dict[str, Dict[str, np.ndarray]]:

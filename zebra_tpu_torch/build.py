@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's native code: the CUDA kernels (``csrc/*.cu``)
+and the host-side wave scheduler (``csrc/wave_schedule.cc``).
 
-Each source compiles with ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds); :class:`Kernel` binds one entry point and counts its launches.
-The build runs at first use into ``zebra_tpu_torch/_build/``, keyed by a
-hash of the source, the shared ``*.cuh`` headers and the flags, so a fresh
-checkout builds by itself and an edited source rebuilds. Nothing here runs
-at import time."""
+Each source compiles into a shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds): a ``.cu``
+with ``nvcc`` for sm_90a, a ``.cc`` with the host C++ compiler.
+:class:`Kernel` binds one kernel's entry point and counts its launches. The
+build runs at first use into ``zebra_tpu_torch/_build/``, keyed by a hash of
+the source, the shared ``*.cuh`` headers (for a ``.cu``) and the flags, so a
+fresh checkout builds by itself and an edited source rebuilds. Nothing here
+runs at import time."""
 
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# host C++ (the wave scheduler): no CUDA, so it builds where tests run
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 SOURCES = ("santa_merge", "santa_scan")
+HOST_SOURCES = ("wave_schedule",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -51,28 +56,49 @@ def nvcc_path() -> str:
     )
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, then g++, then c++ on PATH."""
+    for c in (os.environ.get("CXX"), shutil.which("g++"), shutil.which("c++")):
+        if c:
+            return c
+    raise RuntimeError("no C++ compiler found (set CXX): the wave scheduler "
+                       "is built from zebra_tpu_torch/csrc at first use")
+
+
+def _recipe(name: str):
+    """(compiler command, flags, sources that key the build) of
+    ``csrc/<name>.cu`` or ``csrc/<name>.cc``."""
+    if name in HOST_SOURCES:
+        return cxx_path, CXX_FLAGS, [CSRC / f"{name}.cc"]
+    return (nvcc_path, NVCC_FLAGS,
+            [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")))
+
+
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by content."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    """Where the build of ``csrc/<name>.cu`` (or ``.cc``) lives, keyed by
+    content."""
+    _, flags, sources = _recipe(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library of ``names``, one ``nvcc`` per source,
-    all started together. Returns the compiler's log per built source
-    (empty for a library that was already built); raises on a failure."""
+    """Compile every missing library of ``names``, one compiler process per
+    source, all started together. Returns the compiler's log per built
+    source (empty for a library that was already built); raises on a
+    failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
+        compiler, flags, sources = _recipe(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler(), *flags, "-o", str(tmp), str(sources[0])]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
@@ -82,16 +108,18 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: {proc.args[0]} exited "
+                          f"{proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cc``), built first if
+    needed."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

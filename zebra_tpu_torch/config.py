@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 
@@ -43,8 +43,21 @@ class Config:
     message_function: str = "identity"
     aggregator: str = "last"
 
-    # ---- seeds, id layout ----
+    # ---- training ----
+    bs: int = 200
+    lr: float = 1e-4
+    dropout: float = 0.1
+    n_epoch: int = 50
+    enable_random: bool = False
+    seed: int = 0
+    index_chunk: int = 65536
+    wave_cap: int = 64
+    lazy_unique_cap: int = 0
+
+    # ---- seeds, devices, id layout ----
     parallel_runs: int = 1
+    n_devices: int = 1
+    owner_aligned_waves: Optional[bool] = None
     interleave_shards: int = 0
 
     # ---- storage / matmul dtypes ----
@@ -75,6 +88,9 @@ class Config:
                 bool(self.use_destination_embedding_in_message),
             "interleave_shards": int(self.interleave_shards or 0) > 1,
             "parallel_runs": int(self.parallel_runs) > 1,
+            "n_devices": int(self.n_devices) != 1,
+            "owner_aligned_waves": bool(self.owner_aligned_waves),
+            "lazy_unique_cap": int(self.lazy_unique_cap) != 0,
             "memory_updater": self.memory_updater not in ("gru", "rnn"),
             "message_dtype": self.message_dtype not in _DTYPES,
             "memory_dtype": self.memory_dtype not in _DTYPES,
@@ -84,7 +100,8 @@ class Config:
         if bad:
             raise ValueError(
                 "outside the ported slice (streaming strategy, diffusion "
-                "tower, last aggregator, identity messages, one model): "
+                "tower, last aggregator, identity messages, per-position lazy "
+                "updates, one model on one device): "
                 + ", ".join(bad)
             )
 

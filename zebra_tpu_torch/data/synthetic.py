@@ -7,28 +7,11 @@ edge features with a zero padding row."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 
-
-@dataclass
-class Data:
-    """One chronological slice of a stream: parallel event arrays."""
-
-    sources: np.ndarray
-    destinations: np.ndarray
-    timestamps: np.ndarray
-    edge_idxs: np.ndarray
-    labels: np.ndarray
-
-    def __post_init__(self):
-        self.sources = np.asarray(self.sources, dtype=np.int32)
-        self.destinations = np.asarray(self.destinations, dtype=np.int32)
-        self.timestamps = np.asarray(self.timestamps, dtype=np.float64)
-        self.edge_idxs = np.asarray(self.edge_idxs, dtype=np.int32)
-        self.labels = np.asarray(self.labels)
+from zebra_tpu_torch.data.dataset import Data
 
 
 def synthetic_stream(

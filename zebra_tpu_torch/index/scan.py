@@ -26,11 +26,13 @@ from zebra_tpu_torch.index.merge import (
 
 
 def step(data, ids, rows, src, dst, e_idx, e_ts, valid, params,
-         merge=merge_both):
+         merge=merge_both, write_ids=None):
     """One batched SANTA step on W node-disjoint edges: gather the rows
     ``ids`` [W, R≥2] (src, dst, then any rows to extract) into ``rows``
     [W, R, F], merge, scatter the two new rows per edge back into ``data``
-    in place. ``valid`` None means all valid.
+    in place. ``valid`` None means all valid. ``write_ids`` is
+    ``ids[:, :2].reshape(-1)`` made ahead by a caller that steps through
+    many waves (the reshape copies).
 
     A self-loop (src == dst) computes two identical rows, so its duplicate
     index in ``index_copy_`` writes one value whichever copy lands last."""
@@ -39,7 +41,9 @@ def step(data, ids, rows, src, dst, e_idx, e_ts, valid, params,
     new_rows = merge(rows, src, dst, e_idx, e_ts, params)  # [W, 2, F]
     if valid is not None:
         new_rows = torch.where(valid[:, None, None], new_rows, rows[:, :2])
-    data.index_copy_(0, ids[:, :2].reshape(-1), new_rows.view(-1, f))
+    if write_ids is None:
+        write_ids = ids[:, :2].reshape(-1)
+    data.index_copy_(0, write_ids, new_rows.view(-1, f))
 
 
 def scan_reference(data: torch.Tensor, params: TpprParams, src, dst, neg,

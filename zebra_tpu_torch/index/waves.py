@@ -1,0 +1,137 @@
+"""Wave-parallel streaming T-PPR scan (counterpart of
+``zebra_tpu/index/waves.py``).
+
+The SANTA recurrence is sequential per node, not per edge: an edge depends
+only on earlier edges that touched its src, dst (rows it writes) or neg (a
+row it reads for extraction). The host scheduler (``csrc/wave_schedule.cc``,
+a copy of the JAX package's C++ one) cuts a chunk of the stream into waves
+of pairwise node-disjoint edges, at most ``cap`` each, such that every
+dependency crosses a wave boundary. A wave is then one batched step (gather
+→ merge → scatter, ``scan.step``): one ``santa_merge`` launch on the card.
+Within a wave all reads precede all writes, so the wave scan is bit-equal
+to the sequential scan (``streaming_scan``).
+
+Per chunk the host turns the schedule into a :class:`WavePlan`: the stream
+positions of the scheduled events in wave order, each event's place in that
+order, and where each wave starts. The device gathers the chunk's columns
+into wave order once; each wave is then a contiguous slice, so the loop
+over the waves reads nothing back from the device and passes no validity
+mask. Only the real waves run: the JAX package pads the wave count to few
+distinct values so that XLA compiles few programs, which here would only
+add empty launches."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from zebra_tpu_torch import build
+from zebra_tpu_torch.index.layout import TpprParams
+from zebra_tpu_torch.index.scan import step
+from zebra_tpu_torch.index.streaming import TpprState, _columns
+
+
+@functools.lru_cache(maxsize=None)
+def _scheduler():
+    """``zt_wave_schedule`` of the host library, built at first use."""
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    fn = build.load("wave_schedule").zt_wave_schedule
+    fn.argtypes = [i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int32, i32p, i32p]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def wave_schedule(src, dst, neg, n_nodes: int,
+                  cap: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Greedy dependency-respecting waves of at most ``cap`` edges: returns
+    (wave [E] i32, slot [E] i32, n_waves). Refuses node ids outside
+    [0, n_nodes)."""
+    cols = [np.ascontiguousarray(c, np.int32) for c in (src, dst, neg)]
+    n = len(cols[0])
+    if any(len(c) != n for c in cols):
+        raise ValueError("src, dst and neg must have the same length")
+    wave, slot = np.empty(n, np.int32), np.empty(n, np.int32)
+    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    n_waves = _scheduler()(*(ptr(c) for c in cols), n, int(n_nodes), int(cap),
+                           ptr(wave), ptr(slot))
+    if n_waves < 0:
+        raise ValueError(
+            f"wave_schedule: node id out of range [0, {n_nodes})" if n_waves == -1
+            else f"wave_schedule: wave cap must be positive, got {cap}")
+    return wave, slot, int(n_waves)
+
+
+def wave_flat_index(src, dst, neg, n_nodes: int,
+                    cap: int = 64) -> Tuple[np.ndarray, int]:
+    """The schedule as one slot per edge, ``wave·cap + lane`` [E] i32, and
+    the real wave count (no padding of the count)."""
+    wave, slot, n_waves = wave_schedule(src, dst, neg, n_nodes, cap)
+    return wave.astype(np.int32) * cap + slot, n_waves
+
+
+class WavePlan(NamedTuple):
+    """One chunk's schedule, laid out for the device loop."""
+
+    order: torch.Tensor        # i64 [E'] stream positions of the scheduled
+                               # events, wave after wave, lanes in order
+    inv: torch.Tensor          # i64 [E] each event's place in ``order``;
+                               # E' for an unscheduled (invalid) event
+    bounds: Tuple[int, ...]    # wave w is order[bounds[w]:bounds[w + 1]]
+
+    @property
+    def n_waves(self) -> int:
+        return len(self.bounds) - 1
+
+
+def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int,
+               device) -> WavePlan:
+    """Schedule the valid events of a chunk (host numpy columns) and lay the
+    schedule out as a :class:`WavePlan` on ``device``."""
+    valid = np.asarray(valid, bool)
+    pos = np.flatnonzero(valid)
+    flat, n_waves = wave_flat_index(np.asarray(src)[pos], np.asarray(dst)[pos],
+                                    np.asarray(neg)[pos], n_nodes, cap)
+    by_slot = np.argsort(flat, kind="stable")
+    order = pos[by_slot]
+    counts = np.bincount(flat[by_slot] // cap, minlength=n_waves)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    inv = np.full(len(valid), len(pos), np.int64)
+    inv[order] = np.arange(len(pos))
+    as_t = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)
+    return WavePlan(as_t(order), as_t(inv), tuple(int(b) for b in bounds))
+
+
+def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
+                    eidx, valid, plan: WavePlan
+                    ) -> Tuple[TpprState, torch.Tensor]:
+    """Scan a chunk wave by wave (one ``santa_merge`` launch per wave on the
+    card). Updates ``state`` in place; returns it and the pre-edge (src,
+    dst, neg) rows [E, 3, F] in stream order, zero for unscheduled events.
+
+    The columns are checked once (``_columns``: one host read), gathered
+    into wave order once, and each wave's extraction rows are gathered
+    straight into its slice of the [E' + 1, 3, F] buffer whose last row is
+    the zero row of the unscheduled events."""
+    data = state.data
+    src, dst, neg, t, eidx, _ = _columns(data, src, dst, neg, t, eidx, valid)
+    order = plan.order
+    w_src, w_dst, w_neg, w_t, w_eidx = (
+        c.index_select(0, order) for c in (src, dst, neg, t, eidx))
+    ids = torch.stack([w_src, w_dst, w_neg], dim=1).to(torch.int64)
+    write_ids = ids[:, :2].reshape(-1)
+    n_sched, f = order.shape[0], data.shape[1]
+    rows = torch.empty((n_sched + 1, 3, f), dtype=data.dtype, device=data.device)
+    rows[n_sched] = 0.0
+    bounds = plan.bounds
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi == lo:
+            continue
+        step(data, ids[lo:hi], rows[lo:hi], w_src[lo:hi], w_dst[lo:hi],
+             w_eidx[lo:hi], w_t[lo:hi], None, params,
+             write_ids=write_ids[2 * lo: 2 * hi])
+    return state, rows.index_select(0, plan.inv)

@@ -1,5 +1,6 @@
 """TGN model stack of the ported slice (counterpart of
-``zebra_tpu/models/tgn.py``): parameter init and the eval-mode forward.
+``zebra_tpu/models/tgn.py``): parameter init and the forward, with dropout
+in train mode.
 
 - diffusion tower: a neighbor MLP fc2(relu(fc1([mem_nbr; edge_feat;
   time_enc(Δt)]))) with a weight-normalized top-k sum per ensemble member,
@@ -13,7 +14,9 @@ pytree's keys (``affinity_fc1/2``, ``cell``, ``fc1``, ``fc2``, ``fc1_src``,
 reads like the JAX code and :mod:`zebra_tpu_torch.bridge` copies weights
 across one to one. Init follows the JAX distributions: Xavier-normal
 tower/head weights, U(±1/√in) biases, U(±1/√H) cell parameters; the numbers
-differ because the generators differ."""
+differ because the generators differ. Dropout masks are drawn from an
+explicit ``torch.Generator`` on the activations' device; they cannot equal
+JAX's ``rbg`` masks, so comparisons with JAX run with dropout 0."""
 
 from __future__ import annotations
 
@@ -61,15 +64,34 @@ def init_tgn_params(cfg: Config, generator: torch.Generator,
     return params.to(dev).requires_grad_(False)
 
 
-def _mlp2(p1, p2, x, mxu=None):
-    """fc2(relu(fc1(x))) — eval mode, no dropout."""
+def _mlp2(p1, p2, x, mxu=None, dropout: float = 0.0, generator=None):
+    """fc2(drop(relu(fc1(x)))): inverted dropout of rate ``dropout`` with a
+    mask from ``generator`` (no dropout when it is None)."""
     hidden = torch.relu(matmul(x, p1["w"], mxu) + p1["b"])
+    if generator is not None and dropout > 0.0:
+        keep = torch.rand(hidden.shape, generator=generator,
+                          device=hidden.device) < 1.0 - dropout
+        hidden = torch.where(keep, hidden / (1.0 - dropout), 0.0)
     return matmul(hidden, p2["w"], mxu) + p2["b"]
 
 
 def cell_apply(cfg: Config, params, msgs, mem):
     _, apply = CELLS[cfg.memory_updater]
     return apply(params["cell"], msgs, mem, cfg.mxu_dtype)
+
+
+def message_input(cfg: Config, params, mem, ids, self_rows=None):
+    """The updater-cell input for the pending messages of ``ids`` (all rows
+    when None) and the pending flags, from one message-row gather: the flag
+    is the last message column (``memory.py``). ``self_rows`` is the
+    caller's gather of ``memory[ids]`` (the sender part of the compact
+    layout), gathered here when not given."""
+    g = (lambda a: a) if ids is None else (lambda a: a[ids])
+    rows = g(mem.messages)
+    if cfg.compact_messages and self_rows is None:
+        self_rows = g(mem.memory)
+    cell_in = message_cell_input(cfg, params, rows[..., :-1], self_rows)
+    return cell_in, rows[..., -1] != 0
 
 
 def message_cell_input(cfg: Config, params, raw, self_rows):
@@ -92,16 +114,19 @@ def diffusion_static_input(cfg: Config, edge_feats, eidx, dt) -> torch.Tensor:
 
 def diffusion_embed(cfg: Config, params, src_mem: torch.Tensor,
                     nbr_mem: torch.Tensor, nbr_static: torch.Tensor,
-                    w: torch.Tensor) -> torch.Tensor:
-    """Ensemble diffusion embedding, eval mode → [Q, d·(M+1)].
+                    w: torch.Tensor, generator=None) -> torch.Tensor:
+    """Ensemble diffusion embedding → [Q, d·(M+1)]; train mode (dropout at
+    ``cfg.dropout``) when a ``generator`` for the masks is given.
 
-    src_mem [Q, d] and nbr_mem [M, Q, k, d] in the memory table's dtype,
-    nbr_static [M, Q, k, De+Dt] f32, w [M, Q, k] T-PPR weights."""
+    src_mem [Q, d] and nbr_mem [M, Q, k, d] in the memory table's dtype (or
+    f32 after a lazy update), nbr_static [M, Q, k, De+Dt] f32, w [M, Q, k]
+    T-PPR weights."""
     src_emb = _mlp2(params["fc1_src"], params["fc2_src"], src_mem,
-                    cfg.mxu_dtype)
+                    cfg.mxu_dtype, cfg.dropout, generator)
     dt = torch.promote_types(nbr_mem.dtype, nbr_static.dtype)
     nbr_in = torch.cat([nbr_mem.to(dt), nbr_static.to(dt)], dim=-1)
-    nbr_emb = _mlp2(params["fc1"], params["fc2"], nbr_in, cfg.mxu_dtype)
+    nbr_emb = _mlp2(params["fc1"], params["fc2"], nbr_in, cfg.mxu_dtype,
+                    cfg.dropout, generator)
 
     # weight-normalize with the zero-sum guard
     w_sum = w.sum(-1, keepdim=True)                          # [M, Q, 1]

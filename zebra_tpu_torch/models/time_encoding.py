@@ -8,13 +8,18 @@ approximate ``__cosf`` would lose the low frequencies' phase."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=None)
 def time_basis(dim: int, device=None) -> torch.Tensor:
     """The fixed frequency vector ω, f32 [dim] (the JAX package's numpy
-    expression, so both packages hold the same bits)."""
+    expression, so both packages hold the same bits). Made once per device:
+    a host-to-card copy per call would wait for the stream to drain. The
+    tensor is shared; callers must not write to it."""
     basis = 1.0 / 10.0 ** np.linspace(0, 9, dim, dtype=np.float32)
     return torch.from_numpy(np.asarray(basis, np.float32)).to(device)
 

@@ -47,6 +47,22 @@ def _median_s(fn, n=10):
     return float(np.median(out))
 
 
+def device_ops(prof) -> dict:
+    """Device-side work of a ``torch.profiler`` trace by name: {name:
+    (count, µs)} over kernels and copies, leaving out the annotations of
+    ranges (an optimizer's step) that the profiler also puts on the
+    device."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return out
+
+
 def flagship(seed: int = 0):
     """The flagship serving configuration at full width (``bench.py:93-104``,
     ``scripts/serve_bench.py:54-59``) on the bench stream of 120,000 events:
@@ -123,7 +139,6 @@ def main() -> None:
     )
     parts = {"scan": res["scan_ms"], "protocol": res["protocol_ms"]}
     res["paced_by"] = max(parts, key=parts.get)
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -133,12 +148,8 @@ def main() -> None:
         observe()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): one stream, no overlap
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = per_kernel.get(e.name, (0, 0.0))
-            per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    # one stream, so device-side events do not overlap
+    per_kernel = device_ops(prof)
     busy_us = sum(us for _, us in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
     scan_us = sum(us for name, (_, us) in per_kernel.items()

@@ -4,6 +4,7 @@ observed interactions (counterpart of ``zebra_tpu/serve.py``).
 Example::
 
     predictor = LinkPredictor(cfg, params, mem, index_state, edge_feats)
+    # or LinkPredictor.from_trainer(trainer) after training
     probs = predictor.score(src, dst, t)        # link probabilities [B]
     predictor.observe(src, dst, t, eidx)        # stream new interactions
 
@@ -46,7 +47,7 @@ class LinkPredictor:
         check_id_width(cfg.n_nodes, cfg.n_edges)
         self.cfg = cfg
         dev = self.device
-        self.params = copy.deepcopy(params).to(dev)
+        self.params = copy.deepcopy(params).to(dev).requires_grad_(False)
         self.mem = MemoryState(*(x.to(dev, copy=True) for x in mem))
         self.index_state = TpprState(index_state.data.to(dev, copy=True))
         self.edge_feats = torch.as_tensor(edge_feats).to(
@@ -59,9 +60,13 @@ class LinkPredictor:
             "zebra_tpu_torch has no checkpoint reader yet (ROADMAP.md)")
 
     @classmethod
-    def from_trainer(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "zebra_tpu_torch has no Trainer yet (ROADMAP.md)")
+    def from_trainer(cls, trainer) -> "LinkPredictor":
+        """A predictor over a port Trainer's current params, memory, index
+        and edge features, on the Trainer's device (copies: the Trainer
+        trains on undisturbed)."""
+        return cls(trainer.cfg, trainer.params, trainer.mem,
+                   trainer.index_state, trainer.edge_feats,
+                   device=trainer.device)
 
     def _ids(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.int32)).to(self.device)

@@ -1,0 +1,126 @@
+"""One pass over a phase's batches (counterpart of the single-seed wave
+path of ``zebra_tpu/train/phase.py``): towers, loss, optimizer, memory
+protocol and metrics, batch by batch, with the T-PPR queries the wave scan
+extracted for the chunk (``index/waves.py``).
+
+Eager PyTorch replaces the JAX package's one ``lax.scan`` per phase: the
+batches run as a Python loop that only enqueues device work. Nothing is
+read back inside the loop: per-batch metrics stay on the device, and the
+caller reads a phase's metrics once."""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.index.streaming import TpprQueries, unpack_queries
+from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.ops.metrics import masked_ap, masked_auc, masked_rank_acc
+from zebra_tpu_torch.train.step import (
+    _commit_pending,
+    _forward,
+    _masked_mean,
+    _scores,
+    _store_messages,
+    eval_store_commit,
+)
+
+METRICS = ("loss", "ap", "auc", "acc")
+
+
+class Stream(NamedTuple):
+    """A phase's events, padded to whole batches, on the device."""
+
+    src: torch.Tensor    # i32 [E]
+    dst: torch.Tensor    # i32 [E]
+    neg: torch.Tensor    # i32 [E] negative node per event
+    t: torch.Tensor      # f32 [E]
+    eidx: torch.Tensor   # i32 [E]
+    valid: torch.Tensor  # bool [E]
+
+
+def batch_queries(cfg: Config, rows: torch.Tensor,
+                  t: torch.Tensor) -> TpprQueries:
+    """A batch's extraction rows [b, 3, F] → queries [M, 3b, k] in
+    src‖dst‖neg row order."""
+    b = rows.shape[0]
+    q = unpack_queries(rows, t, cfg.n_tppr, cfg.topk)      # [b, M, 3, k]
+    return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(cfg.n_tppr, 3 * b,
+                                                       cfg.topk)
+                         for x in q))
+
+
+def _mark(marks: Optional[list], name: str) -> None:
+    """Record a CUDA event after the work enqueued so far (``marks`` None:
+    no timing)."""
+    if marks is not None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+
+def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
+              edge_feats: torch.Tensor, stream: Stream, queries: torch.Tensor,
+              n_valid: Sequence[int], generator=None,
+              marks: Optional[List] = None) -> torch.Tensor:
+    """One pass over the batches of ``stream`` with their extraction rows
+    ``queries`` [E, 3, F]. ``n_valid`` holds each batch's count of valid
+    events (known on the host): a batch with padding passes its mask to the
+    memory protocol, a full one passes None. Train batches take an Adam
+    step of ``optimizer`` on ``params``; ``generator`` draws the dropout
+    masks. Updates ``mem`` in place; returns the per-batch metrics
+    [n_batches, 4] (:data:`METRICS`) on the device.
+
+    ``marks``, a list, receives a (part, CUDA event) pair after each part
+    of each batch: "forward" (queries, towers, loss), "backward", "adam"
+    (train only), "protocol" (the memory protocol), "metrics"."""
+    b = cfg.bs
+    out = []
+    for i, nv in enumerate(n_valid):
+        s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+        valid = None if nv == b else s.valid
+        q = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
+        nodes3 = torch.cat([s.src, s.dst, s.neg])
+        if train:
+            optimizer.zero_grad(set_to_none=True)
+            emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
+                           train=True, generator=generator)
+            pos_logit, neg_logit = _scores(cfg, params, emb, b)
+            bce = F.binary_cross_entropy_with_logits
+            loss = (
+                _masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
+                                 reduction="none"), s.valid)
+                + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
+                                   reduction="none"), s.valid))
+            _mark(marks, "forward")
+            loss.backward()
+            _mark(marks, "backward")
+            optimizer.step()
+            _mark(marks, "adam")
+            # commit earlier batches' messages with the updated parameters,
+            # then store this batch's (one-batch staleness)
+            _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
+                            None if valid is None else torch.cat([valid, valid]))
+            _store_messages(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
+                            s.eidx, valid)
+            loss = loss.detach()
+        else:
+            with torch.no_grad():
+                emb = _forward(cfg, params, mem, edge_feats, nodes3, q)
+                pos_logit, neg_logit = _scores(cfg, params, emb, b)
+            _mark(marks, "forward")
+            eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
+                              s.eidx, valid)
+            loss = torch.zeros((), device=emb.device)
+        _mark(marks, "protocol")
+        with torch.no_grad():
+            pos_p, neg_p = torch.sigmoid(pos_logit), torch.sigmoid(neg_logit)
+            out.append(torch.stack([
+                loss, masked_ap(pos_p, neg_p, s.valid),
+                masked_auc(pos_p, neg_p, s.valid),
+                masked_rank_acc(pos_p, neg_p, s.valid)]))
+        _mark(marks, "metrics")
+    return torch.stack(out)

@@ -1,11 +1,28 @@
-"""Eval-mode building blocks of the step (counterpart of the eval subset of
-``zebra_tpu/train/step.py``): the diffusion eval forward, the batch's raw
-messages, and the fused ``last``-aggregator store+commit.
+"""Building blocks of the train and eval step (counterpart of
+``zebra_tpu/train/step.py``) for the ported slice: the diffusion tower, the
+``last`` aggregator and per-position lazy updates.
 
-EVAL protocol (reference tgn_model.py:159-172): raw memory everywhere, no
-lazy update; a batch's messages are built from pre-commit memory and
-committed straight away. Training (lazy updates, loss, optimizer) is not
-ported yet."""
+TRAIN batch (one-batch message staleness):
+  1. differentiable forward with lazy memory: a selected neighbor row with a
+     pending message goes through the updater cell on the fly, without
+     committing; a query row (src/dst/neg) does so only when its node is
+     also a selected neighbor;
+  2. BCE(pos, 1) + BCE(neg, 0) as masked means, backward, Adam step;
+  3. no grad: commit the pending messages of the batch's positives with the
+     updated parameters, then store this batch's messages (both
+     directions, the last per sender wins) from the post-commit memory.
+
+EVAL batch: raw memory everywhere; the batch's messages are stored and
+committed at once (:func:`eval_store_commit`). A flush of every pending
+message (:func:`flush_pending`) runs at the train→eval transition.
+
+The memory tables are updated in place, under ``torch.no_grad()``; the
+gradients reach the parameters, never the tables. ``valid`` None means
+every event of the batch is valid: each scatter then writes every row it
+touches, duplicates with equal values, so nothing is read back from the
+device. A ``valid`` mask selects the rows to write with ``nonzero``, which
+reads a count back (the trainer passes masks only for the padded tail of
+a stream)."""
 
 from __future__ import annotations
 
@@ -15,44 +32,135 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.index.streaming import TpprQueries
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import (
+    affinity_score,
     cell_apply,
     diffusion_embed,
     diffusion_static_input,
     message_cell_input,
+    message_input,
 )
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
 
 
+def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
+    """``optax.adam(cfg.lr)``: the same update rule, with the moments on the
+    parameters' device."""
+    return torch.optim.Adam(params.parameters(), lr=cfg.lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, x, 0.0).sum() / mask.sum().clamp(min=1)
+
+
+# ------------------------------------------------------------------ forward
+
+def _lazy_rows(cfg: Config, params, mem: MemoryState, ids, enable):
+    """Memory rows of ``ids``, passed through the updater cell where a
+    message is pending and ``enable`` holds (f32 then, as the cell's output
+    promotes a bf16 row)."""
+    rows = mem.memory[ids]
+    msg, flag = message_input(cfg, params, mem, ids, rows)
+    upd = cell_apply(cfg, params, msg, rows)
+    return torch.where((flag & enable)[..., None], upd, rows)
+
+
+def make_lazy_plan(cfg: Config, q: TpprQueries, nodes3) -> torch.Tensor:
+    """Per-position lazy-update plan: whether each query node [3b] is among
+    the selected neighbors (the membership that gates its lazy update), by
+    a sort of the M·3b·k selected ids and a binary search."""
+    flat = torch.sort(q.nbr.reshape(-1)).values
+    j = torch.searchsorted(flat, nodes3).clamp(max=flat.numel() - 1)
+    return flat[j] == nodes3
+
+
+def _train_lazy_rows(cfg: Config, params, mem: MemoryState, nodes3,
+                     q: TpprQueries, in_sel):
+    """The lazily updated rows of the train forward: the 3b query rows
+    (updated when ``in_sel``) and the [M, 3b, k] selected-neighbor rows
+    (always updated)."""
+    src_rows = _lazy_rows(cfg, params, mem, nodes3, in_sel)
+    nbr_rows = _lazy_rows(cfg, params, mem, q.nbr,
+                          torch.ones_like(q.nbr, dtype=torch.bool))
+    return src_rows, nbr_rows
+
+
 def _forward(cfg: Config, params, mem: MemoryState, edge_feats: torch.Tensor,
-             nodes: torch.Tensor, q: TpprQueries) -> torch.Tensor:
-    """Eval-mode diffusion embeddings of the query rows ``nodes`` [Q] with
-    their T-PPR queries ``q`` (fields [M, Q, k]) → [Q, H]."""
-    src_rows = mem.memory[nodes]
-    nbr_rows = mem.memory[q.nbr]
+             nodes: torch.Tensor, q: TpprQueries, train: bool = False,
+             generator=None) -> torch.Tensor:
+    """Diffusion embeddings of the query rows ``nodes`` [Q] with their T-PPR
+    queries ``q`` (fields [M, Q, k]) → [Q, H]. Train mode reads lazily
+    updated memory and applies dropout with masks from ``generator``."""
+    if train:
+        src_rows, nbr_rows = _train_lazy_rows(
+            cfg, params, mem, nodes, q, make_lazy_plan(cfg, q, nodes))
+    else:
+        src_rows, nbr_rows = mem.memory[nodes], mem.memory[q.nbr]
     nbr_static = diffusion_static_input(cfg, edge_feats, q.eidx, q.dt)
-    return diffusion_embed(cfg, params, src_rows, nbr_rows, nbr_static, q.w)
+    return diffusion_embed(cfg, params, src_rows, nbr_rows, nbr_static, q.w,
+                           generator if train else None)
+
+
+def _scores(cfg: Config, params, emb: torch.Tensor, b: int):
+    """Link logits of src against dst and against neg → (pos, neg) [b]."""
+    e_src, e_dst, e_neg = emb[:b], emb[b: 2 * b], emb[2 * b:]
+    logits = affinity_score(params, torch.cat([e_src, e_src]),
+                            torch.cat([e_dst, e_neg]), cfg.mxu_dtype)
+    return logits[:b], logits[b:]
+
+
+# ------------------------------------------------------------------ memory protocol
+
+def _selected(mask):
+    """Positions where ``mask`` holds (``nonzero``: reads the count back),
+    or None for a mask of None (every position)."""
+    return None if mask is None else mask.nonzero().squeeze(1)
+
+
+@torch.no_grad()
+def _commit_pending(cfg: Config, params, mem: MemoryState, positives,
+                    valid2=None) -> MemoryState:
+    """Commit the pending messages of the batch's positives [2b] and clear
+    their message rows, in place. Duplicate positives compute equal values,
+    so the order of their writes does not matter."""
+    rows = mem.memory[positives]
+    msg, flag = message_input(cfg, params, mem, positives, rows)
+    if valid2 is not None:
+        flag = flag & valid2
+    upd = cell_apply(cfg, params, msg, rows).to(mem.memory.dtype)
+    new_memory = torch.where(flag[:, None], upd, rows)
+    new_last = torch.where(flag, mem.msg_ts[positives],
+                           mem.last_update[positives])
+    sel = _selected(valid2)
+    if sel is not None:
+        positives, new_memory, new_last = (
+            x[sel] for x in (positives, new_memory, new_last))
+    mem.memory[positives] = new_memory
+    mem.last_update[positives] = new_last
+    mem.messages[positives] = 0.0
+    mem.msg_count[positives] = 0.0
+    return mem
 
 
 def _build_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
                     eidx, valid):
     """This batch's raw messages in the stored (compact) layout, both
-    directions, with the sender/time vectors and the last-per-sender winner
-    mask → (snd, t2, valid2, keep, msg [2b, msg_table_dim] f32)."""
+    directions → (snd, t2, valid2, win, msg [2b, msg_table_dim] f32).
+    ``win`` [2b] is the batch position of the last valid message of each
+    position's sender (the winner; -1 where the sender sent none)."""
     n = mem.memory.shape[0]
     snd = torch.cat([src, dst]).to(torch.int64)
     rcv = torch.cat([dst, src]).to(torch.int64)
     t2 = torch.cat([t, t])
     e2 = torch.cat([eidx, eidx])
-    valid2 = torch.cat([valid, valid])
+    valid2 = None if valid is None else torch.cat([valid, valid])
     pos = torch.arange(snd.shape[0], dtype=torch.int64, device=snd.device)
 
-    # last-wins: the largest batch position per sender is the winner
-    # (JAX's .at[].max(pos, mode="drop")); invalid rows land in a spare
-    # slot n that is never read back
+    # last-wins: the largest batch position per sender; invalid rows land in
+    # a spare slot n that is never read back
     winner = torch.full((n + 1,), -1, dtype=torch.int64, device=snd.device)
-    winner.scatter_reduce_(0, torch.where(valid2, snd, n), pos, "amax",
-                           include_self=True)
-    keep = valid2 & (winner[snd] == pos)
+    tgt = snd if valid2 is None else torch.where(valid2, snd, n)
+    winner.scatter_reduce_(0, tgt, pos, "amax", include_self=True)
 
     basis = time_basis(cfg.time_dim, edge_feats.device)
     # fresh edge ids past the feature table read the zero row 0
@@ -62,35 +170,74 @@ def _build_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
         edge_feats[e_safe],
         time_encode(t2 - mem.last_update[snd], basis),
     ], dim=-1)
-    return snd, t2, valid2, keep, msg
+    return snd, t2, valid2, winner[snd], msg
 
 
+def _winner_writes(snd, valid2, win):
+    """(rows, positions): the table rows a last-wins scatter writes and the
+    batch positions whose values they take. All valid: every sender writes
+    its winner's values. With a mask: the winners alone."""
+    if valid2 is None:
+        return snd, win
+    pos = torch.arange(snd.shape[0], device=snd.device)
+    keep = _selected(valid2 & (win == pos))
+    return snd[keep], keep
+
+
+@torch.no_grad()
+def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
+                    dst, t, eidx, valid=None) -> MemoryState:
+    """Store this batch's messages, both directions, the chronologically
+    last per sender, over the pending rows (flag column 1), in place."""
+    snd, t2, valid2, win, msg = _build_messages(cfg, mem, edge_feats, src,
+                                                dst, t, eidx, valid)
+    one = torch.ones((msg.shape[0], 1), dtype=msg.dtype, device=msg.device)
+    msg = torch.cat([msg, one], dim=-1).to(mem.messages.dtype)
+    rows, take = _winner_writes(snd, valid2, win)
+    mem.messages[rows] = msg[take]
+    mem.msg_ts[rows] = t2[take]
+    mem.msg_count[rows] = 1.0
+    return mem
+
+
+@torch.no_grad()
 def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
-                      src, dst, t, eidx, valid) -> MemoryState:
+                      src, dst, t, eidx, valid=None) -> MemoryState:
     """Fused eval-batch store+commit for the ``last`` aggregator: every
     committed positive is a sender of this batch, so its cell input is this
     batch's winner message, rounded through ``messages.dtype`` as the
     two-step path's table round trip would. Winners write memory,
     last_update and msg_ts; every valid sender's message row and count are
-    cleared. Updates ``mem`` in place and returns it.
-
-    Dropped indices: JAX scatters with ``mode="drop"``; here the masks
-    select the rows to write (``nonzero``), and winner rows are unique, so
-    the writes are order-free. Duplicate valid senders clear their rows to
-    the same zeros, which is order-free too."""
-    snd, t2, valid2, keep, msg = _build_messages(
+    cleared. Updates ``mem`` in place and returns it."""
+    snd, t2, valid2, win, msg = _build_messages(
         cfg, mem, edge_feats, src, dst, t, eidx, valid)
     rows = mem.memory[snd]
     raw = msg.to(mem.messages.dtype)
     cell_in = message_cell_input(cfg, params, raw, rows)
     upd = cell_apply(cfg, params, cell_in, rows).to(mem.memory.dtype)
 
-    win = keep.nonzero().squeeze(1)
-    snd_w = snd[win]
-    snd_v = snd[valid2.nonzero().squeeze(1)]
-    mem.memory[snd_w] = upd[win]
-    mem.last_update[snd_w] = t2[win]
-    mem.msg_ts[snd_w] = t2[win]
+    rows_w, take = _winner_writes(snd, valid2, win)
+    sel = _selected(valid2)
+    snd_v = snd if sel is None else snd[sel]
+    mem.memory[rows_w] = upd[take]
+    mem.last_update[rows_w] = t2[take]
+    mem.msg_ts[rows_w] = t2[take]
     mem.messages[snd_v] = 0.0
     mem.msg_count[snd_v] = 0.0
     return mem
+
+
+@torch.no_grad()
+def flush_pending(cfg: Config, params, mem: MemoryState) -> MemoryState:
+    """The train→eval flush of every pending message, dense over the N rows
+    (``flush_pending_impl``). Returns a new state and leaves ``mem`` as it
+    was, so ``mem`` can stay the pre-flush backup."""
+    msg, flag = message_input(cfg, params, mem, None)
+    upd = cell_apply(cfg, params, msg, mem.memory).to(mem.memory.dtype)
+    return MemoryState(
+        memory=torch.where(flag[:, None], upd, mem.memory),
+        last_update=torch.where(flag, mem.msg_ts, mem.last_update),
+        messages=torch.zeros_like(mem.messages),
+        msg_ts=mem.msg_ts.clone(),
+        msg_count=torch.zeros_like(mem.msg_count),
+    )
