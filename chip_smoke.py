@@ -26,22 +26,40 @@ Phases, in order; any failure exits non-zero:
    index wave and no santa_scan launch; then the first 3,000 events
    replayed with dropout 0 on the card and on the CPU from the same
    params, one epoch and ``validate()``, and compared;
-8. one ``{"kernels": [...]}`` line;
-9. last line ``{"ok": true, "device": {...}}``.
+8. fit: the whole training run at full width on the bench stream, written
+   as ``ml_bench.csv``/``.npy`` into a temporary directory:
+   - the CLI (``zebra_tpu_torch.cli.main``): three epochs of ``fit`` with
+     state files, the best checkpoint, ``test()``, then ``--task node``;
+     one santa_merge launch per index wave of every phase, none of
+     santa_scan;
+   - preemption: ``fit`` stopped after its first superchunk by
+     ``request_stop`` and resumed from its state file, against an
+     uninterrupted ``fit``; the resumed index bit-equal;
+   - deployment: ``LinkPredictor.from_checkpoint`` of a state file against
+     ``LinkPredictor.from_trainer`` of a Trainer restored from it: scores
+     bit-equal, one santa_scan launch per ``observe`` call, memory and
+     index bit-equal after four calls;
+9. one ``{"kernels": [...]}`` line;
+10. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from zebra_tpu_torch import build
+from zebra_tpu_torch import build, cli
+from zebra_tpu_torch.data.dataset import load_feat
+from zebra_tpu_torch.data.preprocess import write_ml
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge, scan
 from zebra_tpu_torch.index.streaming import (
@@ -55,8 +73,9 @@ from zebra_tpu_torch.index.streaming import (
     streaming_scan,
 )
 from zebra_tpu_torch.profile_serve import flagship
-from zebra_tpu_torch.profile_train import flagship_training
+from zebra_tpu_torch.profile_train import bench_stream, flagship_training
 from zebra_tpu_torch.serve import LinkPredictor
+from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.loop import Trainer
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
@@ -96,6 +115,21 @@ TRAIN_REPLAY_EVENTS = 3000
 TRAIN_LOSS_ATOL = 1e-5
 SCORE_BS = (1, 32, 256, 2048)
 FINAL_OBSERVE_B = 256
+# Fit phase: the CLI's flags for the flagship configuration, a superchunk
+# size that cuts the train stream into 4 for the preemption leg, and the
+# deployment's requests.
+FIT_FLAGS = ["--bs", "200", "--topk", "20", "--alpha_list", "0.1", "0.1",
+             "--beta_list", "0.05", "0.95", "--node_dim", "100",
+             "--time_dim", "100", "--memory_dim", "100", "--n_epoch", "3",
+             "--patience", "5", "--state_every", "1", "--save_best",
+             "--task", "node"]
+PREEMPT_CHUNK, PREEMPT_EPOCHS = 16384, 2
+DEPLOY_SCORE_B, DEPLOY_CALLS, DEPLOY_OBSERVE_B = 2048, 4, 200
+# Preemption bars, resumed against uninterrupted, if the two are not bit
+# for bit equal: the index is held bit-equal (it depends only on the
+# stream and the negatives); memory at the replay's bars; params and test
+# metrics at 1e-5, an f32 summation order through two epochs.
+RESUME_PARAM_ATOL, RESUME_METRIC_ATOL = 1e-5, 1e-5
 
 
 def device_ms(fn, n: int = 100, per_round: int = 100, warmup: int = 10) -> float:
@@ -485,8 +519,7 @@ def _metrics(r) -> str:
 
 def train_phase(card: str):
     """The training main path at full width on the bench stream, then the
-    CUDA-vs-CPU replay. Returns santa_merge's launches in the timed
-    epoch."""
+    CUDA-vs-CPU replay."""
     cfg, splits, edge_feats = flagship_training(seed=0)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, splits, edge_feats, device="cuda")
@@ -540,7 +573,6 @@ def train_phase(card: str):
                peak_device_gib=peak_gib, card=card)
     print("train " + json.dumps(res), flush=True)
     replay_phase(card)
-    return epochs[1]["santa_merge_launches"]
 
 
 def replay_phase(card: str):
@@ -577,6 +609,190 @@ def replay_phase(card: str):
                                       **out)), flush=True)
 
 
+def write_bench_dataset(root: Path, n_events: int) -> None:
+    """The first ``n_events`` of the bench stream as ``root/bench/ml_bench
+    .csv`` (the layout ``preprocess.run`` writes) and ``ml_bench.npy`` (its
+    edge features, zero row 0). The labels are those of
+    ``synthetic_stream(..., label_users_frac=0.1)``, which draws the same
+    events: its labels are drawn after them (its edge features after the
+    labels, so they differ and are not taken)."""
+    data, edge_feats = bench_stream(seed=0)
+    labeled, _ = synthetic_stream(120_000, 20_000, 20_000, seed=0,
+                                  label_users_frac=0.1)
+    for f in ("sources", "destinations", "timestamps", "edge_idxs"):
+        assert np.array_equal(getattr(data, f), getattr(labeled, f)), f
+    n = n_events
+    write_ml(root / "bench", "bench",
+             {"u": data.sources[:n], "i": data.destinations[:n],
+              "ts": data.timestamps[:n], "label": labeled.labels[:n],
+              "idx": data.edge_idxs[:n]},
+             edge_feats[: n + 1])
+
+
+def _on(trainer: Trainer, device: str) -> bool:
+    """Whether every parameter, Adam state tensor and table of ``trainer``
+    lies on ``device`` (Adam's step counters stay on the host by design)."""
+    tensors = list(trainer.params.parameters()) + list(trainer.mem) + [
+        trainer.index_state.data, trainer.edge_feats]
+    tensors += [v for st in trainer.optimizer.state.values()
+                for k, v in st.items() if k != "step"]
+    return all(t.device.type == device for t in tensors)
+
+
+def cli_fit(root: Path, device: str, card: str):
+    """The CLI on the bench dataset; returns its trainer and results."""
+    argv = (["-d", "bench", "--data_dir", str(root), *FIT_FLAGS,
+             "--checkpoint_dir", str(root / "ckpt"),
+             "--log_dir", str(root / "log"), "--device", device])
+    _reset_counts()
+    t0 = time.perf_counter()
+    (trainer, results), = cli.main(argv)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = merge.SANTA_MERGE.launches
+    assert launches == trainer.index_waves and scan.SANTA_SCAN.launches == 0, (
+        launches, trainer.index_waves, scan.SANTA_SCAN.launches)
+    assert _on(trainer, device), "a parameter or table left the card"
+    cfg = trainer.cfg
+    log = root / "log" / "bench" / cfg.run_name()
+    state = root / "ckpt" / (cfg.run_name() + ".state.ckpt")
+    assert log.is_file() and state.is_file() and Path(
+        trainer.checkpoint_path).is_file(), (log, state)
+    assert len(trainer.epoch_log) == 3 and results["stop_epoch"] == -1.0
+    for r in trainer.epoch_log:
+        assert r["state_s"] is not None
+        print(f"fit epoch {r['epoch']}: train {r['train_s']:.3f} s, "
+              f"{r['train_events_per_s']:.1f} train events/s, index "
+              f"{r['index_s']:.3f} s of host time, {r['waves']} waves, val "
+              f"{r['val_s']:.3f} s, train ap {r['train_ap']:.6f}, val ap "
+              f"{r['val_ap']:.6f}, new node val ap {r['nn_val_ap']:.6f}, "
+              f"state file written in {r['state_s']:.3f} s  ({card})",
+              flush=True)
+    print("fit test: " + ", ".join(f"{k} {v:.6f}" for k, v in results.items())
+          + f"  ({card})", flush=True)
+    for k in ("test_ap", "test_auc", "nn_test_ap", "node_train_auc",
+              "node_val_auc", "node_test_auc"):
+        assert np.isfinite(results[k]), (k, results)
+    assert results["test_ap"] > 0.5, results
+    res = dict(cli_s=cli_s, santa_merge_launches=launches,
+               index_waves=trainer.index_waves,
+               santa_scan_launches=scan.SANTA_SCAN.launches,
+               state_file_bytes=state.stat().st_size,
+               best_checkpoint_bytes=Path(
+                   trainer.checkpoint_path).stat().st_size,
+               log_file=log.name, epochs=trainer.epoch_log, results=results,
+               card=card)
+    print("fit cli " + json.dumps(res), flush=True)
+    return trainer, str(state), launches
+
+
+def preempt_fit(root: Path, device: str, card: str, n_events: int,
+                chunk: int):
+    """Uninterrupted ``fit`` (A) against one stopped after its first
+    superchunk (B) and resumed from B's state file (C)."""
+    cfg, splits, edge_feats = flagship_training(seed=0, n_events=n_events,
+                                                index_chunk=chunk)
+    make = lambda d: Trainer(cfg.replace(checkpoint_dir=str(root / d)),
+                             splits, edge_feats, device=device)
+    a = make("a")
+    n_chunks = a._streams["train"].n_chunks
+    ra = a.fit(n_epoch=PREEMPT_EPOCHS)
+    b = make("b")
+    b.request_stop()
+    rb = b.fit(n_epoch=PREEMPT_EPOCHS)
+    assert rb["interrupted"], rb
+    saved = load_checkpoint(rb["state_path"])
+    assert (saved["epoch"], saved["chunk"]) == (0, 1), (
+        saved["epoch"], saved["chunk"])
+    c = make("b")
+    t0 = time.perf_counter()
+    rc = c.fit(n_epoch=PREEMPT_EPOCHS, resume_from=rb["state_path"])
+    resumed_s = time.perf_counter() - t0
+    index_bitwise = bool(torch.equal(a.index_state.data, c.index_state.data))
+    assert index_bitwise, "resumed index differs"
+    pairs = [(x.detach(), y.detach()) for x, y in zip(
+        a.params.parameters(), c.params.parameters())]
+    params_bitwise = all(torch.equal(x, y) for x, y in pairs)
+    param_err = max(float((x - y).abs().max()) for x, y in pairs)
+    diff = (a.mem.memory.float() - c.mem.memory.float()).abs()
+    mem_bitwise = all(torch.equal(x, y) for x, y in zip(a.mem, c.mem))
+    mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
+    metric_err = max(abs(ra[k] - rc[k]) for k in ra)
+    assert param_err <= RESUME_PARAM_ATOL, param_err
+    assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
+        mem_err, mem_share)
+    assert metric_err <= RESUME_METRIC_ATOL, (ra, rc)
+    res = dict(events=n_events, train_superchunks=n_chunks,
+               saved_epoch=saved["epoch"], saved_chunk=saved["chunk"],
+               index_bitwise=index_bitwise, params_bitwise=params_bitwise,
+               params_max_abs_err=param_err, memory_bitwise=mem_bitwise,
+               memory_max_abs_err=mem_err, memory_diff_share=mem_share,
+               test_metrics_max_abs_err=metric_err, resumed_fit_s=resumed_s,
+               uninterrupted=ra, resumed=rc, card=card)
+    print("fit preempt " + json.dumps(res), flush=True)
+
+
+def deploy(trainer: Trainer, state: str, edge_feats, device: str, card: str):
+    """``from_checkpoint`` of the CLI's last state file against
+    ``from_trainer`` of its Trainer restored from that file: scores at
+    b = DEPLOY_SCORE_B, then DEPLOY_CALLS observe calls each."""
+    t0 = time.perf_counter()
+    served = LinkPredictor.from_checkpoint(state, edge_feats=edge_feats,
+                                           device=device)
+    load_s = time.perf_counter() - t0
+    trainer.restore_state(state)
+    ref = LinkPredictor.from_trainer(trainer)
+    te = trainer.splits.test
+    sl = slice(0, DEPLOY_SCORE_B)
+    q = (te.sources[sl], te.destinations[sl], te.timestamps[sl])
+    got, want = served.score(*q), ref.score(*q)
+    assert got.shape == (len(q[0]),) and np.isfinite(got).all()
+    assert np.array_equal(got, want), float(np.abs(got - want).max())
+    _reset_counts()
+    for c in range(DEPLOY_CALLS):
+        sl = slice(c * DEPLOY_OBSERVE_B, (c + 1) * DEPLOY_OBSERVE_B)
+        served.observe(te.sources[sl], te.destinations[sl],
+                       te.timestamps[sl], te.edge_idxs[sl])
+    launches = scan.SANTA_SCAN.launches
+    assert launches == DEPLOY_CALLS and merge.SANTA_MERGE.launches == 0, (
+        launches, merge.SANTA_MERGE.launches)
+    for c in range(DEPLOY_CALLS):
+        sl = slice(c * DEPLOY_OBSERVE_B, (c + 1) * DEPLOY_OBSERVE_B)
+        ref.observe(te.sources[sl], te.destinations[sl], te.timestamps[sl],
+                    te.edge_idxs[sl])
+    assert torch.equal(served.index_state.data, ref.index_state.data)
+    assert all(torch.equal(x, y) for x, y in zip(served.mem, ref.mem))
+    after = served.score(*q)
+    assert np.array_equal(after, ref.score(*q)) and not np.array_equal(
+        after, got)
+    res = dict(state_file=Path(state).name, from_checkpoint_s=load_s,
+               score_b=DEPLOY_SCORE_B, scores_bitwise=True,
+               observe_calls=DEPLOY_CALLS, observe_b=DEPLOY_OBSERVE_B,
+               santa_scan_launches=launches, state_bitwise_after_observe=True,
+               card=card)
+    print("fit deploy " + json.dumps(res), flush=True)
+
+
+def fit_phase(card: str, device: str = "cuda", n_events: int = 120_000,
+              preempt_chunk: int = PREEMPT_CHUNK) -> int:
+    """The whole training run (see the module docstring, phase 8). Returns
+    santa_merge's launches in the CLI's run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_bench_dataset(root, n_events)
+        print(f"fit: bench dataset written in {time.perf_counter() - t0:.3f}"
+              f" s ({os.path.getsize(root / 'bench' / 'ml_bench.csv')} B of "
+              "CSV)", flush=True)
+        trainer, state, launches = cli_fit(root, device, card)
+        _, edge_feats = load_feat("bench", str(root))
+        deploy(trainer, state, edge_feats, device, card)
+        del trainer
+        preempt_fit(root, device, card, n_events, preempt_chunk)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -609,7 +825,8 @@ def main() -> int:
     scan_launches, gpu, cols = serve_phase(card)
     wave_phase(gpu, cols, card)
     fill_phase(gpu.cfg, cols, card)
-    merge_launches = train_phase(card)
+    train_phase(card)
+    merge_launches = fit_phase(card)
 
     def entry(name, results, main, launches):
         return dict(
@@ -622,7 +839,7 @@ def main() -> int:
                                           "bound_by", "library_ms")})
 
     # each kernel at the shape its path gives it: a training wave for
-    # santa_merge (launches: the timed train epoch), a b = 200 observe for
+    # santa_merge (launches: the CLI's fit run), a b = 200 observe for
     # santa_scan (launches: the serve phase)
     print(json.dumps({"kernels": [
         entry("santa_merge", merges, merges[1], merge_launches),

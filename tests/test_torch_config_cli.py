@@ -1,0 +1,133 @@
+"""The port's Config against the JAX package's (zebra_tpu_torch/config.py):
+the command-line parser takes every JAX flag under the same name and
+default, a JAX command line gives the same fields, run names and
+state-compatibility diffs are the JAX strings, and each flag outside the
+ported slice raises."""
+
+import dataclasses
+
+import pytest
+
+from zebra_tpu.config import Config as JaxConfig
+from zebra_tpu_torch.config import Config
+
+
+def _defaults(parser):
+    return {a.dest: a.default for a in parser._actions if a.dest != "help"}
+
+
+def _flags(parser):
+    return {s for a in parser._actions for s in a.option_strings}
+
+
+JAX_DEFAULTS = _defaults(JaxConfig.arg_parser())
+
+
+@pytest.mark.parametrize("dest", sorted(JAX_DEFAULTS))
+def test_parser_takes_every_jax_dest_with_its_default(dest):
+    port = _defaults(Config.arg_parser())
+    assert dest in port
+    assert port[dest] == JAX_DEFAULTS[dest]
+
+
+def test_parser_takes_every_jax_flag_and_adds_only_device():
+    jax_flags, port_flags = _flags(JaxConfig.arg_parser()), _flags(
+        Config.arg_parser())
+    assert jax_flags <= port_flags
+    assert port_flags - jax_flags == {"--device"}
+    assert set(_defaults(Config.arg_parser())) - set(JAX_DEFAULTS) == {
+        "device"}
+
+
+def test_device_flag():
+    parse = Config.arg_parser().parse_args
+    assert parse([]).device == "cuda"
+    assert parse(["--device", "cpu"]).device == "cpu"
+    with pytest.raises(SystemExit):
+        parse(["--device", "tpu"])
+
+
+def test_jax_command_line_carries_over():
+    argv = ["-d", "wiki", "--data_dir", "/d", "--bs", "100", "--topk", "20",
+            "--alpha_list", "0.1", "0.2", "--beta_list", "0.5", "0.9",
+            "--n_epoch", "7", "--patience", "2", "--task", "node",
+            "--node_decoder_steps", "30", "--save_best", "--state_every", "2",
+            "--memory_dtype", "float32", "--seed", "4", "--no_host_backup",
+            "--no_interleave_node_ids", "--no_owner_aligned_waves",
+            "--trace_dir", "/t", "--trace_epoch", "0", "--profile",
+            "--ignore_edge_feats", "--resume_state", "/s.ckpt",
+            "--index_chunk", "1024", "--memory_updater", "rnn"]
+    jcfg, cfg = JaxConfig.from_args(argv), Config.from_args(argv)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+RUN_NAMES = [
+    {},
+    dict(data="wiki", topk=20, alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95),
+         bs=200, n_epoch=3, lr=1e-3),
+    dict(data="toy", enable_random=True, n_layer=1, lr=3e-3),
+]
+
+
+@pytest.mark.parametrize("kw", RUN_NAMES, ids=["default", "flagship",
+                                                "random"])
+def test_run_name_matches_jax(kw):
+    assert Config(**kw).run_name() == JaxConfig(**kw).run_name()
+
+
+BASE = dict(topk=5, alpha_list=(0.1,), beta_list=(0.9,), n_nodes=256,
+            n_edges=1201, edge_dim=4)
+DIFFS = {
+    "same": {},
+    "run_fields_only": dict(lr=1e-2, bs=17, n_epoch=3, patience=1,
+                            index_chunk=1024, seed=5),
+    "topk": dict(topk=4),
+    "dims": dict(node_dim=32, memory_dim=32, time_dim=8),
+    "alpha_beta": dict(alpha_list=(0.2,), beta_list=(0.8,)),
+    "dtypes": dict(memory_dtype="float32", message_dtype="float32"),
+    "extents": dict(n_nodes=384, n_edges=99, edge_dim=1),
+    "updater": dict(memory_updater="rnn", n_head=4),
+}
+
+
+@pytest.mark.parametrize("change", sorted(DIFFS))
+def test_state_compat_diff_matches_jax(change):
+    live = {**BASE, **DIFFS[change]}
+    got = Config.state_compat_diff(Config(**BASE), Config(**live))
+    want = JaxConfig.state_compat_diff(JaxConfig(**BASE), JaxConfig(**live))
+    assert got == want
+    assert bool(got) == (change not in ("same", "run_fields_only"))
+
+
+OUTSIDE = [
+    (["--parallel_runs", "2"], "parallel_runs"),
+    (["--parallel_lr", "1e-3", "1e-4"], "parallel_lr"),
+    (["--tppr_strategy", "pruning"], "tppr_strategy"),
+    (["--embedding_module", "graph_sum"], "embedding_module"),
+    (["--aggregator", "mean"], "aggregator"),
+    (["--message_function", "mlp"], "message_function"),
+    (["--use_source_embedding_in_message"], "use_source_embedding_in_message"),
+    (["--use_destination_embedding_in_message"],
+     "use_destination_embedding_in_message"),
+    (["--no_pallas_merge"], "pallas_merge"),
+    (["--fused_dispatch"], "fused_dispatch"),
+    (["--prng_impl", "threefry2x32"], "prng_impl"),
+    (["--n_devices", "0"], "n_devices"),
+    (["--dist_coordinator", "host0:8476"], "dist_coordinator"),
+    (["--dist_num_processes", "2"], "dist_num_processes"),
+    (["--dist_process_id", "1"], "dist_process_id"),
+    (["--host_backup"], "host_backup"),
+    (["--interleave_node_ids"], "interleave_node_ids"),
+    (["--owner_aligned_waves"], "owner_aligned_waves"),
+    (["--debug_nans"], "debug_nans"),
+    (["--lazy_unique_cap", "-1"], "lazy_unique_cap"),
+]
+
+
+@pytest.mark.parametrize("argv,field", OUTSIDE,
+                         ids=[f for _, f in OUTSIDE])
+def test_flags_outside_the_slice_raise(argv, field):
+    JaxConfig.from_args(argv)                   # a valid JAX command line
+    with pytest.raises(ValueError, match=field):
+        Config.from_args(argv)

@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from zebra_tpu.index.pallas_merge import merge_both_pallas
 from zebra_tpu.index.streaming import TpprParams as JaxTpprParams, _merge_both
 from zebra_tpu_torch.index import merge as pm

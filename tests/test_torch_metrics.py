@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 from sklearn.metrics import average_precision_score, roc_auc_score
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from zebra_tpu.ops import metrics as jm
 from zebra_tpu_torch.ops import metrics as pm
 

@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from zebra_tpu.config import Config as JaxConfig
 from zebra_tpu.data.synthetic import synthetic_stream as jax_synthetic_stream
 from zebra_tpu.models import cells as jcells

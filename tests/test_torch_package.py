@@ -1,7 +1,8 @@
-"""Package rules of the port (zebra_tpu_torch): it never imports JAX or the
-JAX package, nor loads its native library; entry points run on CUDA unless
-asked for the CPU and raise without a card; ids that f32 cannot hold raise;
-configurations outside the ported slice raise."""
+"""Package rules of the port (zebra_tpu_torch): it never imports JAX, the
+JAX package or pandas (the card's machine has none), nor loads the JAX
+package's native library; entry points run on CUDA unless asked for the CPU
+and raise without a card; ids that f32 cannot hold raise; configurations
+outside the ported slice raise."""
 
 import dataclasses
 import pathlib
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from zebra_tpu.config import Config as JaxConfig
-from zebra_tpu_torch import bridge, resolve_device
+from zebra_tpu_torch import bridge, cli, resolve_device
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data import split_data, synthetic_stream
 from zebra_tpu_torch.index import merge as pm
@@ -30,19 +31,19 @@ PORT_FILES = sorted(
     for p in (ROOT / "zebra_tpu_torch").rglob("*.py")
 ) + ["chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|zebra_tpu)(\.|\s|,|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|zebra_tpu|pandas)(\.|\s|,|$)", re.M)
 
 
 def test_import_leaves_jax_out():
     """Importing the package, every submodule and chip_smoke pulls in
-    neither jax nor zebra_tpu (fresh interpreter)."""
+    neither jax, zebra_tpu nor pandas (fresh interpreter)."""
     mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
             for p in PORT_FILES]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'zebra_tpu')]\n"
+        "('jax', 'jaxlib', 'zebra_tpu', 'pandas')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -78,6 +79,9 @@ ENTRY_POINTS = {
         cfg, init_tgn_params(cfg, torch.Generator(), "cpu"), *_state(cfg),
         np.zeros((10, 2), np.float32)),
     "Trainer": lambda cfg: Trainer(cfg, _splits(), None),
+    "LinkPredictor.from_checkpoint":
+        lambda cfg: LinkPredictor.from_checkpoint("x.ckpt"),
+    "cli.main": lambda cfg: cli.main(["-d", "x", "--data_dir", "none"]),
 }
 
 
@@ -168,7 +172,7 @@ def test_config_from_jax_dict_keeps_fields_and_derived_widths():
 
 def test_unported_serving_parts_raise():
     with pytest.raises(NotImplementedError):
-        LinkPredictor.from_checkpoint("x.ckpt")
+        LinkPredictor.from_checkpoint("x.ckpt", ensemble=True, device="cpu")
     with pytest.raises(NotImplementedError):
         EnsemblePredictor()
 

@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from tests.test_torch_merge import assert_entries_close
 from tests.test_torch_streaming import ALPHA, BETA, K, M, N_NODES, _fields, _stream
 from zebra_tpu.index import streaming as jst

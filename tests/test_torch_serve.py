@@ -22,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from tests.test_torch_merge import assert_entries_close
 from zebra_tpu.config import Config as JaxConfig
 from zebra_tpu.data.synthetic import synthetic_stream

@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from tests.test_torch_merge import assert_entries_close
 from zebra_tpu.index import streaming as jst
 from zebra_tpu_torch.bridge import tppr_from_numpy

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from zebra_tpu.config import Config as JaxConfig
 from zebra_tpu.data.dataset import split_data as jax_split_data
 from zebra_tpu.data.sampler import RandEdgeSampler as JaxSampler

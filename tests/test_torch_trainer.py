@@ -35,6 +35,7 @@ import torch
 
 import jax
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from zebra_tpu.config import Config as JaxConfig
 from zebra_tpu.data.dataset import split_data as jax_split_data
 from zebra_tpu.data.synthetic import synthetic_stream

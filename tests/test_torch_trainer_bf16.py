@@ -4,6 +4,7 @@ stated and measured there."""
 
 import pytest
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from tests.test_torch_trainer import (
     PHASES,
     check_params,

@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.test_torch_checkpoint import one_torch_thread  # noqa: F401
 from tests.test_torch_merge import assert_entries_close
 from zebra_tpu.index.streaming import TpprParams as JaxTpprParams
 from zebra_tpu.index.streaming import TpprState as JaxTpprState

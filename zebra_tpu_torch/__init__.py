@@ -13,10 +13,13 @@ CUDA tensor every hand-written kernel launches (the SANTA merge,
 plain PyTorch version runs.
 
 Ported so far, for the streaming strategy, the diffusion tower, the GRU/RNN
-updater and the ``last`` aggregator: training on one device
-(``train.loop.Trainer``: ``train_epoch``, ``validate``, ``test``) and
-serving (``serve.LinkPredictor``: ``observe``, ``score``,
-``from_trainer``).
+updater and the ``last`` aggregator, one seed on one device: the training
+run (``python -m zebra_tpu_torch.train``, :mod:`.cli`;
+``train.loop.Trainer``: ``fit`` with early stopping and state files,
+``train_epoch``, ``validate``, ``test``; ``train.node_classification``),
+preprocessing (``python -m zebra_tpu_torch.data.preprocess``) and serving
+(``serve.LinkPredictor``: ``observe``, ``score``, ``from_trainer``,
+``from_checkpoint``).
 """
 
 import torch

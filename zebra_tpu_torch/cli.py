@@ -1,0 +1,124 @@
+"""The port's training entry point (counterpart of the repo's ``train.py``):
+
+    python -m zebra_tpu_torch.train -d wikipedia --alpha_list 0.1 --beta_list 0.9
+
+Reads ``{data_dir}/{name}/ml_{name}.csv`` (+ ``ml_{name}.npy``), written by
+``python -m zebra_tpu_torch.data.preprocess``; takes the JAX command line's
+flags under the same names and defaults, plus ``--device`` (``cuda``, or
+``cpu`` for the plain versions of the kernels). Logs to
+``<log_dir>/<data>/<run_name>`` and to the console.
+
+SIGTERM or SIGINT ends the run gracefully: training stops after the current
+superchunk, a resumable state file is written, and the run exits;
+``--resume_state <file>`` continues it exactly. A second signal falls back
+to the previous handler."""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import signal
+import time
+from typing import List, Optional, Tuple
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.data.dataset import get_data, load_feat
+from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.train.loop import Trainer
+from zebra_tpu_torch.train.node_classification import run_node_classification
+
+
+@contextlib.contextmanager
+def _graceful_sigterm(trainer: Trainer, logger: logging.Logger):
+    """Route SIGTERM/SIGINT to ``trainer.request_stop`` for the duration of
+    a fit; the first signal restores the previous handlers, so a second one
+    acts as before."""
+    prev = {}
+
+    def handler(signum, frame):
+        logger.info("signal %d: stopping at the next superchunk boundary "
+                    "(send again to force)", signum)
+        trainer.request_stop()
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+
+    try:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev[sig] = signal.signal(sig, handler)
+    except ValueError:  # not the main thread (embedded use)
+        prev.clear()
+    try:
+        yield
+    finally:
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+
+
+def setup_logging(cfg: Config) -> Tuple[logging.Logger, List[logging.Handler]]:
+    """The ``zebra_tpu_torch`` logger with a file handler at
+    ``<log_dir>/<data>/<run_name>`` (DEBUG) and a console handler (INFO);
+    returns the logger and the handlers added, which the caller removes."""
+    logger = logging.getLogger("zebra_tpu_torch")
+    logger.setLevel(logging.DEBUG)
+    os.makedirs(os.path.join(cfg.log_dir, cfg.data), exist_ok=True)
+    fh = logging.FileHandler(os.path.join(cfg.log_dir, cfg.data,
+                                          cfg.run_name()))
+    fh.setLevel(logging.DEBUG)
+    ch = logging.StreamHandler()
+    ch.setLevel(logging.INFO)
+    fmt = logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    for h in (fh, ch):
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+    return logger, [fh, ch]
+
+
+def main(argv: Optional[List[str]] = None) -> List[Tuple[Trainer, dict]]:
+    """Run the command line ``argv``; returns (trainer, results) of each run
+    that finished or was interrupted, for callers in the same process."""
+    ns = Config.arg_parser().parse_args(argv)
+    cfg = Config.from_dict(vars(ns))      # refuses what the port cannot run
+    device = resolve_device(ns.device)    # raises without a card
+    logger, handlers = setup_logging(cfg)
+    try:
+        return _run(cfg, device, logger)
+    finally:
+        for h in handlers:
+            logger.removeHandler(h)
+            h.close()
+
+
+def _run(cfg: Config, device, logger: logging.Logger):
+    logger.info(cfg)
+    splits = get_data(cfg.data, cfg.data_dir)
+    node_feats, edge_feats = load_feat(cfg.data, cfg.data_dir)
+    if cfg.ignore_node_feats:
+        node_feats = None
+
+    runs = []
+    for run in range(cfg.n_runs):
+        t0 = time.time()
+        trainer = Trainer(cfg.replace(seed=cfg.seed + run), splits,
+                          edge_feats, node_feats, device=device)
+        with _graceful_sigterm(trainer, logger):
+            results = trainer.fit(
+                resume_from=cfg.resume_state if run == 0 else None)
+        runs.append((trainer, results))
+        if results.get("interrupted"):
+            logger.info("run %d interrupted; resume with --resume_state %s",
+                        run, results["state_path"])
+            return runs
+        if cfg.task == "node":
+            node = run_node_classification(
+                trainer, n_steps=cfg.node_decoder_steps,
+                lr=cfg.node_decoder_lr, seed=cfg.seed + run)
+            results.update(node)
+            logger.info(
+                "node classification auc -- train: %f, val: %f, test: %f",
+                node["node_train_auc"], node["node_val_auc"],
+                node["node_test_auc"])
+        logger.info("run %d finished in %.1fs: %s", run, time.time() - t0,
+                    results)
+    return runs

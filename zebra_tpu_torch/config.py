@@ -1,16 +1,18 @@
 """Configuration of the port: the fields of ``zebra_tpu/config.py:Config``
-that the ported slice reads, with the same names and defaults.
+with the same names and defaults, the derived widths, the run name, the
+state-compatibility check of checkpoints and the command-line parser.
 
 ``Config.from_dict(dataclasses.asdict(jax_cfg))`` carries a JAX config over
-(unknown fields are ignored). A value outside the ported slice raises, so a
-configuration the port cannot run is refused up front instead of running
-something else."""
+(unknown fields are ignored), and ``Config.from_args`` takes a JAX command
+line. A value outside the ported slice raises, so a configuration the port
+cannot run is refused up front instead of running something else."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,6 +26,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclass(frozen=True)
 class Config:
+    # ---- data ----
+    data: str = "wikipedia"          # dataset name: {data_dir}/{data}/ml_{data}.csv
+    data_dir: str = "data"
+    bs: int = 200
+
     # ---- model dims ----
     node_dim: int = 100
     time_dim: int = 100
@@ -34,6 +41,8 @@ class Config:
     topk: int = 10
     alpha_list: Sequence[float] = (0.1,)
     beta_list: Sequence[float] = (0.9,)
+    n_degree: int = 10               # pruning width and depth: part of the
+    n_layer: int = 2                 # run name only in this slice
 
     # ---- towers ----
     embedding_module: str = "diffusion"
@@ -42,23 +51,65 @@ class Config:
     memory_updater: str = "gru"
     message_function: str = "identity"
     aggregator: str = "last"
-
-    # ---- training ----
-    bs: int = 200
-    lr: float = 1e-4
+    n_head: int = 2
     dropout: float = 0.1
+
+    # ---- optimization ----
     n_epoch: int = 50
+    lr: float = 1e-4
+    patience: int = 5                # early-stop patience on val AP
+    drop_out: float = 0.3            # the reference's vestigial --drop_out
+    n_runs: int = 1
+    task: str = "link"               # "link" | "node" (link training, then
+                                     # the node-classification decoder)
+    node_decoder_steps: int = 500
+    node_decoder_lr: float = 1e-3
+    parallel_runs: int = 1
+    parallel_lr: Optional[Tuple[float, ...]] = None
+
+    # ---- determinism ----
     enable_random: bool = False
     seed: int = 0
+
+    # ---- feature handling ----
+    ignore_edge_feats: bool = False
+    ignore_node_feats: bool = False
+    real_edge_feats: Optional[bool] = None  # set by the Trainer: whether a
+                                     # genuine edge-feature matrix was
+                                     # supplied (serving's guard reads it)
+
+    # ---- observability ----
+    debug_nans: bool = False
+    trace_dir: Optional[str] = None  # torch.profiler trace of one epoch here
+    trace_epoch: int = 1
+    profile: bool = False            # synchronize after each wave scan so
+                                     # index_seconds covers the device work
+
+    # ---- checkpointing / logging ----
+    save_best: bool = False
+    checkpoint_dir: str = "saved_checkpoints"
+    log_dir: str = "log"
+    state_every: int = 0             # full-state checkpoint every N epochs
+    resume_state: Optional[str] = None
+
+    # ---- devices, superchunks, kernels ----
+    n_devices: int = 1
+    dist_coordinator: Optional[str] = None
+    dist_num_processes: int = 1
+    dist_process_id: int = 0
     index_chunk: int = 65536
     wave_cap: int = 64
-    lazy_unique_cap: int = 0
-
-    # ---- seeds, devices, id layout ----
-    parallel_runs: int = 1
-    n_devices: int = 1
+    fused_dispatch: bool = False
     owner_aligned_waves: Optional[bool] = None
+    interleave_node_ids: Optional[bool] = None
     interleave_shards: int = 0
+    host_backup: Optional[bool] = None
+    pallas_merge: bool = True        # the hand-written merge kernel (on the
+                                     # card: csrc/santa_merge.cu)
+    lazy_unique_cap: int = 0
+    prng_impl: str = "rbg"           # JAX's PRNG name, kept for the state
+                                     # check; the port draws from
+                                     # torch.Generators
 
     # ---- storage / matmul dtypes ----
     message_dtype: str = "bfloat16"
@@ -69,12 +120,16 @@ class Config:
     n_nodes: int = 0
     n_edges: int = 0
     edge_dim: int = 1
+    node_feat_dim: int = 0
 
     def __post_init__(self):
         object.__setattr__(self, "alpha_list",
                            tuple(float(a) for a in self.alpha_list))
         object.__setattr__(self, "beta_list",
                            tuple(float(b) for b in self.beta_list))
+        if self.parallel_lr is not None:
+            object.__setattr__(self, "parallel_lr",
+                               tuple(float(x) for x in self.parallel_lr))
         if len(self.alpha_list) != len(self.beta_list):
             raise ValueError("alpha_list and beta_list must have equal length")
         outside = {
@@ -87,11 +142,22 @@ class Config:
             "use_destination_embedding_in_message":
                 bool(self.use_destination_embedding_in_message),
             "interleave_shards": int(self.interleave_shards or 0) > 1,
+            "interleave_node_ids": bool(self.interleave_node_ids),
             "parallel_runs": int(self.parallel_runs) > 1,
+            "parallel_lr": self.parallel_lr is not None,
             "n_devices": int(self.n_devices) != 1,
+            "dist_coordinator": self.dist_coordinator is not None,
+            "dist_num_processes": int(self.dist_num_processes) != 1,
+            "dist_process_id": int(self.dist_process_id) != 0,
             "owner_aligned_waves": bool(self.owner_aligned_waves),
+            "host_backup": bool(self.host_backup),
+            "fused_dispatch": bool(self.fused_dispatch),
+            "pallas_merge": not self.pallas_merge,
+            "prng_impl": self.prng_impl != "rbg",
+            "debug_nans": bool(self.debug_nans),
             "lazy_unique_cap": int(self.lazy_unique_cap) != 0,
             "memory_updater": self.memory_updater not in ("gru", "rnn"),
+            "task": self.task not in ("link", "node"),
             "message_dtype": self.message_dtype not in _DTYPES,
             "memory_dtype": self.memory_dtype not in _DTYPES,
             "compute_dtype": self.compute_dtype not in _DTYPES,
@@ -101,14 +167,15 @@ class Config:
             raise ValueError(
                 "outside the ported slice (streaming strategy, diffusion "
                 "tower, last aggregator, identity messages, per-position lazy "
-                "updates, one model on one device): "
-                + ", ".join(bad)
+                "updates, the hand-written merge kernel, one model on one "
+                "device in one process): " + ", ".join(bad)
             )
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "Config":
-        """Build from a mapping such as ``dataclasses.asdict(jax_cfg)``;
-        keys that are not fields here are ignored."""
+        """Build from a mapping such as ``dataclasses.asdict(jax_cfg)`` or
+        the dict a checkpoint stores; keys that are not fields here are
+        ignored."""
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 
@@ -153,3 +220,144 @@ class Config:
         if self.compute_dtype == "bfloat16":
             return torch.bfloat16
         return None
+
+    # Fields that shape or give meaning to a ``save_state`` checkpoint: a
+    # restore across a change of any of them would mis-shape the state or
+    # read it at the wrong packed layout (the JAX package's list).
+    STATE_FIELDS = (
+        "n_nodes", "n_edges", "edge_dim",
+        "node_dim", "time_dim", "memory_dim", "n_head",
+        "embedding_module", "memory_updater", "message_function",
+        "aggregator",
+        "topk", "alpha_list", "beta_list", "tppr_strategy",
+        "use_source_embedding_in_message",
+        "use_destination_embedding_in_message",
+        "message_dtype", "memory_dtype", "prng_impl",
+        "parallel_runs",
+        "interleave_shards",
+    )
+
+    @classmethod
+    def state_compat_diff(cls, saved: "Config", live: "Config") -> List[str]:
+        """Field-level diff of the state-shaping fields between a
+        checkpoint's config and the live one, in the JAX package's wording;
+        empty = compatible. (Its n_layer and parallel_lr lines concern the
+        recursive towers and the seed axis, which this slice refuses.)"""
+        diffs = []
+        for name in cls.STATE_FIELDS:
+            sv, lv = getattr(saved, name), getattr(live, name)
+            if name == "parallel_runs":
+                sv, lv = max(1, int(sv)), max(1, int(lv))
+            if sv != lv:
+                diffs.append(f"{name}: checkpoint={sv!r} vs live={lv!r}")
+        return diffs
+
+    def run_name(self) -> str:
+        """The derived config string that names the log file and the
+        checkpoints (the JAX package's string for the same fields)."""
+        name = self.data
+        if self.embedding_module == "diffusion":
+            name += f"_{self.tppr_strategy}_topk_{self.topk}"
+            name += f"_alpha_{list(self.alpha_list)}_beta_{list(self.beta_list)}"
+            if self.tppr_strategy == "pruning":
+                name += f"_width_{self.n_degree}_depth_{self.n_layer}"
+        name += f"_bs_{self.bs}_layer_{self.n_layer}_epoch_{self.n_epoch}_lr_{self.lr}"
+        if self.enable_random:
+            name += "_random_seed"
+        if self.parallel_runs > 1:
+            name += f"_par_{self.parallel_runs}"
+        return name
+
+    # ------------------------------------------------------------------ CLI
+    @staticmethod
+    def arg_parser() -> argparse.ArgumentParser:
+        """The JAX package's parser (every flag under its name and default),
+        plus ``--device`` (``cuda`` unless ``cpu`` is asked for)."""
+        p = argparse.ArgumentParser("zebra_tpu_torch training")
+        p.add_argument("-d", "--data", type=str, default="wikipedia")
+        p.add_argument("--data_dir", type=str, default="data")
+        p.add_argument("--bs", type=int, default=200)
+        p.add_argument("--n_degree", type=int, default=10)
+        p.add_argument("--n_head", type=int, default=2)
+        p.add_argument("--n_epoch", type=int, default=50)
+        p.add_argument("--n_layer", type=int, default=2)
+        p.add_argument("--lr", type=float, default=1e-4)
+        p.add_argument("--patience", type=int, default=5)
+        p.add_argument("--n_runs", type=int, default=1)
+        p.add_argument("--task", type=str, default="link",
+                       choices=["link", "node"])
+        p.add_argument("--node_decoder_steps", type=int, default=500)
+        p.add_argument("--node_decoder_lr", type=float, default=1e-3)
+        p.add_argument("--parallel_runs", type=int, default=1)
+        p.add_argument("--parallel_lr", type=float, nargs="+", default=None)
+        p.add_argument("--drop_out", type=float, default=0.3)
+        p.add_argument("--memory_updater", type=str, default="gru",
+                       choices=["gru", "rnn"])
+        p.add_argument("--embedding_module", type=str, default="diffusion")
+        p.add_argument("--message_function", type=str, default="identity",
+                       choices=["mlp", "identity"])
+        p.add_argument("--use_source_embedding_in_message", action="store_true")
+        p.add_argument("--use_destination_embedding_in_message",
+                       action="store_true")
+        p.add_argument("--aggregator", type=str, default="last")
+        p.add_argument("--enable_random", action="store_true")
+        p.add_argument("--save_best", action="store_true")
+        p.add_argument("--tppr_strategy", type=str, default="streaming",
+                       choices=["streaming", "pruning"])
+        p.add_argument("--topk", type=int, default=10)
+        p.add_argument("--alpha_list", type=float, nargs="+", default=[0.1])
+        p.add_argument("--beta_list", type=float, nargs="+", default=[0.9])
+        p.add_argument("--ignore_edge_feats", action="store_true")
+        p.add_argument("--ignore_node_feats", action="store_true")
+        p.add_argument("--node_dim", type=int, default=100)
+        p.add_argument("--time_dim", type=int, default=100)
+        p.add_argument("--memory_dim", type=int, default=100)
+        p.add_argument("--n_devices", type=int, default=1)
+        p.add_argument("--dist_coordinator", type=str, default=None)
+        p.add_argument("--dist_num_processes", type=int, default=1)
+        p.add_argument("--dist_process_id", type=int, default=0)
+        p.add_argument("--index_chunk", type=int, default=65536)
+        p.add_argument("--wave_cap", type=int, default=64)
+        p.add_argument("--fused_dispatch", action="store_true")
+        p.add_argument("--owner_aligned_waves", dest="owner_aligned_waves",
+                       action="store_true", default=None)
+        p.add_argument("--no_owner_aligned_waves",
+                       dest="owner_aligned_waves", action="store_false")
+        p.add_argument("--interleave_node_ids", dest="interleave_node_ids",
+                       action="store_true", default=None)
+        p.add_argument("--no_interleave_node_ids",
+                       dest="interleave_node_ids", action="store_false")
+        p.add_argument("--host_backup", dest="host_backup",
+                       action="store_true", default=None)
+        p.add_argument("--no_host_backup", dest="host_backup",
+                       action="store_false")
+        p.add_argument("--debug_nans", action="store_true")
+        p.add_argument("--trace_dir", type=str, default=None)
+        p.add_argument("--trace_epoch", type=int, default=1)
+        p.add_argument("--profile", action="store_true")
+        p.add_argument("--no_pallas_merge", dest="pallas_merge",
+                       action="store_false")
+        p.add_argument("--lazy_unique_cap", type=int, default=0)
+        p.add_argument("--prng_impl", type=str, default="rbg",
+                       choices=["rbg", "threefry2x32"])
+        p.add_argument("--message_dtype", type=str, default="bfloat16",
+                       choices=["bfloat16", "float32"])
+        p.add_argument("--memory_dtype", type=str, default="bfloat16",
+                       choices=["bfloat16", "float32"])
+        p.add_argument("--compute_dtype", type=str, default="float32",
+                       choices=["bfloat16", "float32"])
+        p.add_argument("--checkpoint_dir", type=str,
+                       default="saved_checkpoints")
+        p.add_argument("--log_dir", type=str, default="log")
+        p.add_argument("--state_every", type=int, default=0)
+        p.add_argument("--resume_state", type=str, default=None)
+        p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--device", type=str, default="cuda",
+                       choices=["cuda", "cpu"])
+        return p
+
+    @classmethod
+    def from_args(cls, argv: Optional[List[str]] = None) -> "Config":
+        """Parse a command line (``--device`` is not a field: see
+        :func:`zebra_tpu_torch.cli.main`)."""
+        return cls.from_dict(vars(cls.arg_parser().parse_args(argv)))

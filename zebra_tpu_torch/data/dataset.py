@@ -1,5 +1,6 @@
-"""Event-stream containers and the chronological/inductive split (numpy copy
-of ``zebra_tpu/data/dataset.py``: the same inputs give identical splits).
+"""Event-stream containers, the chronological/inductive split and the
+loaders of preprocessed datasets (numpy copy of ``zebra_tpu/data/dataset.py``:
+the same inputs give identical splits; no pandas).
 
 70/15/15 chronological split at the timestamp quantiles, plus an inductive
 holdout of 10% of the nodes active after the validation cut, drawn with
@@ -10,9 +11,10 @@ node unseen in training. Node ids are 1-based (0 is padding), edge ids
 
 from __future__ import annotations
 
+import os
 import random
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -108,3 +110,61 @@ def split_data(sources, destinations, timestamps, edge_idxs, labels,
         n_nodes=max(max_id, n_total_unique_nodes),
         n_edges=len(sources),
     )
+
+
+ML_COLUMNS = ("u", "i", "ts", "label", "idx")
+
+
+def read_ml_csv(path: str) -> dict:
+    """The columns of an ``ml_{name}.csv`` by header name (``u``, ``i``,
+    ``ts``, ``label``, ``idx``): int64 ids, float64 times and labels. Reads
+    the file ``DataFrame.to_csv`` writes (a leading unnamed index column)
+    and one without that column alike."""
+    with open(path) as f:
+        header = [h.strip() for h in f.readline().split(",")]
+    missing = [c for c in ML_COLUMNS if c not in header]
+    if missing:
+        raise ValueError(f"{path}: no column {missing} in header {header}")
+    table = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2,
+                       dtype=np.float64)
+    cols = {c: table[:, header.index(c)] for c in ML_COLUMNS}
+    for c in ("u", "i", "idx"):
+        cols[c] = cols[c].astype(np.int64)
+    return cols
+
+
+def get_data(dataset_name: str, data_dir: str = "data") -> DatasetSplits:
+    """Load ``{data_dir}/{name}/ml_{name}.csv`` and split it."""
+    cols = read_ml_csv(os.path.join(data_dir, dataset_name,
+                                    f"ml_{dataset_name}.csv"))
+    return split_data(cols["u"], cols["i"], cols["ts"], cols["idx"],
+                      cols["label"])
+
+
+def load_feat(dataset_name: str, data_dir: str = "data"
+              ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """The optional node and edge feature matrices
+    (``ml_{name}_node.npy``, ``ml_{name}.npy``). Row 0 of the edge features
+    is the zero padding row the preprocessor prepends."""
+    base = os.path.join(data_dir, dataset_name, f"ml_{dataset_name}")
+    load = lambda p: np.load(p) if os.path.exists(p) else None
+    return load(base + "_node.npy"), load(base + ".npy")
+
+
+def compute_time_statistics(sources, destinations, timestamps):
+    """Mean and std of the gaps between a node's consecutive events, for
+    sources and for destinations (the reference's statistics for
+    JODIE-style Δt normalisation; the training path does not use them)."""
+    timestamps = np.asarray(timestamps, np.float64)
+
+    def gaps(nodes):
+        last = {}
+        out = np.empty(len(timestamps))
+        for k, (v, t) in enumerate(zip(np.asarray(nodes).tolist(),
+                                       timestamps.tolist())):
+            out[k] = t - last.get(v, 0.0)
+            last[v] = t
+        return out
+
+    ds, dd = gaps(sources), gaps(destinations)
+    return float(ds.mean()), float(ds.std()), float(dd.mean()), float(dd.std())

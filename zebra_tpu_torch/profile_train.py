@@ -30,16 +30,20 @@ from zebra_tpu_torch.profile_serve import device_ops
 from zebra_tpu_torch.train.loop import Trainer
 
 
+def bench_stream(seed: int = 0):
+    """The bench stream of ``bench.py``: 120,000 events on 40,000 nodes,
+    edge_dim 172 → (Data, edge_feats with the zero row 0)."""
+    return synthetic_stream(120_000, 20_000, 20_000, edge_dim=172, seed=seed)
+
+
 def flagship_training(seed: int = 0, n_events: int = 120_000, **overrides):
     """The flagship training configuration of ``bench.py:85-104`` at full
     width: streaming T-PPR top-20 with α (0.1, 0.1), β (0.05, 0.95), the
     diffusion tower, GRU, ``last`` aggregator, identity messages, dims 100,
     bs 200, bf16 tables, on the first ``n_events`` of the bench stream
-    (``synthetic_stream(120_000, 20_000, 20_000, 172, seed)``). Returns
-    (cfg, splits, edge_feats) on the host; ``overrides`` replace config
-    fields (dropout=0.0, say)."""
-    data, edge_feats = synthetic_stream(120_000, 20_000, 20_000,
-                                        edge_dim=172, seed=seed)
+    (:func:`bench_stream`). Returns (cfg, splits, edge_feats) on the host;
+    ``overrides`` replace config fields (dropout=0.0, say)."""
+    data, edge_feats = bench_stream(seed)
     cfg = Config(bs=200, node_dim=100, time_dim=100, memory_dim=100, topk=20,
                  alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95), seed=seed,
                  **overrides)
@@ -67,7 +71,7 @@ def main() -> None:
 
     marks: list = []
     t0 = time.perf_counter()
-    marked = trainer.train_epoch(marks)
+    marked = trainer.train_epoch(marks=marks)
     torch.cuda.synchronize()
     marked_s = time.perf_counter() - t0
     parts = split_marks(marks)

@@ -4,7 +4,8 @@ observed interactions (counterpart of ``zebra_tpu/serve.py``).
 Example::
 
     predictor = LinkPredictor(cfg, params, mem, index_state, edge_feats)
-    # or LinkPredictor.from_trainer(trainer) after training
+    # or LinkPredictor.from_trainer(trainer) after training, or
+    # LinkPredictor.from_checkpoint(state_file, edge_feats=...) to deploy
     probs = predictor.score(src, dst, t)        # link probabilities [B]
     predictor.observe(src, dst, t, eidx)        # stream new interactions
 
@@ -16,6 +17,7 @@ eval-mode memory protocol; ``score`` is read-only."""
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,7 +33,8 @@ from zebra_tpu_torch.index.streaming import (
     read_topk,
 )
 from zebra_tpu_torch.models.memory import MemoryState
-from zebra_tpu_torch.models.tgn import affinity_score
+from zebra_tpu_torch.models.tgn import affinity_score, init_tgn_params
+from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.step import _forward, eval_store_commit
 
 
@@ -55,9 +58,40 @@ class LinkPredictor:
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
 
     @classmethod
-    def from_checkpoint(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "zebra_tpu_torch has no checkpoint reader yet (ROADMAP.md)")
+    def from_checkpoint(cls, path: str, cfg: Optional[Config] = None,
+                        edge_feats=None, events=None, rebuild_every: int = 1,
+                        run_index: int = 0, ensemble: bool = False,
+                        device=None) -> "LinkPredictor":
+        """A predictor over a ``Trainer.save_state`` file, with no live
+        Trainer (the deployment path). ``cfg`` defaults to the one stored in
+        the file; ``edge_feats`` to zeros, which a model trained with real
+        edge features refuses. ``events`` and ``rebuild_every`` serve the
+        adjacency-index strategies, which this slice's Config refuses; they
+        are accepted so a JAX call carries over, and unused. ``run_index``
+        and ``ensemble`` select seeds of a seed-parallel file: the seed axis
+        is not ported yet."""
+        dev = resolve_device(device)
+        if ensemble or run_index:
+            raise NotImplementedError(
+                "zebra_tpu_torch serves one model: the seed axis "
+                "(run_index, ensemble) is not ported yet (ROADMAP.md)")
+        ckpt = load_checkpoint(path)
+        cfg = cfg if cfg is not None else Config.from_dict(ckpt["cfg"])
+        params = init_tgn_params(cfg, torch.Generator(), "cpu")
+        params.load_state_dict(ckpt["params"])
+        if edge_feats is None:
+            real = cfg.real_edge_feats
+            if real is None:  # a config that did not record it
+                real = cfg.edge_dim > 1 and not cfg.ignore_edge_feats
+            if real:
+                # scores from zeroed features would be finite but wrong
+                raise ValueError(
+                    f"this checkpoint was trained with {cfg.edge_dim}-dim "
+                    "edge features; pass edge_feats= (the training "
+                    "ml_{d}.npy matrix)")
+            edge_feats = np.zeros((cfg.n_edges, cfg.edge_dim), np.float32)
+        return cls(cfg, params, MemoryState(**ckpt["mem"]),
+                   TpprState(ckpt["index_state"]), edge_feats, device=dev)
 
     @classmethod
     def from_trainer(cls, trainer) -> "LinkPredictor":

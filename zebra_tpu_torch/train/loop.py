@@ -1,6 +1,6 @@
 """The trainer for one seed on one device (counterpart of
 ``zebra_tpu/train/loop.py``): ``Trainer(cfg, splits, edge_feats)``, then
-``train_epoch()``, ``validate()`` and ``test()``.
+``fit()``, or ``train_epoch()``, ``validate()`` and ``test()`` by hand.
 
 Per epoch: zeroed memory and an empty index, then the train stream in
 superchunks. For each superchunk the host schedules the waves of the index
@@ -17,6 +17,13 @@ val-end state, run the inductive val stream from the unflushed train-end
 state, then restore the val-end state. test: the transductive and the
 inductive test streams, each from the val-end state.
 
+fit: epochs of train_epoch then validate, early stopping on the
+transductive val AP, the best epoch's (params, memory) in
+``checkpoint_path``, a full-state file every ``state_every`` epochs, and
+test() at the end. ``request_stop`` (the CLI's SIGTERM handler) ends the
+epoch after its current superchunk; fit then writes a resumable state file
+with the cursor, and ``fit(resume_from=...)`` continues exactly.
+
 Negatives are drawn on the host: eval negatives once, from samplers seeded
 0/2/3 (the inductive val stream reuses the val sampler); train negatives
 every epoch from (base, epoch). The same inputs and seed give the JAX
@@ -25,6 +32,9 @@ passed."""
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -45,8 +55,13 @@ from zebra_tpu_torch.index.streaming import (
 from zebra_tpu_torch.index.waves import WavePlan, plan_waves, wave_scan_chunk
 from zebra_tpu_torch.models.memory import MemoryState, init_memory
 from zebra_tpu_torch.models.tgn import init_tgn_params
+from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
 from zebra_tpu_torch.train.phase import Stream, _mark, run_phase
 from zebra_tpu_torch.train.step import flush_pending, make_optimizer
+from zebra_tpu_torch.utils.profiling import PhaseTimers, trace_context
+
+logger = logging.getLogger("zebra_tpu_torch")
 
 # eval negative-sampling seeds; the inductive val stream shares the val
 # sampler
@@ -86,16 +101,27 @@ class PhaseStream(NamedTuple):
 
 class Trainer:
     def __init__(self, cfg: Config, splits: DatasetSplits,
-                 edge_feats: Optional[np.ndarray] = None, device=None):
+                 edge_feats: Optional[np.ndarray] = None,
+                 node_feats: Optional[np.ndarray] = None, device=None):
         self.device = dev = resolve_device(device)
         # ids are 1-based with 0 as padding; N rounds up to a multiple of 128
         # (the JAX package's row-sharding alignment, kept so both packages
         # hold tables of one shape)
         n_nodes = -(-(splits.n_nodes + 1) // 128) * 128
         cfg = cfg.replace(n_nodes=n_nodes, n_edges=splits.n_edges + 1)
-        if edge_feats is None:
+        real_edge_feats = edge_feats is not None and not cfg.ignore_edge_feats
+        if edge_feats is None or cfg.ignore_edge_feats:
             edge_feats = np.zeros((cfg.n_edges, 1), np.float32)
-        cfg = cfg.replace(edge_dim=int(edge_feats.shape[1]))
+        cfg = cfg.replace(edge_dim=int(edge_feats.shape[1]),
+                          real_edge_feats=real_edge_feats)
+        if node_feats is not None and not cfg.ignore_node_feats:
+            # the towers represent nodes by their memory rows, as the
+            # reference's active path does
+            logger.warning(
+                "node_feats provided but not used: every embedding module "
+                "represents nodes by their memory rows, like the "
+                "reference's active path (tgn_model.py:85). Pass "
+                "--ignore_node_feats to silence.")
         check_id_width(cfg.n_nodes, cfg.n_edges)
         self.cfg, self.splits = cfg, splits
         self.edge_feats = torch.as_tensor(
@@ -121,7 +147,7 @@ class Trainer:
             )
         }
         # eval negatives are fixed, so their wave plans are made once
-        self._eval_plans: Dict[str, List[WavePlan]] = {}
+        self._eval_plans: Dict[str, Dict[int, WavePlan]] = {}
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list,
                                        cfg.topk)
 
@@ -137,6 +163,37 @@ class Trainer:
         # dropout masks; JAX's rbg masks cannot be reproduced
         self._dropout = torch.Generator(dev).manual_seed(cfg.seed)
         self.mem, self.index_state = self._fresh_state()
+
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        self.checkpoint_path = os.path.join(cfg.checkpoint_dir,
+                                            cfg.run_name() + ".ckpt")
+        # the next train superchunk of an unfinished epoch (0 between epochs)
+        self._chunk_cursor = 0
+        # set by request_stop; read on the host at superchunk boundaries
+        self._stop_requested = False
+        # the early-stop monitor's fields riding in fit's state files
+        self._fit_state: Optional[Dict] = None
+        # index waves run so far: one santa_merge launch each on the card
+        self.index_waves = 0
+        # one record per epoch of fit: seconds, rates, AP, state-file write
+        self.epoch_log: List[Dict[str, float]] = []
+
+    def request_stop(self) -> None:
+        """Ask the running ``fit`` to stop after the current superchunk and
+        write a resumable state file. Only sets a flag, so a signal handler
+        may call it."""
+        self._stop_requested = True
+
+    @staticmethod
+    def _stopper_state(stopper: EarlyStopMonitor) -> Dict:
+        """The early-stop monitor's fields that ride in a state file."""
+        return {
+            "num_round": stopper.num_round,
+            "epoch_count": stopper.epoch_count,
+            "best_epoch": stopper.best_epoch,
+            "last_best": (None if stopper.last_best is None
+                          else float(stopper.last_best)),
+        }
 
     def set_params(self, params) -> None:
         """Train ``params`` (an ``nn.ModuleDict`` on this Trainer's device)
@@ -197,78 +254,120 @@ class Trainer:
         return np.concatenate([negs, np.zeros(pad, negs.dtype)]).astype(
             np.int32)
 
-    def _wave_plans(self, name: str, negs: np.ndarray) -> List[WavePlan]:
-        """The wave plan of every superchunk of stream ``name`` under the
-        negatives ``negs`` (host scheduling, then one upload per chunk)."""
+    def _wave_plans(self, name: str, negs: np.ndarray,
+                    chunks: range) -> Dict[int, WavePlan]:
+        """The wave plan of each superchunk in ``chunks`` of stream ``name``
+        under the negatives ``negs`` (host scheduling, then one upload per
+        chunk)."""
         ps = self._streams[name]
         host = ps.host
-        total = len(host["src"])
-        chunk = total // ps.n_chunks
-        return [
-            plan_waves(host["src"][lo: lo + chunk], host["dst"][lo: lo + chunk],
-                       negs[lo: lo + chunk], host["valid"][lo: lo + chunk],
-                       self.cfg.n_nodes, self.cfg.wave_cap, self.device)
-            for lo in range(0, total, chunk)
-        ]
+        chunk = len(host["src"]) // ps.n_chunks
+        plans = {}
+        for ci in chunks:
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            plans[ci] = plan_waves(host["src"][sl], host["dst"][sl], negs[sl],
+                                   host["valid"][sl], self.cfg.n_nodes,
+                                   self.cfg.wave_cap, self.device)
+        return plans
 
     def _phase(self, name: str, train: bool, index_state: TpprState,
-               marks: Optional[list] = None) -> Tuple[TpprState, PhaseResult]:
+               marks: Optional[list] = None, start_chunk: int = 0,
+               max_chunks: Optional[int] = None
+               ) -> Tuple[TpprState, PhaseResult]:
         """One pass over stream ``name``: per superchunk, the wave scan of
         the index, then the batches. Updates ``self.mem``, ``index_state``
         and, in training, the parameters in place; reads the metrics back
-        once, at the end."""
+        once, at the end.
+
+        Runs the superchunks from ``start_chunk`` on, at most
+        ``max_chunks`` of them; in training it advances the cursor after
+        each and stops after the current one once a stop was requested. The
+        metrics cover the superchunks that ran."""
         t0 = time.perf_counter()
         cfg = self.cfg
         ps = self._streams[name]
         stream = ps.stream
+        stop = ps.n_chunks if max_chunks is None else min(
+            ps.n_chunks, start_chunk + max_chunks)
+        chunks = range(start_chunk, stop)
+        if not chunks:
+            raise ValueError(
+                f"empty superchunk window: start_chunk={start_chunk}, "
+                f"max_chunks={max_chunks} select none of the {ps.n_chunks} "
+                "chunks")
         if train:
             negs = self._draw_train_negs(self._epoch_id)
             stream = stream._replace(neg=torch.from_numpy(negs).to(self.device))
-            plans = self._wave_plans(name, negs)
+            plans = self._wave_plans(name, negs, chunks)
         else:
             if name not in self._eval_plans:
-                self._eval_plans[name] = self._wave_plans(name, ps.host["neg"])
+                self._eval_plans[name] = self._wave_plans(
+                    name, ps.host["neg"], range(ps.n_chunks))
             plans = self._eval_plans[name]
         t_index = time.perf_counter() - t0
 
-        total = stream.src.shape[0]
-        chunk = total // ps.n_chunks
+        chunk = stream.src.shape[0] // ps.n_chunks
         per_chunk = chunk // cfg.bs
         n_valid = ps.n_valid()
-        metrics = []
+        metrics, waves = [], 0
         _mark(marks, "start")
-        for ci, lo in enumerate(range(0, total, chunk)):
-            cs = Stream(*(x[lo: lo + chunk] for x in stream))
+        for ci in chunks:
+            cs = Stream(*(x[ci * chunk: (ci + 1) * chunk] for x in stream))
             ti = time.perf_counter()
             index_state, rows = wave_scan_chunk(index_state, self._tppr, *cs,
                                                 plans[ci])
+            if cfg.profile and self.device.type == "cuda":
+                # the index's share covers the device's work, at the cost
+                # of the overlap with the towers
+                torch.cuda.synchronize(self.device)
             t_index += time.perf_counter() - ti
+            waves += plans[ci].n_waves
             _mark(marks, "index")
             metrics.append(run_phase(
                 cfg, train, self.params, self.optimizer, self.mem,
                 self.edge_feats, cs, rows,
                 n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist(),
                 self._dropout if train else None, marks))
-        per_batch = torch.cat(metrics).cpu().numpy()[: ps.real_batches]
+            if train:
+                self._chunk_cursor = ci + 1
+                if self._stop_requested:
+                    break
+        self.index_waves += waves
+        per_batch = torch.cat(metrics).cpu().numpy()
+        # a window that starts at chunk c holds the real batches from
+        # c·per_chunk on
+        real = max(1, min(len(per_batch),
+                          ps.real_batches - start_chunk * per_chunk))
+        per_batch = per_batch[:real]
         mean = per_batch.mean(axis=0)
         return index_state, PhaseResult(
             loss=float(mean[0]), ap=float(mean[1]), auc=float(mean[2]),
             acc=float(mean[3]), seconds=time.perf_counter() - t0,
-            index_seconds=t_index, waves=sum(p.n_waves for p in plans),
-            per_batch=per_batch)
+            index_seconds=t_index, waves=waves, per_batch=per_batch)
 
     # ---------------------------------------------------------------- epochs
 
-    def train_epoch(self, marks: Optional[list] = None) -> PhaseResult:
+    def train_epoch(self, start_chunk: int = 0,
+                    max_chunks: Optional[int] = None,
+                    marks: Optional[list] = None) -> PhaseResult:
         """One training epoch from zeroed memory and an empty index.
-        ``marks``, a list (CUDA only), collects (part, CUDA event) pairs
-        that time the epoch's parts on the device: "start", then "index"
-        after each superchunk's wave scan, then ``run_phase``'s per-batch
-        parts."""
-        self.mem, self.index_state = self._fresh_state()
-        self.index_state, result = self._phase("train", True,
-                                               self.index_state, marks)
-        self._epoch_id += 1
+
+        ``start_chunk > 0`` finishes a partly run epoch from restored state
+        (no reset); ``max_chunks`` stops after that many superchunks, so the
+        caller can ``save_state`` a mid-epoch cursor. The epoch id advances
+        and the cursor returns to 0 only when the epoch's last superchunk
+        ran. ``marks``, a list (CUDA only), collects (part, CUDA event)
+        pairs that time the epoch's parts on the device: "start", then
+        "index" after each superchunk's wave scan, then ``run_phase``'s
+        per-batch parts."""
+        if start_chunk == 0:
+            self.mem, self.index_state = self._fresh_state()
+        self.index_state, result = self._phase(
+            "train", True, self.index_state, marks, start_chunk, max_chunks)
+        if self._chunk_cursor >= self._streams["train"].n_chunks:
+            # epoch complete: the cursor expires
+            self._chunk_cursor = 0
+            self._epoch_id += 1
         return result
 
     def validate(self) -> Tuple[PhaseResult, PhaseResult]:
@@ -299,3 +398,175 @@ class Trainer:
         self.mem = val_mem
         _, induct = self._phase("nn_test", False, val_idx)
         return trans, induct
+
+    # ---------------------------------------------------------------- state
+
+    def _memory_from(self, tables: Dict[str, torch.Tensor]) -> MemoryState:
+        return MemoryState(**{k: v.to(self.device) for k, v in tables.items()})
+
+    def save_state(self, path: str, epoch: int = 0,
+                   chunk: Optional[int] = None) -> None:
+        """Full-state checkpoint: params, Adam's state, memory, index, the
+        dropout generator's state, the negative base and epoch id, the
+        epoch and the stream cursor (``chunk``, the next superchunk to run;
+        the Trainer's own cursor by default), and fit's early-stop fields.
+
+        A mid-epoch cursor needs nothing more: this epoch's negatives are
+        drawn again from (negative base, epoch id), and the dropout
+        generator's state is the one the next superchunk starts from."""
+        if chunk is None:
+            chunk = self._chunk_cursor
+        save_checkpoint(path, {
+            "cfg": dataclasses.asdict(self.cfg),
+            "params": self.params.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "mem": self.mem._asdict(),
+            "index_state": self.index_state.data,
+            "dropout": self._dropout.get_state(),
+            "epoch": int(epoch),
+            "chunk": int(chunk),
+            "epoch_id": self._epoch_id,
+            "neg_base": self._neg_base,
+            "fit": self._fit_state,
+        })
+
+    def restore_state(self, path: str) -> Tuple[int, int]:
+        """Restore a ``save_state`` file; returns (epoch, chunk). Pass
+        ``chunk`` to ``train_epoch(start_chunk=...)`` to finish a partly
+        trained epoch. Refuses a file whose state-shaping fields differ
+        from this Trainer's (``Config.STATE_FIELDS``)."""
+        ckpt = load_checkpoint(path)
+        diffs = Config.state_compat_diff(Config.from_dict(ckpt["cfg"]),
+                                         self.cfg)
+        if diffs:
+            raise ValueError(
+                "checkpoint config is incompatible with this Trainer; "
+                "restoring would mis-shape or silently mis-read the "
+                "state:\n  " + "\n  ".join(diffs))
+        # in place, so the optimizer's state keeps referring to the live
+        # tensors
+        self.params.load_state_dict(ckpt["params"])
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.mem = self._memory_from(ckpt["mem"])
+        self.index_state = TpprState(ckpt["index_state"].to(self.device))
+        self._dropout.set_state(ckpt["dropout"])
+        self._chunk_cursor = ckpt["chunk"]
+        self._epoch_id = ckpt["epoch_id"]
+        self._neg_base = ckpt["neg_base"]
+        self._fit_state = ckpt["fit"]
+        return ckpt["epoch"], ckpt["chunk"]
+
+    # ---------------------------------------------------------------- run
+
+    def fit(self, n_epoch: Optional[int] = None,
+            resume_from: Optional[str] = None) -> Dict[str, float]:
+        """The run: epochs of ``train_epoch`` then ``validate`` with early
+        stopping on the transductive val AP, then ``test``, with the JAX
+        package's keys, log lines and order of operations. ``resume_from``
+        restores a ``save_state`` file (``--state_every`` or a stop
+        request) and continues from it: the early-stop monitor, and a
+        mid-epoch cursor if one was saved."""
+        cfg = self.cfg
+        n_epoch = n_epoch or cfg.n_epoch
+        stopper = EarlyStopMonitor(max_round=cfg.patience)
+        stop_epoch = -1
+        timers = PhaseTimers()
+        n_train_events = self.splits.train.n_interactions
+
+        start_epoch, start_chunk = 0, 0
+        if resume_from:
+            start_epoch, start_chunk = self.restore_state(resume_from)
+            for k, v in (self._fit_state or {}).items():
+                setattr(stopper, k, v)
+            logger.info("resumed from %s at epoch %d chunk %d",
+                        resume_from, start_epoch, start_chunk)
+        state_path = os.path.join(cfg.checkpoint_dir,
+                                  cfg.run_name() + ".state.ckpt")
+
+        for epoch in range(start_epoch, n_epoch):
+            with trace_context(
+                    cfg.trace_dir if epoch == cfg.trace_epoch else None):
+                with timers.time("train", n_train_events):
+                    # a restored mid-epoch cursor finishes its epoch first
+                    tr = self.train_epoch(
+                        start_chunk=start_chunk if epoch == start_epoch else 0)
+            if self._stop_requested:
+                self._fit_state = self._stopper_state(stopper)
+                # train_epoch returns the cursor to 0 when the epoch ran to
+                # its end: then the next epoch is where to resume
+                done = self._chunk_cursor == 0
+                self.save_state(state_path,
+                                epoch=epoch + 1 if done else epoch,
+                                chunk=self._chunk_cursor)
+                self._fit_state = None
+                logger.info(
+                    "stop requested: resumable state saved to %s "
+                    "(epoch %d, chunk %d)", state_path, epoch,
+                    self._chunk_cursor)
+                return {"interrupted": True, "state_path": state_path,
+                        "stop_epoch": float(epoch)}
+            timers.seconds["tppr"] += tr.index_seconds
+            with timers.time("val"):
+                trans, induct = self.validate()
+            logger.info(
+                "epoch: %d, tppr: %.2fs, train: %.2fs, val: %.2fs, "
+                "train events/s: %.0f",
+                epoch + 1, tr.index_seconds, tr.seconds,
+                trans.seconds + induct.seconds,
+                n_train_events / max(tr.seconds, 1e-9))
+            logger.info(
+                "train auc: %f, train ap: %f, train acc: %f, train loss: %f",
+                tr.auc, tr.ap, tr.acc, tr.loss)
+            logger.info("val auc: %f, new node val auc: %f", trans.auc,
+                        induct.auc)
+            logger.info("val ap: %f, new node val ap: %f", trans.ap, induct.ap)
+            logger.info("val acc: %f, new node val acc: %f", trans.acc,
+                        induct.acc)
+            record = dict(epoch=epoch + 1, train_s=tr.seconds,
+                          index_s=tr.index_seconds,
+                          val_s=trans.seconds + induct.seconds,
+                          train_events_per_s=n_train_events / max(
+                              tr.seconds, 1e-9),
+                          waves=tr.waves, train_ap=tr.ap, val_ap=trans.ap,
+                          nn_val_ap=induct.ap, state_s=None)
+            self.epoch_log.append(record)
+
+            if stopper.early_stop_check(trans.ap):
+                # the best epoch's params and memory; the index stays where
+                # the last validate left it, as in the JAX package
+                stop_epoch = epoch + 1
+                best = load_checkpoint(self.checkpoint_path)
+                self.params.load_state_dict(best["params"])
+                self.mem = self._memory_from(best["mem"])
+                break
+            if epoch == stopper.best_epoch:
+                save_checkpoint(self.checkpoint_path,
+                                {"params": self.params.state_dict(),
+                                 "mem": self.mem._asdict()})
+            if cfg.state_every and (epoch + 1) % cfg.state_every == 0:
+                # an epoch boundary: the next epoch starts from zeroed
+                # memory and an empty index
+                t0 = time.perf_counter()
+                self._fit_state = self._stopper_state(stopper)
+                self.save_state(state_path, epoch=epoch + 1, chunk=0)
+                self._fit_state = None
+                record["state_s"] = time.perf_counter() - t0
+
+        with timers.time("test"):
+            t_trans, t_induct = self.test()
+        logger.info("phase totals: %s", timers.summary())
+        logger.info("Test statistics: Old nodes -- auc: %f, ap: %f, acc: %f",
+                    t_trans.auc, t_trans.ap, t_trans.acc)
+        logger.info("Test statistics: New nodes -- auc: %f, ap: %f, acc: %f",
+                    t_induct.auc, t_induct.ap, t_induct.acc)
+        if not cfg.save_best and os.path.exists(self.checkpoint_path):
+            os.remove(self.checkpoint_path)
+        return {
+            "test_ap": t_trans.ap,
+            "test_auc": t_trans.auc,
+            "test_acc": t_trans.acc,
+            "nn_test_ap": t_induct.ap,
+            "nn_test_auc": t_induct.auc,
+            "nn_test_acc": t_induct.acc,
+            "stop_epoch": float(stop_epoch),
+        }

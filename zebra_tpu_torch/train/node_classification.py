@@ -1,0 +1,189 @@
+"""Downstream node classification on the link-trained model (counterpart of
+``zebra_tpu/train/node_classification.py``, the CLI's ``--task node``).
+
+1. :func:`collect_source_embeddings`: an eval-mode replay of a stream (the
+   evaluation protocol for memory and index) that emits each event's
+   source embedding. Destinations stand in the negative slot, as in the
+   reference's call. The index runs through the Trainer's wave path
+   (``plan_waves`` + ``wave_scan_chunk``: one ``santa_merge`` launch per
+   wave on the card).
+2. :class:`NodeDecoder`: the reference head dim → 80 → 10 → 1 with dropout.
+3. :func:`train_node_classifier` (Adam and BCE) and
+   :func:`eval_node_classification` (pairwise ROC-AUC).
+4. :func:`run_node_classification`: the protocol over a Trainer."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.index.layout import TpprParams
+from zebra_tpu_torch.index.streaming import TpprQueries, TpprState
+from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
+from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.train.phase import Stream, batch_queries
+from zebra_tpu_torch.train.step import _forward, eval_store_commit
+
+DECODER_DROPOUT = 0.3
+
+
+@torch.no_grad()
+def collect_source_embeddings(cfg: Config, params, mem: MemoryState,
+                              index_state: TpprState, edge_feats, ps
+                              ) -> Tuple[MemoryState, TpprState,
+                                         torch.Tensor, int]:
+    """Eval-mode replay of the phase stream ``ps`` (a Trainer's
+    ``PhaseStream``) from (``mem``, ``index_state``), both updated in
+    place. Returns them, the source embeddings [padded events, H] in
+    stream order, and the index waves run."""
+    tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
+    host, b = ps.host, cfg.bs
+    chunk = len(host["src"]) // ps.n_chunks
+    n_valid = ps.n_valid().tolist()
+    out, waves = [], 0
+    for lo in range(0, len(host["src"]), chunk):
+        sl = slice(lo, lo + chunk)
+        plan = plan_waves(host["src"][sl], host["dst"][sl], host["dst"][sl],
+                          host["valid"][sl], cfg.n_nodes, cfg.wave_cap,
+                          edge_feats.device)
+        cs = Stream(*(x[sl] for x in ps.stream))
+        index_state, rows = wave_scan_chunk(index_state, tppr, cs.src, cs.dst,
+                                            cs.dst, cs.t, cs.eidx, cs.valid,
+                                            plan)
+        waves += plan.n_waves
+        for j in range(chunk // b):
+            s = Stream(*(x[j * b: (j + 1) * b] for x in cs))
+            # the neg slot duplicates dst: embed src‖dst only
+            q = batch_queries(cfg, rows[j * b: (j + 1) * b], s.t)
+            q = TpprQueries(*(x[:, : 2 * b] for x in q))
+            emb = _forward(cfg, params, mem, edge_feats,
+                           torch.cat([s.src, s.dst]), q)
+            nv = n_valid[(lo + j * b) // b]
+            eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
+                              s.eidx, None if nv == b else s.valid)
+            out.append(emb[:b])
+    return mem, index_state, torch.cat(out), waves
+
+
+# ------------------------------------------------------------------ decoder
+
+def _linear(generator: torch.Generator, d_in: int,
+            d_out: int) -> nn.ParameterDict:
+    """U(±1/√in) weight [in, out] and bias, as the JAX head draws them."""
+    bound = d_in ** -0.5
+    u = lambda *shape: (torch.rand(shape, generator=generator) * 2 - 1) * bound
+    return nn.ParameterDict({"w": u(d_in, d_out), "b": u(d_out)})
+
+
+class NodeDecoder(nn.Module):
+    """The reference head: dim → 80 → 10 → 1, ReLU, dropout after each
+    hidden layer; weights in JAX's [in, out] layout (``fc1``/``fc2``/
+    ``fc3`` with ``w``, ``b``)."""
+
+    def __init__(self, dim: int, generator: torch.Generator):
+        super().__init__()
+        self.fc1 = _linear(generator, dim, 80)
+        self.fc2 = _linear(generator, 80, 10)
+        self.fc3 = _linear(generator, 10, 1)
+
+    def forward(self, x: torch.Tensor, dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits [n]; inverted dropout of rate ``dropout`` with masks from
+        ``generator`` (none when it is None)."""
+        def drop(h):
+            if generator is None or dropout <= 0.0:
+                return h
+            keep = torch.rand(h.shape, generator=generator,
+                              device=h.device) < 1.0 - dropout
+            return torch.where(keep, h / (1.0 - dropout), 0.0)
+
+        h = drop(torch.relu(x @ self.fc1["w"] + self.fc1["b"]))
+        h = drop(torch.relu(h @ self.fc2["w"] + self.fc2["b"]))
+        return (h @ self.fc3["w"] + self.fc3["b"])[..., 0]
+
+
+def decoder_step(decoder: NodeDecoder, optimizer, x, y,
+                 dropout: float = DECODER_DROPOUT,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One Adam step on the mean BCE of ``decoder(x)`` against ``y``;
+    returns the loss."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = F.binary_cross_entropy_with_logits(decoder(x, dropout, generator),
+                                              y)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train_node_classifier(embs: torch.Tensor, labels: torch.Tensor,
+                          seed: int = 0, n_steps: int = 200, lr: float = 1e-3,
+                          batch: int = 1024,
+                          dropout: float = DECODER_DROPOUT) -> NodeDecoder:
+    """Fit a :class:`NodeDecoder` on ``embs`` [n, H] against ``labels`` [n]
+    in {0, 1}: ``n_steps`` Adam steps on batches drawn with replacement.
+    The init draws from a CPU generator seeded ``seed``; the batches and
+    dropout masks from one on the embeddings' device."""
+    decoder = NodeDecoder(embs.shape[-1],
+                          torch.Generator().manual_seed(seed)).to(embs.device)
+    optimizer = torch.optim.Adam(decoder.parameters(), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    gen = torch.Generator(embs.device).manual_seed(seed)
+    n = embs.shape[0]
+    for _ in range(n_steps):
+        idx = torch.randint(0, n, (min(batch, n),), generator=gen,
+                            device=embs.device)
+        decoder_step(decoder, optimizer, embs[idx], labels[idx], dropout, gen)
+    return decoder
+
+
+def pairwise_auc(probs: torch.Tensor, labels: torch.Tensor) -> float:
+    """P(a positive outscores a negative) + ½ P(tie) over all
+    (positive, negative) pairs, counted by binary search in the sorted
+    negatives; nan without both classes."""
+    pos, neg = probs[labels > 0.5], probs[labels <= 0.5]
+    if pos.numel() == 0 or neg.numel() == 0:
+        return float("nan")
+    neg = torch.sort(neg).values
+    below = torch.searchsorted(neg, pos)                 # negatives < p
+    upto = torch.searchsorted(neg, pos, right=True)      # negatives ≤ p
+    gt = float(below.sum())
+    eq = float((upto - below).sum())
+    return (gt + 0.5 * eq) / (pos.numel() * neg.numel())
+
+
+@torch.no_grad()
+def eval_node_classification(decoder: NodeDecoder, embs: torch.Tensor,
+                             labels: torch.Tensor) -> float:
+    """ROC-AUC of the decoder's probabilities against the event labels."""
+    return pairwise_auc(torch.sigmoid(decoder(embs)), labels)
+
+
+def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
+                            seed: int = 0) -> dict:
+    """The downstream protocol over a link-trained port ``Trainer``: one
+    fresh chronological replay of train → val → test with the trained
+    params in eval mode, emitting each event's source embedding; the
+    decoder is fit on the train stream's embeddings against the event
+    labels and scored by ROC-AUC on all three streams. The replay's index
+    waves count into ``trainer.index_waves``."""
+    cfg = trainer.cfg
+    mem, index_state = trainer._fresh_state()
+    embs, labels = {}, {}
+    for name in ("train", "val", "test"):
+        data = getattr(trainer.splits, name)
+        mem, index_state, e, waves = collect_source_embeddings(
+            cfg, trainer.params, mem, index_state, trainer.edge_feats,
+            trainer._streams[name])
+        trainer.index_waves += waves
+        embs[name] = e[: data.n_interactions]   # padding trails the events
+        labels[name] = torch.as_tensor(data.labels, dtype=torch.float32,
+                                       device=trainer.device)
+    decoder = train_node_classifier(embs["train"], labels["train"], seed,
+                                    n_steps=n_steps, lr=lr)
+    return {f"node_{name}_auc": eval_node_classification(
+                decoder, embs[name], labels[name])
+            for name in ("train", "val", "test")}
