@@ -39,8 +39,22 @@ Phases, in order; any failure exits non-zero:
      ``LinkPredictor.from_trainer`` of a Trainer restored from it: scores
      bit-equal, one santa_scan launch per ``observe`` call, memory and
      index bit-equal after four calls;
-9. one ``{"kernels": [...]}`` line;
-10. last line ``{"ok": true, "device": {...}}``.
+9. seeds: the seed axis at full width, five seeds in one pass:
+   - santa_merge at the shape a seed-parallel training wave gives it, rows
+     of src, dst and five negatives (R = 7), bit for bit;
+   - ``Trainer(parallel_runs=5)`` on the bench stream: a warm-up epoch, a
+     timed epoch (aggregate train events/s), ``validate()`` and ``test()``
+     per seed; one santa_merge launch per wave of the one shared scan, no
+     santa_scan launch; the train-end index bit-equal to the single-seed
+     Trainer's of phase 7;
+   - lanes 0 and 4 of the first 3,000 events against single-seed Trainers
+     with seeds 0 and 4 (dropout 0.1: the masks are the same);
+   - ``EnsemblePredictor``: score is the mean of the members, member s
+     agrees with ``from_checkpoint(run_index=s)``, ``from_checkpoint(
+     ensemble=True)`` is bit-equal to ``from_trainer``, one santa_scan
+     launch per observe call;
+10. one ``{"kernels": [...]}`` line;
+11. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
@@ -74,7 +88,7 @@ from zebra_tpu_torch.index.streaming import (
 )
 from zebra_tpu_torch.profile_serve import flagship
 from zebra_tpu_torch.profile_train import bench_stream, flagship_training
-from zebra_tpu_torch.serve import LinkPredictor
+from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.loop import Trainer
 
@@ -130,6 +144,28 @@ DEPLOY_SCORE_B, DEPLOY_CALLS, DEPLOY_OBSERVE_B = 2048, 4, 200
 # stream and the negatives); memory at the replay's bars; params and test
 # metrics at 1e-5, an f32 summation order through two epochs.
 RESUME_PARAM_ATOL, RESUME_METRIC_ATOL = 1e-5, 1e-5
+# Seeds phase: five seeds in one pass (README's --parallel_runs 5), a merge
+# of rows [W, R = 2 + 5, F], the replayed lanes and the ensemble's calls.
+SEEDS = 5
+SEED_MERGE = ("seed-parallel training wave", 64, 2 + SEEDS, 2, 20)
+SEED_REPLAY_LANES = (0, 4)
+ENSEMBLE_SCORE_B, ENSEMBLE_CALLS, ENSEMBLE_OBSERVE_B = 2048, 4, 200
+# Lane replay bars, lane s of the seed-parallel Trainer against a
+# single-seed Trainer with seed s on the same card: the masks, negatives
+# and inits are the same, so the two differ only by the summation order of
+# a batched product against a plain one:
+# - per-batch losses at the CUDA-vs-CPU replay's 1e-5;
+# - params within 2·lr per Adam step: where a gradient is near zero its
+#   sign can follow the summation order, and Adam then steps that weight
+#   by about ±lr either way;
+# - memory at the serve phase's bars;
+# - val AP, AUC and accuracy at 1e-3: they move in steps where two scores
+#   swap.
+LANE_LOSS_ATOL, LANE_METRIC_ATOL = 1e-5, 1e-3
+# Ensemble bars: score against the mean of member_scores (one f32 mean in
+# another order) and a member against its single-seed predictor (a batched
+# product against a plain one).
+ENSEMBLE_MEAN_ATOL, ENSEMBLE_MEMBER_ATOL = 1e-6, 1e-5
 
 
 def device_ms(fn, n: int = 100, per_round: int = 100, warmup: int = 10) -> float:
@@ -265,6 +301,32 @@ def _equal(got, want, what):
     err = float((got - want).abs().max()) if got.numel() else 0.0
     assert torch.equal(got, want), f"{what}: max abs err {err}"
     return err
+
+
+def seed_merge_phase(card: str):
+    """santa_merge on the rows of a seed-parallel training wave: src, dst
+    and one negative per seed, [W, 2 + S, F] with row stride (2 + S)·F;
+    the kernel reads rows 0-1."""
+    what, w, r, m, k = SEED_MERGE
+    params, data, (src, dst, neg, ts, eidx) = warm_stream(m, k, w + r, w)
+    extra = np.random.RandomState(w + r).randint(1, 301, (w, r - 3))
+    sdn = np.concatenate([np.stack([src, dst, neg], 1), extra], 1)
+    cuda = lambda a: torch.as_tensor(a).cuda()
+    rows = cuda(data[torch.from_numpy(sdn).long()])
+    src, dst, eidx, ts = cuda(src), cuda(dst), cuda(eidx), cuda(ts)
+    assert rows.shape == (w, r, row_width(m, k)) and rows.is_contiguous()
+    kernel = lambda: merge.SANTA_MERGE(rows, src, dst, eidx, ts, params)
+    plain = lambda: merge.merge_both_reference(rows, src, dst, eidx, ts,
+                                               params)
+    err = _equal(kernel(), plain(), f"santa_merge {what}")
+    bound_ms, bound_by = bound(*merge_work(rows, m, k))
+    res = dict(shape=what, W=w, R=r, M=m, k=k, max_abs_err=err,
+               ms=device_ms(kernel),
+               plain_ms=device_ms(plain, n=60, per_round=10),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               card=card)
+    print("kernel santa_merge " + json.dumps(res), flush=True)
+    return res
 
 
 def merge_phase(card: str):
@@ -546,6 +608,8 @@ def train_phase(card: str):
                            index_host_s=r.index_seconds, waves=r.waves,
                            santa_merge_launches=launches, loss=r.loss,
                            ap=r.ap, auc=r.auc, acc=r.acc))
+    # the train-end index depends on the stream alone (seeds phase)
+    train_end_index = trainer.index_state.data.clone()
     _reset_counts()
     t0 = time.perf_counter()
     val, nn_val = trainer.validate()
@@ -573,6 +637,7 @@ def train_phase(card: str):
                peak_device_gib=peak_gib, card=card)
     print("train " + json.dumps(res), flush=True)
     replay_phase(card)
+    return train_end_index
 
 
 def replay_phase(card: str):
@@ -793,6 +858,191 @@ def fit_phase(card: str, device: str = "cuda", n_events: int = 120_000,
     return launches
 
 
+def _per_seed(r) -> str:
+    return " ".join(f"{f} [{', '.join(f'{v:.6f}' for v in getattr(r, f))}]"
+                    for f in ("loss", "ap", "auc", "acc"))
+
+
+def seeds_train(card: str, single_index: torch.Tensor):
+    """``Trainer(parallel_runs=SEEDS)`` at full width on the bench stream;
+    returns the Trainer after ``test()`` and santa_merge's launches."""
+    cfg, splits, edge_feats = flagship_training(seed=0, parallel_runs=SEEDS)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    setup_s = time.perf_counter() - t0
+    n_train = splits.train.n_interactions
+    torch.cuda.reset_peak_memory_stats()
+    epochs, launches_all = [], 0
+    for e in (1, 2):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = merge.SANTA_MERGE.launches
+        launches_all += launches
+        assert launches == r.waves and scan.SANTA_SCAN.launches == 0, (
+            e, launches, r.waves, scan.SANTA_SCAN.launches)
+        assert np.isfinite(r.per_batch).all(), e
+        rate = SEEDS * n_train / s
+        print(f"seeds train epoch {e}{' (warm-up)' if e == 1 else ''}: "
+              f"{s:.3f} s, {rate:.1f} train events/s over {SEEDS} seeds "
+              f"({n_train / s:.1f} per seed), index {r.index_seconds:.3f} s "
+              f"of host time, {r.waves} waves, {launches} santa_merge "
+              f"launches; {_per_seed(r)}  ({card})", flush=True)
+        epochs.append(dict(seconds=s, events_per_s=rate,
+                           index_host_s=r.index_seconds, waves=r.waves,
+                           santa_merge_launches=launches,
+                           loss=r.loss.tolist(), ap=r.ap.tolist()))
+    index_bitwise = bool(torch.equal(trainer.index_state.data, single_index))
+    assert index_bitwise, int((trainer.index_state.data != single_index)
+                              .any(1).sum())
+    _reset_counts()
+    t0 = time.perf_counter()
+    val, nn_val = trainer.validate()
+    test, nn_test = trainer.test()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
+    eval_launches = merge.SANTA_MERGE.launches
+    assert eval_launches == sum(r.waves for r in phases.values())
+    assert scan.SANTA_SCAN.launches == 0
+    launches_all += eval_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, r in phases.items():
+        print(f"seeds {name:8s} {r.seconds:.3f} s, {r.waves} waves, "
+              f"{_per_seed(r)}  ({card})", flush=True)
+    print(f"seeds peak device memory {peak_gib:.3f} GiB  ({card})",
+          flush=True)
+    assert (min(epochs[1]["ap"]) > 0.5 and val.ap.min() > 0.5
+            and test.ap.min() > 0.5), (
+        epochs[1]["ap"], val.ap, test.ap)
+    res = dict(seeds=SEEDS, train_events_per_seed=n_train, setup_s=setup_s,
+               epochs=epochs, eval_s=eval_s,
+               eval_santa_merge_launches=eval_launches,
+               index_bitwise_vs_single_seed=index_bitwise,
+               phases={k: dict(seconds=r.seconds, waves=r.waves,
+                               ap=r.ap.tolist(), auc=r.auc.tolist())
+                       for k, r in phases.items()},
+               peak_device_gib=peak_gib, card=card)
+    print("seeds train " + json.dumps(res), flush=True)
+    return trainer, launches_all
+
+
+def seeds_replay(card: str):
+    """Lanes SEED_REPLAY_LANES of a seed-parallel Trainer on the first
+    TRAIN_REPLAY_EVENTS events against single-seed Trainers with those
+    seeds, dropout 0.1: one epoch and ``validate()``."""
+    cfg, splits, edge_feats = flagship_training(
+        seed=0, n_events=TRAIN_REPLAY_EVENTS)
+    par = Trainer(cfg.replace(parallel_runs=SEEDS), splits, edge_feats,
+                  device="cuda")
+    singles = {s: Trainer(cfg.replace(seed=s), splits, edge_feats,
+                          device="cuda") for s in SEED_REPLAY_LANES}
+    rp, vp = par.train_epoch(), par.validate()[0]
+    n = par.cfg.n_nodes
+    out = {}
+    for s, single in singles.items():
+        r1, v1 = single.train_epoch(), single.validate()[0]
+        loss_err = float(np.abs(rp.per_batch[:, s, 0]
+                                - r1.per_batch[:, 0]).max())
+        param_err = max(
+            float((v[s] - single.params.state_dict()[k]).abs().max())
+            for k, v in par.params.state_dict().items())
+        diff = (par.mem.memory[s * n: (s + 1) * n].float()
+                - single.mem.memory.float()).abs()
+        mem_err, mem_share = float(diff.max()), float((diff > 0).float()
+                                                       .mean())
+        metric_err = max(abs(float(getattr(vp, f)[s]) - getattr(v1, f))
+                         for f in ("ap", "auc", "acc"))
+        out[s] = dict(batch_loss_max_abs_err=loss_err,
+                      params_max_abs_err=param_err,
+                      memory_max_abs_err=mem_err, memory_diff_share=mem_share,
+                      val_metric_max_abs_err=metric_err,
+                      bitwise=loss_err == 0 and param_err == 0
+                      and mem_err == 0 and metric_err == 0)
+        print(f"seeds replay lane {s}: " + json.dumps(out[s]), flush=True)
+        assert loss_err <= LANE_LOSS_ATOL, (s, loss_err)
+        steps = rp.per_batch.shape[0]
+        assert param_err <= 2 * cfg.lr * steps, (s, param_err, steps)
+        assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
+            s, mem_err, mem_share)
+        assert metric_err <= LANE_METRIC_ATOL, (s, metric_err)
+    print("seeds replay " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS,
+                                            card=card, lanes=out)),
+          flush=True)
+
+
+def seeds_ensemble(trainer: Trainer, card: str):
+    """``EnsemblePredictor`` over the seed-parallel Trainer; returns
+    santa_scan's launches in its observe calls."""
+    ens = EnsemblePredictor.from_trainer(trainer)
+    te = trainer.splits.test
+    sl = slice(0, ENSEMBLE_SCORE_B)
+    q = (te.sources[sl], te.destinations[sl], te.timestamps[sl])
+    score, members = ens.score(*q), ens.member_scores(*q)
+    assert score.shape == (ENSEMBLE_SCORE_B,) and members.shape == (
+        SEEDS, ENSEMBLE_SCORE_B) and np.isfinite(members).all()
+    mean_err = float(np.abs(score - members.mean(0)).max())
+    assert mean_err <= ENSEMBLE_MEAN_ATOL, mean_err
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seeds.state.ckpt")
+        trainer.save_state(path)
+        ef = trainer.edge_feats.cpu().numpy()
+        t0 = time.perf_counter()
+        served = LinkPredictor.from_checkpoint(path, edge_feats=ef,
+                                               ensemble=True)
+        load_s = time.perf_counter() - t0
+        assert isinstance(served, EnsemblePredictor) and served.n_models == SEEDS
+        member_err = 0.0
+        for s in range(SEEDS):
+            one = LinkPredictor.from_checkpoint(path, edge_feats=ef,
+                                                run_index=s)
+            member_err = max(member_err, float(np.abs(
+                one.score(*q) - members[s]).max()))
+        assert member_err <= ENSEMBLE_MEMBER_ATOL, member_err
+    assert np.array_equal(served.score(*q), score)
+    assert np.array_equal(served.member_scores(*q), members)
+    _reset_counts()
+    for c in range(ENSEMBLE_CALLS):
+        sl = slice(c * ENSEMBLE_OBSERVE_B, (c + 1) * ENSEMBLE_OBSERVE_B)
+        served.observe(te.sources[sl], te.destinations[sl],
+                       te.timestamps[sl], te.edge_idxs[sl])
+    launches = scan.SANTA_SCAN.launches
+    assert launches == ENSEMBLE_CALLS and merge.SANTA_MERGE.launches == 0, (
+        launches, merge.SANTA_MERGE.launches)
+    for c in range(ENSEMBLE_CALLS):
+        sl = slice(c * ENSEMBLE_OBSERVE_B, (c + 1) * ENSEMBLE_OBSERVE_B)
+        ens.observe(te.sources[sl], te.destinations[sl], te.timestamps[sl],
+                    te.edge_idxs[sl])
+    assert torch.equal(served.index_state.data, ens.index_state.data)
+    assert all(torch.equal(x, y) for x, y in zip(served.mem, ens.mem))
+    after = served.score(*q)
+    assert np.array_equal(after, ens.score(*q)) and not np.array_equal(
+        after, score)
+    res = dict(members=SEEDS, score_b=ENSEMBLE_SCORE_B,
+               score_vs_member_mean_max_abs_err=mean_err,
+               member_vs_run_index_max_abs_err=member_err,
+               from_checkpoint_s=load_s, checkpoint_bitwise=True,
+               observe_calls=ENSEMBLE_CALLS, observe_b=ENSEMBLE_OBSERVE_B,
+               santa_scan_launches=launches, card=card)
+    print("seeds ensemble " + json.dumps(res), flush=True)
+    return launches
+
+
+def seeds_phase(card: str, single_index: torch.Tensor):
+    """The seed axis (module docstring, phase 9). Returns the santa_merge
+    launches of its main path, santa_scan's and the merge's result at the
+    seed-parallel shape."""
+    merged = seed_merge_phase(card)
+    trainer, merge_launches = seeds_train(card, single_index)
+    scan_launches = seeds_ensemble(trainer, card)
+    del trainer
+    seeds_replay(card)
+    return merge_launches, scan_launches, merged
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -825,8 +1075,9 @@ def main() -> int:
     scan_launches, gpu, cols = serve_phase(card)
     wave_phase(gpu, cols, card)
     fill_phase(gpu.cfg, cols, card)
-    train_phase(card)
+    single_index = train_phase(card)
     merge_launches = fit_phase(card)
+    seed_merges, seed_scans, seed_merge = seeds_phase(card, single_index)
 
     def entry(name, results, main, launches):
         return dict(
@@ -839,11 +1090,13 @@ def main() -> int:
                                           "bound_by", "library_ms")})
 
     # each kernel at the shape its path gives it: a training wave for
-    # santa_merge (launches: the CLI's fit run), a b = 200 observe for
-    # santa_scan (launches: the serve phase)
+    # santa_merge (launches: the CLI's fit run and the seed-parallel
+    # Trainer's epochs and eval phases), a b = 200 observe for santa_scan
+    # (launches: the serve phase and the ensemble's observe calls)
     print(json.dumps({"kernels": [
-        entry("santa_merge", merges, merges[1], merge_launches),
-        entry("santa_scan", scans, scans[0], scan_launches),
+        entry("santa_merge", merges + [seed_merge], merges[1],
+              merge_launches + seed_merges),
+        entry("santa_scan", scans, scans[0], scan_launches + seed_scans),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -2,9 +2,9 @@
 zebra_tpu_torch.train``) on the CPU, after tests/test_cli.py and
 tests/test_preemption.py: datasets written by the port's preprocessor (no
 pandas), a run end to end with its log file, ``--task node``, ``--n_runs``,
-logging and signal handlers restored after each in-process call, and a
-SIGTERM to a running process that writes a state file which
-``--resume_state`` finishes."""
+``--parallel_runs`` with ``--parallel_lr``, logging and signal handlers
+restored after each in-process call, and a SIGTERM to a running process
+that writes a state file which ``--resume_state`` finishes."""
 
 import logging
 import os
@@ -88,11 +88,39 @@ def test_cli_n_runs_use_consecutive_seeds(tmp_path):
     assert [t.cfg.seed for t, _ in runs] == [5, 6]
 
 
-@pytest.mark.parametrize("flag", [["--parallel_runs", "2"],
+@pytest.mark.parametrize("flag", [["--parallel_runs", "2",
+                                   "--fused_dispatch"],
                                   ["--tppr_strategy", "pruning"]])
 def test_cli_refuses_what_the_port_cannot_run(tmp_path, flag):
     with pytest.raises(ValueError, match=flag[0][2:]):
         cli.main(_argv(tmp_path, "toy", *flag))
+
+
+def test_cli_parallel_runs(tmp_path, caplog):
+    """``--parallel_runs 3 --parallel_lr …``: one Trainer, seeds 5, 6, 7,
+    per-seed log lines with mean ± σ, ``--n_runs`` superseded."""
+    _toy(tmp_path)
+    with caplog.at_level("WARNING", logger="zebra_tpu_torch"):
+        (trainer, results), = cli.main(_argv(
+            tmp_path, "toy", "--n_epoch", "1", "--seed", "5", "--n_runs",
+            "2", "--parallel_runs", "3", "--parallel_lr", "0.003", "0.001",
+            "0.0003"))
+    assert "supersedes --n_runs 2" in caplog.text
+    assert trainer.cfg.n_seeds == 3 and trainer.optimizer.lrs == (
+        0.003, 0.001, 0.0003)
+    per = results["per_seed"]
+    assert per["lr"] == [0.003, 0.001, 0.0003] and len(per["test_ap"]) == 3
+    assert results["test_ap"] == pytest.approx(np.mean(per["test_ap"]))
+    text = (tmp_path / "log" / "toy" / trainer.cfg.run_name()).read_text()
+    assert "train events/s (aggregate)" in text
+    assert "Test statistics: Old nodes -- ap: " in text and "±" in text
+
+
+def test_cli_parallel_runs_refuses_task_node(tmp_path):
+    _toy(tmp_path, labels=True)
+    with pytest.raises(SystemExit, match="--task node is single-seed"):
+        cli.main(_argv(tmp_path, "toy", "--parallel_runs", "2", "--task",
+                       "node"))
 
 
 def test_cli_sigterm_then_resume(tmp_path):

@@ -88,6 +88,7 @@ DIFFS = {
     "dtypes": dict(memory_dtype="float32", message_dtype="float32"),
     "extents": dict(n_nodes=384, n_edges=99, edge_dim=1),
     "updater": dict(memory_updater="rnn", n_head=4),
+    "parallel_lr": dict(parallel_runs=2, parallel_lr=(1e-3, 3e-4)),
 }
 
 
@@ -101,7 +102,7 @@ def test_state_compat_diff_matches_jax(change):
 
 
 OUTSIDE = [
-    (["--parallel_runs", "2"], "parallel_runs"),
+    (["--parallel_runs", "2", "--fused_dispatch"], "parallel_runs"),
     (["--parallel_lr", "1e-3", "1e-4"], "parallel_lr"),
     (["--tppr_strategy", "pruning"], "tppr_strategy"),
     (["--embedding_module", "graph_sum"], "embedding_module"),
@@ -130,4 +131,34 @@ OUTSIDE = [
 def test_flags_outside_the_slice_raise(argv, field):
     JaxConfig.from_args(argv)                   # a valid JAX command line
     with pytest.raises(ValueError, match=field):
+        Config.from_args(argv)
+
+
+def test_seed_axis_command_line_carries_over():
+    argv = ["--parallel_runs", "3", "--parallel_lr", "1e-3", "3e-4", "1e-4",
+            "--n_runs", "2"]
+    jcfg, cfg = JaxConfig.from_args(argv), Config.from_args(argv)
+    assert cfg.n_seeds == 3 and cfg.parallel_lr == (1e-3, 3e-4, 1e-4)
+    for f in dataclasses.fields(cfg):
+        want = getattr(jcfg, f.name)
+        if f.name == "parallel_lr":
+            want = tuple(want)
+        assert getattr(cfg, f.name) == want, f.name
+
+
+SEED_AXIS_REFUSALS = {
+    "parallel_lr_length": (["--parallel_runs", "3", "--parallel_lr", "1e-3",
+                            "1e-4"], "one value per parallel run: got 2 for 3"),
+    "n_devices": (["--parallel_runs", "2", "--n_devices", "2"], "n_devices"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEED_AXIS_REFUSALS))
+def test_seed_axis_refusals_that_stand(name):
+    """A JAX command line of the seed axis the port still refuses: a
+    parallel_lr of the wrong length (the JAX Trainer's check and wording),
+    and seeds sharded over devices."""
+    argv, match = SEED_AXIS_REFUSALS[name]
+    JaxConfig.from_args(argv)
+    with pytest.raises(ValueError, match=match):
         Config.from_args(argv)

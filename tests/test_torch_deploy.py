@@ -2,8 +2,9 @@
 serve.py), after the JAX package's deployment path: a predictor built from
 a Trainer's state file scores and observes exactly as one built from the
 Trainer (LinkPredictor.from_trainer) holding that state; a model trained
-with real edge features refuses to serve without them; the seed axis
-(run_index, ensemble) is not ported yet and raises."""
+with real edge features refuses to serve without them; a single-seed file
+refuses the seed axis (run_index, ensemble) with the JAX package's errors.
+Serving a seed-parallel file: test_torch_ensemble.py."""
 
 import numpy as np
 import pytest
@@ -81,9 +82,12 @@ def test_a_model_without_edge_features_serves_on_zeros(tmp_path):
         LinkPredictor.from_trainer(trainer).score(src, dst, t))
 
 
-@pytest.mark.parametrize("kw", [dict(ensemble=True), dict(run_index=1)],
-                         ids=["ensemble", "run_index"])
-def test_the_seed_axis_is_not_ported_yet(state, kw):
-    _, path = state
-    with pytest.raises(NotImplementedError, match="seed axis"):
-        LinkPredictor.from_checkpoint(path, device="cpu", **kw)
+@pytest.mark.parametrize("kw,match", [
+    (dict(ensemble=True), "needs a seed-parallel checkpoint"),
+    (dict(run_index=1), "this checkpoint is single-seed"),
+], ids=["ensemble", "run_index"])
+def test_a_single_seed_file_has_no_seed_axis(state, kw, match):
+    trainer, path = state
+    with pytest.raises(ValueError, match=match):
+        LinkPredictor.from_checkpoint(
+            path, edge_feats=trainer.edge_feats.numpy(), device="cpu", **kw)

@@ -20,8 +20,8 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data import split_data, synthetic_stream
 from zebra_tpu_torch.index import merge as pm
 from zebra_tpu_torch.index import streaming as pst
-from zebra_tpu_torch.models.memory import init_memory
-from zebra_tpu_torch.models.tgn import init_tgn_params
+from zebra_tpu_torch.models.memory import MemoryState, init_memory
+from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
 from zebra_tpu_torch.train.loop import Trainer
 
@@ -79,6 +79,12 @@ ENTRY_POINTS = {
         cfg, init_tgn_params(cfg, torch.Generator(), "cpu"), *_state(cfg),
         np.zeros((10, 2), np.float32)),
     "Trainer": lambda cfg: Trainer(cfg, _splits(), None),
+    "init_seed_params": lambda cfg: init_seed_params(
+        cfg.replace(parallel_runs=2)),
+    "EnsemblePredictor": lambda cfg: EnsemblePredictor(
+        cfg, init_seed_params(cfg.replace(parallel_runs=2), "cpu"),
+        *(MemoryState(*(torch.stack([x, x]) for x in _state(cfg)[0])),
+          _state(cfg)[1]), np.zeros((10, 2), np.float32)),
     "LinkPredictor.from_checkpoint":
         lambda cfg: LinkPredictor.from_checkpoint("x.ckpt"),
     "cli.main": lambda cfg: cli.main(["-d", "x", "--data_dir", "none"]),
@@ -137,7 +143,7 @@ def test_ids_past_f32_width_raise(call):
     ("use_source_embedding_in_message", True),
     ("use_destination_embedding_in_message", True),
     ("interleave_shards", 2),
-    ("parallel_runs", 2),
+    ("fused_dispatch", True),
     ("lazy_unique_cap", -1),
     ("n_devices", 2),
     ("owner_aligned_waves", True),
@@ -170,11 +176,18 @@ def test_config_from_jax_dict_keeps_fields_and_derived_widths():
             want, (list, tuple)) else want), f.name
 
 
-def test_unported_serving_parts_raise():
-    with pytest.raises(NotImplementedError):
-        LinkPredictor.from_checkpoint("x.ckpt", ensemble=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        EnsemblePredictor()
+def test_a_seed_parallel_trainer_serves_as_an_ensemble(tmp_path):
+    """The JAX package's from_trainer guards: a seed-parallel Trainer serves
+    through EnsemblePredictor, a single-seed one through LinkPredictor."""
+    one, par = (Trainer(_small_cfg(parallel_runs=s,
+                                   checkpoint_dir=str(tmp_path)),
+                        _splits(), None, device="cpu") for s in (1, 2))
+    with pytest.raises(ValueError, match="EnsemblePredictor.from_trainer"):
+        LinkPredictor.from_trainer(par)
+    with pytest.raises(ValueError, match="needs a seed-parallel Trainer"):
+        EnsemblePredictor.from_trainer(one)
+    ens = EnsemblePredictor.from_trainer(par)
+    assert ens.n_models == 2 and ens.mem.memory.shape[0] == 2 * ens.cfg.n_nodes
 
 
 def test_scheduler_is_the_port_own_library():

@@ -4,10 +4,15 @@ numpy (the port never imports JAX).
 - params: a numpy pytree ``{"fc1": {"w", "b"}, ..., "cell": {"w_ih", ...}}``
   (``jax.tree.map(np.asarray, params)``) ↔ the port's ``nn.ModuleDict``,
   also into a port ``Trainer`` (:func:`load_trainer_params`), whose
-  ``params`` come back through :func:`params_to_numpy`;
+  ``params`` come back through :func:`params_to_numpy`. A seed-parallel
+  tree carries a leading [S] axis on every leaf, and crosses as it is;
 - memory: any object with ``MemoryState``'s five fields ↔ the port's
-  ``MemoryState``;
-- index: any object with a ``data`` field ↔ ``TpprState``.
+  ``MemoryState``; a seed-parallel run's tables are [S, N, ...] (the JAX
+  Trainer's and ``EnsemblePredictor``'s layout), and the port Trainer's
+  flat [S·N, ...] tables come back in that layout
+  (``memory_to_numpy(mem, n_seeds=S)``);
+- index: any object with a ``data`` field ↔ ``TpprState`` (one index for
+  all seeds).
 
 ``np.asarray`` of a bf16 JAX array is an ``ml_dtypes.bfloat16`` array,
 which ``torch.from_numpy`` refuses: such arrays cross as float32 (a bf16 →
@@ -62,7 +67,8 @@ def params_from_numpy(tree: Mapping[str, Mapping[str, Any]],
 
 def load_trainer_params(trainer, tree: Mapping[str, Mapping[str, Any]]) -> None:
     """Train a port ``Trainer`` from the numpy params ``tree`` (a JAX
-    Trainer's, say) from here on, with a fresh Adam state."""
+    Trainer's, say; stacked [S, ...] for a seed-parallel Trainer) from here
+    on, with a fresh Adam state."""
     trainer.set_params(params_from_numpy(tree, trainer.device))
 
 
@@ -83,8 +89,13 @@ def memory_from_numpy(mem, cfg: Config, device=None) -> MemoryState:
     ))
 
 
-def memory_to_numpy(mem: MemoryState) -> MemoryState:
-    return MemoryState(*(to_numpy(x) for x in mem))
+def memory_to_numpy(mem: MemoryState, n_seeds: int = 1) -> MemoryState:
+    """Tables → numpy; flat seed-parallel tables [S·N, ...] come back as
+    [S, N, ...] when ``n_seeds`` is S."""
+    out = (to_numpy(x) for x in mem)
+    if n_seeds > 1:
+        out = (x.reshape((n_seeds, -1) + x.shape[1:]) for x in out)
+    return MemoryState(*out)
 
 
 def tppr_from_numpy(state, device=None) -> TpprState:

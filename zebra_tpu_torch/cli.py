@@ -11,7 +11,12 @@ flags under the same names and defaults, plus ``--device`` (``cuda``, or
 SIGTERM or SIGINT ends the run gracefully: training stops after the current
 superchunk, a resumable state file is written, and the run exits;
 ``--resume_state <file>`` continues it exactly. A second signal falls back
-to the previous handler."""
+to the previous handler.
+
+``--parallel_runs S`` trains seeds ``--seed`` … ``--seed + S - 1`` in one
+pass (one Trainer, one shared index scan) and logs per-seed results with
+their mean ± σ; ``--parallel_lr`` gives each seed its own lr. It supersedes
+``--n_runs``; ``--task node`` is single-seed and refused with it."""
 
 from __future__ import annotations
 
@@ -96,6 +101,30 @@ def _run(cfg: Config, device, logger: logging.Logger):
     node_feats, edge_feats = load_feat(cfg.data, cfg.data_dir)
     if cfg.ignore_node_feats:
         node_feats = None
+
+    if cfg.task == "node" and cfg.parallel_runs > 1:
+        raise SystemExit(
+            "--task node is single-seed: the downstream decoder consumes one "
+            "model's embeddings (drop --parallel_runs, or train seed-parallel "
+            "with --task link and serve one seed via run_index)")
+    if cfg.parallel_runs > 1:
+        # all seeds advance together in one Trainer (stacked params, one
+        # shared index scan): per-seed results and mean ± σ in one pass
+        if cfg.n_runs > 1:
+            logger.warning("--parallel_runs %d supersedes --n_runs %d: all "
+                           "seeds run in one pass", cfg.parallel_runs,
+                           cfg.n_runs)
+        t0 = time.time()
+        trainer = Trainer(cfg, splits, edge_feats, node_feats, device=device)
+        with _graceful_sigterm(trainer, logger):
+            results = trainer.fit(resume_from=cfg.resume_state)
+        if results.get("interrupted"):
+            logger.info("parallel run interrupted; resume with "
+                        "--resume_state %s", results["state_path"])
+        else:
+            logger.info("%d parallel runs finished in %.1fs: %s",
+                        cfg.parallel_runs, time.time() - t0, results)
+        return [(trainer, results)]
 
     runs = []
     for run in range(cfg.n_runs):

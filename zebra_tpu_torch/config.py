@@ -132,6 +132,23 @@ class Config:
                                tuple(float(x) for x in self.parallel_lr))
         if len(self.alpha_list) != len(self.beta_list):
             raise ValueError("alpha_list and beta_list must have equal length")
+        # the JAX Trainer's checks of the seed axis (zebra_tpu/train/
+        # loop.py:219-250), made here so a command line fails up front
+        n_seeds = self.n_seeds
+        if n_seeds > 1 and self.fused_dispatch:
+            raise ValueError(
+                "parallel_runs > 1 does not support --fused_dispatch (the "
+                "split two-dispatch pipeline is the production path; the "
+                "fused program has no seed-parallel variant)")
+        if self.parallel_lr is not None:
+            if n_seeds == 1:
+                raise ValueError(
+                    "--parallel_lr requires --parallel_runs > 1 (use --lr "
+                    "for a single run)")
+            if len(self.parallel_lr) != n_seeds:
+                raise ValueError(
+                    f"--parallel_lr needs one value per parallel run: got "
+                    f"{len(self.parallel_lr)} for {n_seeds} runs")
         outside = {
             "tppr_strategy": self.tppr_strategy != "streaming",
             "embedding_module": self.embedding_module != "diffusion",
@@ -143,8 +160,6 @@ class Config:
                 bool(self.use_destination_embedding_in_message),
             "interleave_shards": int(self.interleave_shards or 0) > 1,
             "interleave_node_ids": bool(self.interleave_node_ids),
-            "parallel_runs": int(self.parallel_runs) > 1,
-            "parallel_lr": self.parallel_lr is not None,
             "n_devices": int(self.n_devices) != 1,
             "dist_coordinator": self.dist_coordinator is not None,
             "dist_num_processes": int(self.dist_num_processes) != 1,
@@ -167,8 +182,8 @@ class Config:
             raise ValueError(
                 "outside the ported slice (streaming strategy, diffusion "
                 "tower, last aggregator, identity messages, per-position lazy "
-                "updates, the hand-written merge kernel, one model on one "
-                "device in one process): " + ", ".join(bad)
+                "updates, the hand-written merge kernel, one device in one "
+                "process): " + ", ".join(bad)
             )
 
     @classmethod
@@ -241,8 +256,8 @@ class Config:
     def state_compat_diff(cls, saved: "Config", live: "Config") -> List[str]:
         """Field-level diff of the state-shaping fields between a
         checkpoint's config and the live one, in the JAX package's wording;
-        empty = compatible. (Its n_layer and parallel_lr lines concern the
-        recursive towers and the seed axis, which this slice refuses.)"""
+        empty = compatible. (Its n_layer line concerns the recursive towers,
+        which this slice refuses.)"""
         diffs = []
         for name in cls.STATE_FIELDS:
             sv, lv = getattr(saved, name), getattr(live, name)
@@ -250,7 +265,18 @@ class Config:
                 sv, lv = max(1, int(sv)), max(1, int(lv))
             if sv != lv:
                 diffs.append(f"{name}: checkpoint={sv!r} vs live={lv!r}")
+        if (saved.parallel_lr is None) != (live.parallel_lr is None):
+            diffs.append(
+                f"parallel_lr: checkpoint "
+                f"{'set' if saved.parallel_lr is not None else 'unset'} vs "
+                f"live {'set' if live.parallel_lr is not None else 'unset'} "
+                f"(per-seed lr rides the optimizer state pytree)")
         return diffs
+
+    @property
+    def n_seeds(self) -> int:
+        """Seeds trained together (``parallel_runs``, at least 1)."""
+        return max(1, int(self.parallel_runs))
 
     def run_name(self) -> str:
         """The derived config string that names the log file and the

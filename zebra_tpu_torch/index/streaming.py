@@ -87,9 +87,9 @@ def unpack_queries(rows3: torch.Tensor, e_ts: torch.Tensor, n_tppr: int,
 
 def _columns(data, src, dst, neg, e_ts, e_idx, valid):
     """The event columns on ``data``'s device: i32 ids, f32 times, bool
-    valid, contiguous. One host read checks, on the ids as given (before
-    they narrow to i32), that node ids lie in [0, N) and edge ids below
-    2^24."""
+    valid, contiguous (``neg`` [E], or [E, S] with one negative per seed).
+    One host read checks, on the ids as given (before they narrow to i32),
+    that node ids lie in [0, N) and edge ids below 2^24."""
     dev = data.device
     as_t = lambda x, dt: torch.as_tensor(x).to(device=dev,
                                                dtype=dt).contiguous()
@@ -98,7 +98,7 @@ def _columns(data, src, dst, neg, e_ts, e_idx, valid):
     e_ts = as_t(e_ts, torch.float32)
     valid = as_t(valid, torch.bool)
     if e_idx.numel():
-        ids = torch.cat([src, dst, neg])
+        ids = torch.cat([src, dst, neg.reshape(-1)])
         lo, hi, e_max = torch.stack([ids.min(), ids.max(),
                                      e_idx.max()]).tolist()
         check_id_width(n_edges=e_max + 1)

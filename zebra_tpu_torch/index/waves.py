@@ -37,11 +37,11 @@ from zebra_tpu_torch.index.streaming import TpprState, _columns
 
 @functools.lru_cache(maxsize=None)
 def _scheduler():
-    """``zt_wave_schedule`` of the host library, built at first use."""
+    """``zt_wave_schedule_multi`` of the host library, built at first use."""
     i32p = ctypes.POINTER(ctypes.c_int32)
-    fn = build.load("wave_schedule").zt_wave_schedule
-    fn.argtypes = [i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int32, i32p, i32p]
+    fn = build.load("wave_schedule").zt_wave_schedule_multi
+    fn.argtypes = [i32p, i32p, i32p, ctypes.c_int32, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int32, i32p, i32p]
     fn.restype = ctypes.c_int64
     return fn
 
@@ -49,16 +49,21 @@ def _scheduler():
 def wave_schedule(src, dst, neg, n_nodes: int,
                   cap: int) -> Tuple[np.ndarray, np.ndarray, int]:
     """Greedy dependency-respecting waves of at most ``cap`` edges: returns
-    (wave [E] i32, slot [E] i32, n_waves). Refuses node ids outside
+    (wave [E] i32, slot [E] i32, n_waves). ``neg`` is [E], or [S, E] for
+    the seed-parallel trainer's one scan that extracts every seed's
+    negative ([1, E] gives the schedule of [E]). Refuses node ids outside
     [0, n_nodes)."""
-    cols = [np.ascontiguousarray(c, np.int32) for c in (src, dst, neg)]
-    n = len(cols[0])
-    if any(len(c) != n for c in cols):
-        raise ValueError("src, dst and neg must have the same length")
+    src, dst = (np.ascontiguousarray(c, np.int32) for c in (src, dst))
+    negs = np.ascontiguousarray(np.atleast_2d(np.asarray(neg, np.int32)))
+    n = len(src)
+    if len(dst) != n or negs.ndim != 2 or negs.shape[1] != n:
+        raise ValueError(
+            f"src, dst and neg must cover the same edges, got {len(src)}, "
+            f"{len(dst)} and neg {negs.shape}")
     wave, slot = np.empty(n, np.int32), np.empty(n, np.int32)
     ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-    n_waves = _scheduler()(*(ptr(c) for c in cols), n, int(n_nodes), int(cap),
-                           ptr(wave), ptr(slot))
+    n_waves = _scheduler()(ptr(src), ptr(dst), ptr(negs), negs.shape[0], n,
+                           int(n_nodes), int(cap), ptr(wave), ptr(slot))
     if n_waves < 0:
         raise ValueError(
             f"wave_schedule: node id out of range [0, {n_nodes})" if n_waves == -1
@@ -90,12 +95,13 @@ class WavePlan(NamedTuple):
 
 def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int,
                device) -> WavePlan:
-    """Schedule the valid events of a chunk (host numpy columns) and lay the
-    schedule out as a :class:`WavePlan` on ``device``."""
+    """Schedule the valid events of a chunk (host numpy columns; ``neg``
+    [E], or [E, S] with one negative per seed) and lay the schedule out as
+    a :class:`WavePlan` on ``device``."""
     valid = np.asarray(valid, bool)
     pos = np.flatnonzero(valid)
     flat, n_waves = wave_flat_index(np.asarray(src)[pos], np.asarray(dst)[pos],
-                                    np.asarray(neg)[pos], n_nodes, cap)
+                                    np.asarray(neg)[pos].T, n_nodes, cap)
     by_slot = np.argsort(flat, kind="stable")
     order = pos[by_slot]
     counts = np.bincount(flat[by_slot] // cap, minlength=n_waves)
@@ -110,22 +116,28 @@ def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
                     eidx, valid, plan: WavePlan
                     ) -> Tuple[TpprState, torch.Tensor]:
     """Scan a chunk wave by wave (one ``santa_merge`` launch per wave on the
-    card). Updates ``state`` in place; returns it and the pre-edge (src,
-    dst, neg) rows [E, 3, F] in stream order, zero for unscheduled events.
+    card). ``neg`` is [E], or [E, S] for the seed-parallel trainer, whose
+    plan must then come from all S columns. Updates ``state`` in place;
+    returns it and the pre-edge rows [E, 2+S, F] in stream order (src, dst,
+    then one negative per seed; [E, 3, F] for one negative), zero for
+    unscheduled events. The merge reads rows 0-1 of each edge and leaves
+    the negatives' rows to the extraction.
 
     The columns are checked once (``_columns``: one host read), gathered
     into wave order once, and each wave's extraction rows are gathered
-    straight into its slice of the [E' + 1, 3, F] buffer whose last row is
-    the zero row of the unscheduled events."""
+    straight into its slice of the [E' + 1, 2+S, F] buffer whose last row
+    is the zero row of the unscheduled events."""
     data = state.data
     src, dst, neg, t, eidx, _ = _columns(data, src, dst, neg, t, eidx, valid)
     order = plan.order
     w_src, w_dst, w_neg, w_t, w_eidx = (
         c.index_select(0, order) for c in (src, dst, neg, t, eidx))
-    ids = torch.stack([w_src, w_dst, w_neg], dim=1).to(torch.int64)
+    ids = torch.cat([w_src[:, None], w_dst[:, None],
+                     w_neg.view(order.shape[0], -1)], dim=1).to(torch.int64)
     write_ids = ids[:, :2].reshape(-1)
     n_sched, f = order.shape[0], data.shape[1]
-    rows = torch.empty((n_sched + 1, 3, f), dtype=data.dtype, device=data.device)
+    rows = torch.empty((n_sched + 1, ids.shape[1], f), dtype=data.dtype,
+                       device=data.device)
     rows[n_sched] = 0.0
     bounds = plan.bounds
     for lo, hi in zip(bounds[:-1], bounds[1:]):

@@ -7,7 +7,12 @@
     h' = (1-z) ⊙ n + z ⊙ h
 
 Weights keep JAX's [in, out] layout (``w_ih`` [D, 3H], gates r|z|n), all
-initialized U(-1/√H, 1/√H)."""
+initialized U(-1/√H, 1/√H).
+
+Seed-parallel parameters carry a leading seed axis on every leaf (``w``
+[S, in, out], ``b`` [S, out]); the activations then carry it too
+([S, ..., in]), and :func:`matmul` and :func:`add_bias` compute all S
+lanes in one operation each."""
 
 from __future__ import annotations
 
@@ -26,9 +31,23 @@ def matmul(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor
     torch would return bf16."""
     if compute_dtype is None and x.dtype == torch.bfloat16:
         compute_dtype = torch.bfloat16
-    if compute_dtype is None:
+    if compute_dtype is not None:
+        x, w = x.to(compute_dtype).float(), w.to(compute_dtype).float()
+    if w.dim() == 2:
         return x @ w
-    return x.to(compute_dtype).float() @ w.to(compute_dtype).float()
+    # a stacked weight [S, in, out] against x [S, ..., in]: one batched
+    # product over the seed lanes
+    s, d = w.shape[0], w.shape[1]
+    return torch.bmm(x.reshape(s, -1, d), w).reshape(
+        x.shape[:-1] + w.shape[-1:])
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``y + b``; a stacked bias [S, out] meets y [S, ..., out] lane by
+    lane."""
+    if b.dim() == 2:
+        b = b.reshape(b.shape[:1] + (1,) * (y.dim() - 2) + b.shape[1:])
+    return y + b
 
 
 def _uniform(generator, shape, bound):
@@ -52,8 +71,8 @@ def gru_apply(params, x: torch.Tensor, h: torch.Tensor,
               compute_dtype=None) -> torch.Tensor:
     """x [..., D], h [..., H] → h' [..., H] in f32 (a bf16 ``h`` promotes)."""
     hd = h.shape[-1]
-    gi = matmul(x, params["w_ih"], compute_dtype) + params["b_ih"]
-    gh = matmul(h, params["w_hh"], compute_dtype) + params["b_hh"]
+    gi = add_bias(matmul(x, params["w_ih"], compute_dtype), params["b_ih"])
+    gh = add_bias(matmul(h, params["w_hh"], compute_dtype), params["b_hh"])
     i_r, i_z, i_n = gi[..., :hd], gi[..., hd: 2 * hd], gi[..., 2 * hd:]
     h_r, h_z, h_n = gh[..., :hd], gh[..., hd: 2 * hd], gh[..., 2 * hd:]
     r = torch.sigmoid(i_r + h_r)
@@ -75,10 +94,9 @@ def rnn_init(generator: torch.Generator, input_dim: int,
 
 def rnn_apply(params, x: torch.Tensor, h: torch.Tensor,
               compute_dtype=None) -> torch.Tensor:
-    return torch.tanh(
-        matmul(x, params["w_ih"], compute_dtype) + params["b_ih"]
-        + matmul(h, params["w_hh"], compute_dtype) + params["b_hh"]
-    )
+    gi = add_bias(matmul(x, params["w_ih"], compute_dtype), params["b_ih"])
+    return torch.tanh(add_bias(gi + matmul(h, params["w_hh"], compute_dtype),
+                               params["b_hh"]))
 
 
 CELLS = {

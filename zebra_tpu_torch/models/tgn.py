@@ -16,7 +16,13 @@ across one to one. Init follows the JAX distributions: Xavier-normal
 tower/head weights, U(±1/√in) biases, U(±1/√H) cell parameters; the numbers
 differ because the generators differ. Dropout masks are drawn from an
 explicit ``torch.Generator`` on the activations' device; they cannot equal
-JAX's ``rbg`` masks, so comparisons with JAX run with dropout 0."""
+JAX's ``rbg`` masks, so comparisons with JAX run with dropout 0.
+
+Seed-parallel parameters (:func:`init_seed_params`) keep this structure
+with a leading [S] axis on every leaf; the forward then takes activations
+with a leading [S] axis and runs all S lanes in one set of operations. The
+dropout masks of lane s come from its own generator, in the order and
+shapes of a single-seed forward."""
 
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from torch import nn
 
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.device import resolve_device
-from zebra_tpu_torch.models.cells import CELLS, matmul
+from zebra_tpu_torch.models.cells import CELLS, add_bias, matmul
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
 
 
@@ -64,15 +70,65 @@ def init_tgn_params(cfg: Config, generator: torch.Generator,
     return params.to(dev).requires_grad_(False)
 
 
+def init_seed_params(cfg: Config, device=None) -> nn.ModuleDict:
+    """Seed-parallel parameters: ``init_tgn_params``'s structure with a
+    leading [S] axis (S = ``cfg.n_seeds``) on every leaf, lane s drawn as a
+    single-seed Trainer with seed ``cfg.seed + s`` draws its own."""
+    return stack_params([
+        init_tgn_params(cfg.replace(seed=cfg.seed + s),
+                        torch.Generator().manual_seed(cfg.seed + s), "cpu")
+        for s in range(cfg.n_seeds)]).to(resolve_device(device))
+
+
+def stack_params(lanes) -> nn.ModuleDict:
+    """Per-seed parameter trees (same structure) → one tree of stacked
+    leaves [S, ...]."""
+    return nn.ModuleDict({
+        name: nn.ParameterDict({
+            key: torch.stack([lane[name][key].detach() for lane in lanes])
+            for key in layer.keys()})
+        for name, layer in lanes[0].items()}).requires_grad_(False)
+
+
+def lane_params(params, s: int):
+    """Lane ``s`` of stacked parameters as a tree of views (plain dicts)."""
+    return {name: {key: v[s] for key, v in layer.items()}
+            for name, layer in params.items()}
+
+
+def params_from_state_dict(state) -> nn.ModuleDict:
+    """A parameter tree from a ``state_dict()`` (keys ``"fc1.w"`` …), with
+    the shapes the state holds: single-seed or stacked."""
+    tree: dict = {}
+    for key, v in state.items():
+        name, leaf = key.split(".")
+        tree.setdefault(name, {})[leaf] = v.detach().clone()
+    return nn.ModuleDict({name: nn.ParameterDict(layer)
+                          for name, layer in tree.items()}).requires_grad_(False)
+
+
+def _dropout_keep(shape, dropout: float, generator, device) -> torch.Tensor:
+    """The keep mask of inverted dropout. ``generator`` is one generator,
+    or a list of one per seed lane: lane s then draws its mask [shape[1:]]
+    from its own generator, as a single-seed forward would, and the masks
+    are stacked."""
+    if isinstance(generator, (list, tuple)):
+        draw = torch.stack([torch.rand(shape[1:], generator=g, device=device)
+                            for g in generator])
+    else:
+        draw = torch.rand(shape, generator=generator, device=device)
+    return draw < 1.0 - dropout
+
+
 def _mlp2(p1, p2, x, mxu=None, dropout: float = 0.0, generator=None):
     """fc2(drop(relu(fc1(x)))): inverted dropout of rate ``dropout`` with a
-    mask from ``generator`` (no dropout when it is None)."""
-    hidden = torch.relu(matmul(x, p1["w"], mxu) + p1["b"])
+    mask from ``generator`` (no dropout when it is None; one generator per
+    lane for stacked parameters)."""
+    hidden = torch.relu(add_bias(matmul(x, p1["w"], mxu), p1["b"]))
     if generator is not None and dropout > 0.0:
-        keep = torch.rand(hidden.shape, generator=generator,
-                          device=hidden.device) < 1.0 - dropout
+        keep = _dropout_keep(hidden.shape, dropout, generator, hidden.device)
         hidden = torch.where(keep, hidden / (1.0 - dropout), 0.0)
-    return matmul(hidden, p2["w"], mxu) + p2["b"]
+    return add_bias(matmul(hidden, p2["w"], mxu), p2["b"])
 
 
 def cell_apply(cfg: Config, params, msgs, mem):
@@ -120,10 +176,13 @@ def diffusion_embed(cfg: Config, params, src_mem: torch.Tensor,
 
     src_mem [Q, d] and nbr_mem [M, Q, k, d] in the memory table's dtype (or
     f32 after a lazy update), nbr_static [M, Q, k, De+Dt] f32, w [M, Q, k]
-    T-PPR weights."""
+    T-PPR weights. Stacked parameters take src_mem [S, Q, d] and nbr_mem
+    [S, M, Q, k, d] and return [S, Q, d·(M+1)]; nbr_static and w may then
+    be per lane or shared by all lanes."""
     src_emb = _mlp2(params["fc1_src"], params["fc2_src"], src_mem,
                     cfg.mxu_dtype, cfg.dropout, generator)
     dt = torch.promote_types(nbr_mem.dtype, nbr_static.dtype)
+    nbr_static = nbr_static.expand(nbr_mem.shape[:-1] + nbr_static.shape[-1:])
     nbr_in = torch.cat([nbr_mem.to(dt), nbr_static.to(dt)], dim=-1)
     nbr_emb = _mlp2(params["fc1"], params["fc2"], nbr_in, cfg.mxu_dtype,
                     cfg.dropout, generator)
@@ -131,15 +190,16 @@ def diffusion_embed(cfg: Config, params, src_mem: torch.Tensor,
     # weight-normalize with the zero-sum guard
     w_sum = w.sum(-1, keepdim=True)                          # [M, Q, 1]
     w_n = torch.where(w_sum > 0, w / torch.where(w_sum > 0, w_sum, 1.0), 0.0)
-    agg = (nbr_emb * w_n[..., None]).sum(2)                  # [M, Q, d]
-    return torch.cat([src_emb] + list(agg.unbind(0)), dim=-1)
+    agg = (nbr_emb * w_n[..., None]).sum(-2)                 # [M, Q, d]
+    return torch.cat([src_emb] + list(agg.unbind(-3)), dim=-1)
 
 
 def affinity_score(params, e1: torch.Tensor, e2: torch.Tensor,
                    mxu=None) -> torch.Tensor:
-    """MergeLayer link head → logits [B]."""
+    """MergeLayer link head → logits [B] ([S, B] for stacked
+    parameters)."""
     x = torch.cat([e1, e2], dim=-1)
-    hidden = torch.relu(matmul(x, params["affinity_fc1"]["w"], mxu)
-                        + params["affinity_fc1"]["b"])
-    return (matmul(hidden, params["affinity_fc2"]["w"], mxu)
-            + params["affinity_fc2"]["b"])[..., 0]
+    hidden = torch.relu(add_bias(matmul(x, params["affinity_fc1"]["w"], mxu),
+                                 params["affinity_fc1"]["b"]))
+    return add_bias(matmul(hidden, params["affinity_fc2"]["w"], mxu),
+                    params["affinity_fc2"]["b"])[..., 0]

@@ -1,9 +1,10 @@
 """Where a training epoch's time goes on the card.
 
-    python3 -m zebra_tpu_torch.profile_train
+    python3 -m zebra_tpu_torch.profile_train [--parallel_runs S]
 
 Builds the flagship training configuration at full width on the bench
-stream (the one ``chip_smoke.py`` trains), runs a warm-up epoch, then:
+stream (the one ``chip_smoke.py`` trains), with S seeds in one pass when
+``--parallel_runs`` is given, runs a warm-up epoch, then:
 - one epoch with CUDA events between its parts, read after the epoch: the
   device timeline split into the index wave loop ("index"), the towers'
   forward with the loss ("forward"), "backward", "adam", the memory
@@ -13,10 +14,12 @@ stream (the one ``chip_smoke.py`` trains), runs a warm-up epoch, then:
 - one epoch without events, for the epoch's seconds;
 - one epoch under ``torch.profiler``: the device-busy share and the
   kernels that take the device time.
-Prints one JSON line. Needs a CUDA device."""
+Prints one JSON line; train events/s count every seed's events. Needs a
+CUDA device."""
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -63,9 +66,13 @@ def split_marks(marks) -> dict:
 
 
 def main() -> None:
-    cfg, splits, edge_feats = flagship_training()
+    ap = argparse.ArgumentParser("zebra_tpu_torch.profile_train")
+    ap.add_argument("--parallel_runs", type=int, default=1)
+    args = ap.parse_args()
+    cfg, splits, edge_feats = flagship_training(
+        parallel_runs=args.parallel_runs)
     trainer = Trainer(cfg, splits, edge_feats, device="cuda")
-    n_train = splits.train.n_interactions
+    n_train = splits.train.n_interactions * cfg.n_seeds
     trainer.train_epoch()                               # warm-up
     torch.cuda.synchronize()
 
@@ -97,7 +104,9 @@ def main() -> None:
     merge_s = sum(us for name, (_, us) in per_kernel.items()
                   if "santa_merge" in name) / 1e6
 
+    mean = lambda x: float(torch.as_tensor(x, dtype=torch.float64).mean())
     print(json.dumps(dict(
+        parallel_runs=cfg.n_seeds,
         train_events=n_train, batches=int(plain.per_batch.shape[0]),
         waves=plain.waves, santa_merge_launches=launches,
         epoch_s=epoch_s, train_events_per_s=n_train / epoch_s,
@@ -112,7 +121,9 @@ def main() -> None:
         device_kernels=sum(n for n, _ in per_kernel.values()),
         top_device_ops=[(name[:60], n, round(us / 1e3, 3))
                         for name, (n, us) in top],
-        loss=plain.loss, ap=plain.ap, marked_loss=marked.loss,
+        loss=mean(plain.loss), ap=mean(plain.ap),
+        marked_loss=mean(marked.loss),
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
         card=torch.cuda.get_device_name(0),
     )))
 

@@ -12,7 +12,13 @@ Example::
 The predictor runs on CUDA unless ``device="cpu"`` is passed. ``observe``
 streams the events through the T-PPR index (``fill_scan``: one
 ``santa_scan`` kernel launch per call on the card), then applies the
-eval-mode memory protocol; ``score`` is read-only."""
+eval-mode memory protocol; ``score`` is read-only.
+
+A seed-parallel training run (``--parallel_runs``) serves one seed,
+``LinkPredictor.from_checkpoint(path, run_index=s)``, or all of them as a
+deep ensemble, :class:`EnsemblePredictor` (``from_checkpoint(path,
+ensemble=True)`` or ``EnsemblePredictor.from_trainer``): the mean member
+probability from one batched pass."""
 
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from zebra_tpu_torch.index.streaming import (
     read_topk,
 )
 from zebra_tpu_torch.models.memory import MemoryState
-from zebra_tpu_torch.models.tgn import affinity_score, init_tgn_params
+from zebra_tpu_torch.models.tgn import affinity_score, params_from_state_dict
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.step import _forward, eval_store_commit
 
@@ -43,6 +49,8 @@ class LinkPredictor:
 
     The predictor keeps its own copies of the state on ``device`` and
     updates memory and index in place as it observes events."""
+
+    _stacked = False  # EnsemblePredictor: params and memory carry [S, ...]
 
     def __init__(self, cfg: Config, params, mem: MemoryState,
                  index_state: TpprState, edge_feats, device=None):
@@ -56,6 +64,7 @@ class LinkPredictor:
         self.edge_feats = torch.as_tensor(edge_feats).to(
             dev, torch.float32, copy=True)
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
+        self._offs = None   # the members' row offsets (EnsemblePredictor)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[Config] = None,
@@ -67,18 +76,37 @@ class LinkPredictor:
         the file; ``edge_feats`` to zeros, which a model trained with real
         edge features refuses. ``events`` and ``rebuild_every`` serve the
         adjacency-index strategies, which this slice's Config refuses; they
-        are accepted so a JAX call carries over, and unused. ``run_index``
-        and ``ensemble`` select seeds of a seed-parallel file: the seed axis
-        is not ported yet."""
+        are accepted so a JAX call carries over, and unused.
+
+        From a seed-parallel file (``--parallel_runs``: params and memory
+        carry a leading seed axis, the index is shared) ``run_index``
+        serves one seed, and ``ensemble=True`` serves all of them as an
+        :class:`EnsemblePredictor`."""
         dev = resolve_device(device)
-        if ensemble or run_index:
-            raise NotImplementedError(
-                "zebra_tpu_torch serves one model: the seed axis "
-                "(run_index, ensemble) is not ported yet (ROADMAP.md)")
         ckpt = load_checkpoint(path)
         cfg = cfg if cfg is not None else Config.from_dict(ckpt["cfg"])
-        params = init_tgn_params(cfg, torch.Generator(), "cpu")
-        params.load_state_dict(ckpt["params"])
+        params, mem = ckpt["params"], ckpt["mem"]
+        if ensemble:
+            if cfg.parallel_runs <= 1:
+                raise ValueError(
+                    "ensemble=True needs a seed-parallel checkpoint "
+                    "(--parallel_runs > 1); this one is single-seed")
+            if run_index:
+                raise ValueError("pass run_index OR ensemble=True, not both")
+            cls = EnsemblePredictor
+            cfg = cfg.replace(parallel_runs=1, parallel_lr=None)
+        elif cfg.parallel_runs > 1:
+            if not 0 <= run_index < cfg.parallel_runs:
+                raise ValueError(
+                    f"run_index {run_index} out of range for a "
+                    f"{cfg.parallel_runs}-seed checkpoint")
+            params = {k: v[run_index] for k, v in params.items()}
+            mem = {k: v[run_index] for k, v in mem.items()}
+            cfg = cfg.replace(parallel_runs=1, parallel_lr=None)
+        elif run_index:
+            raise ValueError(
+                f"run_index {run_index} given, but this checkpoint is "
+                "single-seed (no seed axis to select from)")
         if edge_feats is None:
             real = cfg.real_edge_feats
             if real is None:  # a config that did not record it
@@ -90,15 +118,27 @@ class LinkPredictor:
                     "edge features; pass edge_feats= (the training "
                     "ml_{d}.npy matrix)")
             edge_feats = np.zeros((cfg.n_edges, cfg.edge_dim), np.float32)
-        return cls(cfg, params, MemoryState(**ckpt["mem"]),
+        return cls(cfg, params_from_state_dict(params), MemoryState(**mem),
                    TpprState(ckpt["index_state"]), edge_feats, device=dev)
 
     @classmethod
     def from_trainer(cls, trainer) -> "LinkPredictor":
         """A predictor over a port Trainer's current params, memory, index
         and edge features, on the Trainer's device (copies: the Trainer
-        trains on undisturbed)."""
-        return cls(trainer.cfg, trainer.params, trainer.mem,
+        trains on undisturbed). A seed-parallel Trainer serves through
+        ``EnsemblePredictor.from_trainer``."""
+        n_seeds = trainer.cfg.n_seeds
+        if n_seeds > 1 and not cls._stacked:
+            raise ValueError(
+                "this Trainer is seed-parallel: serve all seeds with "
+                "EnsemblePredictor.from_trainer, or one seed via "
+                "from_checkpoint(run_index=...)")
+        if n_seeds == 1 and cls._stacked:
+            raise ValueError("EnsemblePredictor needs a seed-parallel Trainer "
+                             "(--parallel_runs > 1)")
+        cfg = trainer.cfg.replace(parallel_runs=1, parallel_lr=None)
+        return cls(cfg, trainer.params,
+                   MemoryState(**trainer._memory_tables()),
                    trainer.index_state, trainer.edge_feats,
                    device=trainer.device)
 
@@ -123,14 +163,19 @@ class LinkPredictor:
         """P(interaction) for each (src, dst) candidate at its timestamp."""
         with torch.no_grad():
             src, dst, t = self._ids(src), self._ids(dst), self._times(t)
-            b = src.shape[0]
-            q = self._queries(src, dst, t, with_neg=False)
-            nodes2 = torch.cat([src, dst])
-            emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
-                           nodes2, q)
-            logit = affinity_score(self.params, emb[:b], emb[b:],
-                                   self.cfg.mxu_dtype)
-            return torch.sigmoid(logit).cpu().numpy()
+            return self._probs(src, dst, t).cpu().numpy()
+
+    def _probs(self, src, dst, t) -> torch.Tensor:
+        """Link probabilities on the device: [B], or [S, B] for the members
+        of an ensemble."""
+        b = src.shape[0]
+        q = self._queries(src, dst, t, with_neg=False)
+        nodes2 = torch.cat([src, dst])
+        emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
+                       nodes2, q, offs=self._offs)
+        logit = affinity_score(self.params, emb[..., :b, :], emb[..., b:, :],
+                               self.cfg.mxu_dtype)
+        return torch.sigmoid(logit)
 
     def observe(self, src, dst, t, eidx) -> None:
         """Ingest observed interactions: stream them through the T-PPR index
@@ -151,14 +196,48 @@ class LinkPredictor:
     def _updated_mem(self, src, dst, t, eidx, valid) -> MemoryState:
         """Eval-protocol memory update for observe()."""
         return eval_store_commit(self.cfg, self.params, self.mem,
-                                 self.edge_feats, src, dst, t, eidx, valid)
+                                 self.edge_feats, src, dst, t, eidx, valid,
+                                 self._offs)
 
 
 class EnsemblePredictor(LinkPredictor):
-    """Deep-ensemble serving over a seed-parallel snapshot: not ported yet
-    (ROADMAP.md)."""
+    """Deep-ensemble serving over a seed-parallel snapshot
+    (``zebra_tpu/serve.py:EnsemblePredictor``): ``params`` carry the [S]
+    seed axis of one ``--parallel_runs`` run and ``mem`` its [S, N, ...]
+    tables, the T-PPR index is shared (its evolution does not depend on the
+    model), and ``score`` returns the mean link probability of the S
+    members from one batched pass. ``observe`` runs the shared index scan
+    once (one ``santa_scan`` launch on the card), then the eval memory
+    protocol of all members at once. The members' tables are held flat,
+    [S·N, ...], as the seed-parallel Trainer holds them.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "zebra_tpu_torch serves one model; EnsemblePredictor is not "
-            "ported yet (ROADMAP.md)")
+    Build with ``LinkPredictor.from_checkpoint(path, ensemble=True)`` or
+    ``EnsemblePredictor.from_trainer(seed_parallel_trainer)``; ``cfg`` is
+    the members' (single-seed) configuration."""
+
+    _stacked = True
+
+    def __init__(self, cfg: Config, params, mem: MemoryState,
+                 index_state: TpprState, edge_feats, device=None):
+        n_models = next(iter(params.parameters())).shape[0]
+        super().__init__(cfg, params, MemoryState(*(
+            x.reshape((-1,) + x.shape[2:]) for x in mem)), index_state,
+            edge_feats, device)
+        self._offs = torch.arange(n_models, dtype=torch.int64,
+                                  device=self.device) * cfg.n_nodes
+
+    @property
+    def n_models(self) -> int:
+        return int(self._offs.shape[0])
+
+    def score(self, src, dst, t) -> np.ndarray:
+        """The mean member probability for each (src, dst) candidate."""
+        with torch.no_grad():
+            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
+            return self._probs(src, dst, t).mean(0).cpu().numpy()
+
+    def member_scores(self, src, dst, t) -> np.ndarray:
+        """Per-member probabilities [S, B] (``score`` is their mean)."""
+        with torch.no_grad():
+            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
+            return self._probs(src, dst, t).cpu().numpy()

@@ -28,7 +28,19 @@ Negatives are drawn on the host: eval negatives once, from samplers seeded
 0/2/3 (the inductive val stream reuses the val sampler); train negatives
 every epoch from (base, epoch). The same inputs and seed give the JAX
 Trainer's negatives. The Trainer runs on CUDA unless ``device="cpu"`` is
-passed."""
+passed.
+
+Seed-parallel (``cfg.parallel_runs`` = S > 1): S independent runs, seeds
+``cfg.seed + s``, advance together in one pass (``train/phase.py``). Each
+seed has its own params (a leading [S] axis on every leaf), Adam state
+(:class:`~zebra_tpu_torch.train.step.SeedAdam`, lr ``parallel_lr[s]``),
+memory (rows [s·N, (s+1)·N) of the flat tables ``self.mem``), dropout
+generator and train negatives (the draw a single-seed Trainer with that
+seed makes). The index scan is shared: negatives are only read for
+extraction, so one scan per superchunk, scheduled against every seed's
+negatives, serves all seeds. Phase results hold [S] arrays; ``fit`` keeps a
+stopper and a best snapshot per seed and returns the mean, σ and the
+per-seed values."""
 
 from __future__ import annotations
 
@@ -54,11 +66,15 @@ from zebra_tpu_torch.index.streaming import (
 )
 from zebra_tpu_torch.index.waves import WavePlan, plan_waves, wave_scan_chunk
 from zebra_tpu_torch.models.memory import MemoryState, init_memory
-from zebra_tpu_torch.models.tgn import init_tgn_params
+from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
 from zebra_tpu_torch.train.phase import Stream, _mark, run_phase
-from zebra_tpu_torch.train.step import flush_pending, make_optimizer
+from zebra_tpu_torch.train.step import (
+    flush_pending,
+    flush_pending_seeds,
+    make_optimizer,
+)
 from zebra_tpu_torch.utils.profiling import PhaseTimers, trace_context
 
 logger = logging.getLogger("zebra_tpu_torch")
@@ -70,7 +86,7 @@ SEED_VAL, SEED_TEST, SEED_NN_TEST = 0, 2, 3
 
 @dataclass
 class PhaseResult:
-    ap: float
+    ap: float                    # seed-parallel: these four are [S] arrays
     auc: float
     acc: float
     loss: float = 0.0
@@ -82,6 +98,7 @@ class PhaseResult:
                                  # each on the card
     per_batch: Optional[np.ndarray] = field(  # [real batches, 4]: loss,
         default=None, repr=False)             # ap, auc, acc per batch
+                                              # ([real batches, S, 4])
 
 
 class PhaseStream(NamedTuple):
@@ -152,16 +169,36 @@ class Trainer:
                                        cfg.topk)
 
         # the base of the per-epoch train negatives: the first draw of a
-        # RandomState seeded with cfg.seed (random under enable_random)
-        draw = np.random if cfg.enable_random else np.random.RandomState(
-            cfg.seed)
-        self._neg_base = int(draw.randint(0, 2**31 - 1))
+        # RandomState seeded with cfg.seed (random under enable_random); per
+        # seed, the base a single-seed Trainer with seed cfg.seed + s draws
+        self._n_seeds = n_seeds = cfg.n_seeds
+        if n_seeds == 1:
+            draw = np.random if cfg.enable_random else np.random.RandomState(
+                cfg.seed)
+            self._neg_base = int(draw.randint(0, 2**31 - 1))
+        elif cfg.enable_random:
+            self._neg_base = np.random.randint(0, 2**31 - 1,
+                                               n_seeds).astype(np.int64)
+        else:
+            self._neg_base = np.asarray(
+                [np.random.RandomState(cfg.seed + s).randint(0, 2**31 - 1)
+                 for s in range(n_seeds)], np.int64)
         self._epoch_id = 0
 
-        self.set_params(init_tgn_params(
-            cfg, torch.Generator().manual_seed(cfg.seed), dev))
-        # dropout masks; JAX's rbg masks cannot be reproduced
-        self._dropout = torch.Generator(dev).manual_seed(cfg.seed)
+        # seed lane s owns rows [s·N, (s+1)·N) of the flat memory tables
+        self._offs = None
+        if n_seeds == 1:
+            self.set_params(init_tgn_params(
+                cfg, torch.Generator().manual_seed(cfg.seed), dev))
+        else:
+            self._offs = torch.arange(n_seeds, dtype=torch.int64,
+                                      device=dev) * cfg.n_nodes
+            self.set_params(init_seed_params(cfg, dev))
+        # dropout masks, one generator per seed; JAX's rbg masks cannot be
+        # reproduced
+        gens = [torch.Generator(dev).manual_seed(cfg.seed + s)
+                for s in range(n_seeds)]
+        self._dropout = gens[0] if n_seeds == 1 else gens
         self.mem, self.index_state = self._fresh_state()
 
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
@@ -204,8 +241,10 @@ class Trainer:
     # ---------------------------------------------------------------- helpers
 
     def _fresh_state(self) -> Tuple[MemoryState, TpprState]:
+        """Zeroed memory (S·N flat rows for S seeds) and an empty index."""
         cfg = self.cfg
-        mem = init_memory(cfg.n_nodes, cfg.memory_dim, cfg.msg_table_dim,
+        mem = init_memory(cfg.n_nodes * self._n_seeds, cfg.memory_dim,
+                          cfg.msg_table_dim,
                           torch_dtype(cfg.message_dtype),
                           torch_dtype(cfg.memory_dtype), device=self.device)
         return mem, init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk,
@@ -245,20 +284,28 @@ class Trainer:
 
     def _draw_train_negs(self, epoch_id: int) -> np.ndarray:
         """This epoch's train negatives, padded to the stream's length: a
-        draw from a RandomState seeded with (base, epoch)."""
+        draw from a RandomState seeded with (base, epoch). Seed-parallel:
+        [S, E], row s the draw of a single-seed Trainer with seed
+        cfg.seed + s."""
         n = self.splits.train.n_interactions
         pad = len(self._streams["train"].host["src"]) - n
-        rs = np.random.RandomState(
-            (self._neg_base + 0x9E3779B1 * (epoch_id + 1)) % (2**32))
-        _, negs = self.train_sampler.sample_with(rs, n)
-        return np.concatenate([negs, np.zeros(pad, negs.dtype)]).astype(
-            np.int32)
+
+        def draw(base):
+            rs = np.random.RandomState(
+                (int(base) + 0x9E3779B1 * (epoch_id + 1)) % (2**32))
+            _, negs = self.train_sampler.sample_with(rs, n)
+            return np.concatenate([negs, np.zeros(pad, negs.dtype)]).astype(
+                np.int32)
+
+        if self._n_seeds == 1:
+            return draw(self._neg_base)
+        return np.stack([draw(b) for b in self._neg_base])
 
     def _wave_plans(self, name: str, negs: np.ndarray,
                     chunks: range) -> Dict[int, WavePlan]:
         """The wave plan of each superchunk in ``chunks`` of stream ``name``
-        under the negatives ``negs`` (host scheduling, then one upload per
-        chunk)."""
+        under the negatives ``negs`` ([E], or [E, S]: one scan for all
+        seeds; host scheduling, then one upload per chunk)."""
         ps = self._streams[name]
         host = ps.host
         chunk = len(host["src"]) // ps.n_chunks
@@ -296,7 +343,8 @@ class Trainer:
                 f"max_chunks={max_chunks} select none of the {ps.n_chunks} "
                 "chunks")
         if train:
-            negs = self._draw_train_negs(self._epoch_id)
+            # [E], or [E, S]: the phases' layout of one negative per seed
+            negs = np.ascontiguousarray(self._draw_train_negs(self._epoch_id).T)
             stream = stream._replace(neg=torch.from_numpy(negs).to(self.device))
             plans = self._wave_plans(name, negs, chunks)
         else:
@@ -327,7 +375,7 @@ class Trainer:
                 cfg, train, self.params, self.optimizer, self.mem,
                 self.edge_feats, cs, rows,
                 n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist(),
-                self._dropout if train else None, marks))
+                self._dropout if train else None, marks, self._offs))
             if train:
                 self._chunk_cursor = ci + 1
                 if self._stop_requested:
@@ -339,10 +387,15 @@ class Trainer:
         real = max(1, min(len(per_batch),
                           ps.real_batches - start_chunk * per_chunk))
         per_batch = per_batch[:real]
+        # [4], or [S, 4] seed-parallel
         mean = per_batch.mean(axis=0)
+        if self._n_seeds == 1:
+            mean = [float(x) for x in mean]
+        else:
+            mean = list(mean.T)
         return index_state, PhaseResult(
-            loss=float(mean[0]), ap=float(mean[1]), auc=float(mean[2]),
-            acc=float(mean[3]), seconds=time.perf_counter() - t0,
+            loss=mean[0], ap=mean[1], auc=mean[2], acc=mean[3],
+            seconds=time.perf_counter() - t0,
             index_seconds=t_index, waves=waves, per_batch=per_batch)
 
     # ---------------------------------------------------------------- epochs
@@ -376,7 +429,8 @@ class Trainer:
         starts."""
         train_mem, train_idx = self.mem, self.index_state
         # the flush makes new tables: train_mem stays the unflushed backup
-        self.mem = flush_pending(self.cfg, self.params, train_mem)
+        flush = flush_pending if self._n_seeds == 1 else flush_pending_seeds
+        self.mem = flush(self.cfg, self.params, train_mem)
         val_idx, trans = self._phase("val", False,
                                      TpprState(train_idx.data.clone()))
         val_mem = self.mem
@@ -402,7 +456,21 @@ class Trainer:
     # ---------------------------------------------------------------- state
 
     def _memory_from(self, tables: Dict[str, torch.Tensor]) -> MemoryState:
-        return MemoryState(**{k: v.to(self.device) for k, v in tables.items()})
+        """Memory tables as a state file holds them ([S, N, ...] for S
+        seeds) → this Trainer's (flat) tables on its device."""
+        n = self._n_seeds * self.cfg.n_nodes
+        return MemoryState(**{k: v.to(self.device).reshape((n,) + v.shape[
+            1 + (self._n_seeds > 1):]) for k, v in tables.items()})
+
+    def _memory_tables(self, mem: Optional[MemoryState] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """The memory tables as a state file holds them: [S, N, ...] for S
+        seeds (views of the flat tables), [N, ...] for one."""
+        mem = self.mem if mem is None else mem
+        if self._n_seeds == 1:
+            return mem._asdict()
+        return {k: v.view((self._n_seeds, -1) + v.shape[1:])
+                for k, v in mem._asdict().items()}
 
     def save_state(self, path: str, epoch: int = 0,
                    chunk: Optional[int] = None) -> None:
@@ -410,23 +478,31 @@ class Trainer:
         dropout generator's state, the negative base and epoch id, the
         epoch and the stream cursor (``chunk``, the next superchunk to run;
         the Trainer's own cursor by default), and fit's early-stop fields.
+        Seed-parallel: params and Adam's moments with their [S] axis,
+        memory [S, N, ...], the shared index, the dropout states [S, ·] and
+        the negative bases [S].
 
         A mid-epoch cursor needs nothing more: this epoch's negatives are
         drawn again from (negative base, epoch id), and the dropout
         generator's state is the one the next superchunk starts from."""
         if chunk is None:
             chunk = self._chunk_cursor
+        if self._n_seeds == 1:
+            dropout, neg_base = self._dropout.get_state(), self._neg_base
+        else:
+            dropout = torch.stack([g.get_state() for g in self._dropout])
+            neg_base = [int(b) for b in self._neg_base]
         save_checkpoint(path, {
             "cfg": dataclasses.asdict(self.cfg),
             "params": self.params.state_dict(),
             "optimizer": self.optimizer.state_dict(),
-            "mem": self.mem._asdict(),
+            "mem": self._memory_tables(),
             "index_state": self.index_state.data,
-            "dropout": self._dropout.get_state(),
+            "dropout": dropout,
             "epoch": int(epoch),
             "chunk": int(chunk),
             "epoch_id": self._epoch_id,
-            "neg_base": self._neg_base,
+            "neg_base": neg_base,
             "fit": self._fit_state,
         })
 
@@ -439,20 +515,29 @@ class Trainer:
         diffs = Config.state_compat_diff(Config.from_dict(ckpt["cfg"]),
                                          self.cfg)
         if diffs:
+            hint = ""
+            if any(d.startswith("parallel_runs:") for d in diffs):
+                hint = (" (to serve one seed of a seed-parallel checkpoint "
+                        "use LinkPredictor.from_checkpoint(run_index=...))")
             raise ValueError(
                 "checkpoint config is incompatible with this Trainer; "
                 "restoring would mis-shape or silently mis-read the "
-                "state:\n  " + "\n  ".join(diffs))
+                "state:\n  " + "\n  ".join(diffs) + hint)
         # in place, so the optimizer's state keeps referring to the live
         # tensors
         self.params.load_state_dict(ckpt["params"])
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.mem = self._memory_from(ckpt["mem"])
         self.index_state = TpprState(ckpt["index_state"].to(self.device))
-        self._dropout.set_state(ckpt["dropout"])
+        if self._n_seeds == 1:
+            self._dropout.set_state(ckpt["dropout"])
+            self._neg_base = ckpt["neg_base"]
+        else:
+            for g, state in zip(self._dropout, ckpt["dropout"]):
+                g.set_state(state.clone())
+            self._neg_base = np.asarray(ckpt["neg_base"], np.int64)
         self._chunk_cursor = ckpt["chunk"]
         self._epoch_id = ckpt["epoch_id"]
-        self._neg_base = ckpt["neg_base"]
         self._fit_state = ckpt["fit"]
         return ckpt["epoch"], ckpt["chunk"]
 
@@ -465,7 +550,10 @@ class Trainer:
         package's keys, log lines and order of operations. ``resume_from``
         restores a ``save_state`` file (``--state_every`` or a stop
         request) and continues from it: the early-stop monitor, and a
-        mid-epoch cursor if one was saved."""
+        mid-epoch cursor if one was saved. A seed-parallel Trainer runs
+        :meth:`_fit_seeds`."""
+        if self._n_seeds > 1:
+            return self._fit_seeds(n_epoch, resume_from)
         cfg = self.cfg
         n_epoch = n_epoch or cfg.n_epoch
         stopper = EarlyStopMonitor(max_round=cfg.patience)
@@ -570,3 +658,203 @@ class Trainer:
             "nn_test_acc": t_induct.acc,
             "stop_epoch": float(stop_epoch),
         }
+
+    # ---------------------------------------------------------------- seeds
+
+    @classmethod
+    def _seed_stopper_state(cls, stoppers, stopped, stop_epoch) -> Dict:
+        return {"per_seed": [
+            dict(cls._stopper_state(st), stopped=stopped[s],
+                 stop_epoch=stop_epoch[s])
+            for s, st in enumerate(stoppers)]}
+
+    def _lane_snapshot(self, s: int):
+        """Copies of seed ``s``'s (params, memory tables)."""
+        n = self.cfg.n_nodes
+        rows = slice(s * n, (s + 1) * n)
+        return ({k: v[s].detach().clone()
+                 for k, v in self.params.state_dict().items()},
+                MemoryState(*(x[rows].clone() for x in self.mem)))
+
+    def _stack_snapshots(self, snaps):
+        """Per-seed (params, memory) snapshots → the stacked (params state,
+        [S, N, ...] tables) a best checkpoint holds."""
+        params = {k: torch.stack([p[k] for p, _ in snaps])
+                  for k in snaps[0][0]}
+        mem = {f: torch.stack([m[i] for _, m in snaps])
+               for i, f in enumerate(MemoryState._fields)}
+        return params, mem
+
+    def _fit_seeds(self, n_epoch: Optional[int] = None,
+                   resume_from: Optional[str] = None) -> Dict:
+        """Seed-parallel fit (``zebra_tpu/train/loop.py:_fit_seeds``): one
+        epoch loop with early stopping per seed. Each seed keeps its own
+        stopper and best-epoch (params, memory) snapshot; a stopped seed
+        keeps riding the batched phases (its snapshot is what test uses),
+        so the run lasts as long as its latest-stopping seed. Test runs
+        every seed in one pass: stopped seeds from their best snapshot,
+        the others from their final state. Returns the mean and σ per
+        metric and the per-seed values with each seed's lr."""
+        cfg = self.cfg
+        s_n = self._n_seeds
+        n_epoch = n_epoch or cfg.n_epoch
+        stoppers = [EarlyStopMonitor(max_round=cfg.patience)
+                    for _ in range(s_n)]
+        stopped, stop_epoch = [False] * s_n, [-1] * s_n
+        best: list = [None] * s_n
+        timers = PhaseTimers()
+        n_train_events = self.splits.train.n_interactions
+
+        start_epoch, start_chunk = 0, 0
+        if resume_from:
+            start_epoch, start_chunk = self.restore_state(resume_from)
+            for s, fields in enumerate(
+                    (self._fit_state or {}).get("per_seed", [])[:s_n]):
+                fields = dict(fields)
+                stopped[s] = bool(fields.pop("stopped", False))
+                stop_epoch[s] = int(fields.pop("stop_epoch", -1))
+                for k, v in fields.items():
+                    setattr(stoppers[s], k, v)
+            if os.path.exists(self.checkpoint_path):
+                ckpt = load_checkpoint(self.checkpoint_path)
+                mem = self._memory_from(ckpt["mem"])
+                n = cfg.n_nodes
+                best = [({k: v[s].to(self.device)
+                          for k, v in ckpt["params"].items()},
+                         MemoryState(*(x[s * n: (s + 1) * n] for x in mem)))
+                        for s in range(s_n)]
+            logger.info("resumed seed-parallel fit from %s at epoch %d "
+                        "chunk %d", resume_from, start_epoch, start_chunk)
+        state_path = os.path.join(cfg.checkpoint_dir,
+                                  cfg.run_name() + ".state.ckpt")
+
+        def save_best():
+            """The stacked best-or-current (params, memory) of every seed."""
+            params, mem = self._stack_snapshots(
+                [best[s] if best[s] is not None else self._lane_snapshot(s)
+                 for s in range(s_n)])
+            save_checkpoint(self.checkpoint_path,
+                            {"params": params, "mem": mem})
+
+        for epoch in range(start_epoch, n_epoch):
+            with trace_context(
+                    cfg.trace_dir if epoch == cfg.trace_epoch else None):
+                with timers.time("train", n_train_events):
+                    tr = self.train_epoch(
+                        start_chunk=start_chunk if epoch == start_epoch else 0)
+            if self._stop_requested:
+                self._fit_state = self._seed_stopper_state(
+                    stoppers, stopped, stop_epoch)
+                done = self._chunk_cursor == 0
+                self.save_state(state_path,
+                                epoch=epoch + 1 if done else epoch,
+                                chunk=self._chunk_cursor)
+                self._fit_state = None
+                save_best()
+                logger.info(
+                    "stop requested: resumable seed-parallel state saved to "
+                    "%s (epoch %d, chunk %d)", state_path, epoch,
+                    self._chunk_cursor)
+                return {"interrupted": True, "state_path": state_path,
+                        "stop_epoch": float(epoch)}
+            timers.seconds["tppr"] += tr.index_seconds
+            with timers.time("val"):
+                trans, induct = self.validate()
+            live = sum(not x for x in stopped)
+            logger.info(
+                "epoch: %d (%d seeds, %d live), tppr: %.2fs, train: %.2fs, "
+                "val: %.2fs, train events/s (aggregate): %.0f",
+                epoch + 1, s_n, live, tr.index_seconds, tr.seconds,
+                trans.seconds + induct.seconds,
+                s_n * n_train_events / max(tr.seconds, 1e-9))
+            logger.info("train ap: %s, train loss: %s", _fmt_seeds(tr.ap),
+                        _fmt_seeds(tr.loss))
+            logger.info("val ap: %s, new node val ap: %s",
+                        _fmt_seeds(trans.ap), _fmt_seeds(induct.ap))
+            self.epoch_log.append(dict(
+                epoch=epoch + 1, train_s=tr.seconds, index_s=tr.index_seconds,
+                val_s=trans.seconds + induct.seconds,
+                train_events_per_s=s_n * n_train_events / max(
+                    tr.seconds, 1e-9),
+                waves=tr.waves, train_ap=tr.ap.tolist(),
+                val_ap=trans.ap.tolist(), nn_val_ap=induct.ap.tolist(),
+                live_seeds=live, state_s=None))
+
+            improved = False
+            for s in range(s_n):
+                if stopped[s]:
+                    continue
+                if stoppers[s].early_stop_check(float(trans.ap[s])):
+                    stopped[s] = True
+                    stop_epoch[s] = epoch + 1
+                    logger.info("seed %d stopped at epoch %d (best epoch %d)",
+                                s, epoch + 1, stoppers[s].best_epoch + 1)
+                elif epoch == stoppers[s].best_epoch:
+                    best[s] = self._lane_snapshot(s)
+                    improved = True
+            if improved:
+                save_best()
+            if all(stopped):
+                break
+            if cfg.state_every and (epoch + 1) % cfg.state_every == 0:
+                t0 = time.perf_counter()
+                self._fit_state = self._seed_stopper_state(
+                    stoppers, stopped, stop_epoch)
+                self.save_state(state_path, epoch=epoch + 1, chunk=0)
+                self._fit_state = None
+                self.epoch_log[-1]["state_s"] = time.perf_counter() - t0
+
+        # the test protocol: stopped seeds from their best snapshot, the
+        # others from their final state
+        n = cfg.n_nodes
+        with torch.no_grad():
+            for s in range(s_n):
+                if stopped[s] and best[s] is not None:
+                    params, mem = best[s]
+                    for k, v in self.params.state_dict().items():
+                        v[s].copy_(params[k])
+                    for x, y in zip(self.mem, mem):
+                        x[s * n: (s + 1) * n] = y
+
+        with timers.time("test"):
+            t_trans, t_induct = self.test()
+        logger.info("phase totals: %s", timers.summary())
+        logger.info("Test statistics: Old nodes -- ap: %s, auc: %s, acc: %s",
+                    _fmt_seeds(t_trans.ap), _fmt_seeds(t_trans.auc),
+                    _fmt_seeds(t_trans.acc))
+        logger.info("Test statistics: New nodes -- ap: %s, auc: %s, acc: %s",
+                    _fmt_seeds(t_induct.ap), _fmt_seeds(t_induct.auc),
+                    _fmt_seeds(t_induct.acc))
+        if not cfg.save_best and os.path.exists(self.checkpoint_path):
+            os.remove(self.checkpoint_path)
+
+        mean = lambda x: float(np.asarray(x).mean())
+        std = lambda x: float(np.asarray(x).std())
+        aslist = lambda x: [float(v) for v in np.asarray(x)]
+        return {
+            "test_ap": mean(t_trans.ap), "test_ap_std": std(t_trans.ap),
+            "test_auc": mean(t_trans.auc), "test_acc": mean(t_trans.acc),
+            "nn_test_ap": mean(t_induct.ap),
+            "nn_test_ap_std": std(t_induct.ap),
+            "nn_test_auc": mean(t_induct.auc),
+            "nn_test_acc": mean(t_induct.acc),
+            "stop_epoch": float(np.mean(stop_epoch)),
+            "per_seed": {
+                "test_ap": aslist(t_trans.ap),
+                "test_auc": aslist(t_trans.auc),
+                "test_acc": aslist(t_trans.acc),
+                "nn_test_ap": aslist(t_induct.ap),
+                "nn_test_auc": aslist(t_induct.auc),
+                "nn_test_acc": aslist(t_induct.acc),
+                "stop_epoch": [float(e) for e in stop_epoch],
+                "lr": [float(lr) for lr in (
+                    cfg.parallel_lr or (cfg.lr,) * s_n)],
+            },
+        }
+
+
+def _fmt_seeds(x) -> str:
+    """Log format for a per-seed metric vector: mean±σ plus the values."""
+    a = np.asarray(x, np.float64).ravel()
+    vals = ", ".join(f"{v:.6f}" for v in a)
+    return f"{a.mean():.6f}±{a.std():.6f} [{vals}]"

@@ -169,8 +169,14 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
     params in eval mode, emitting each event's source embedding; the
     decoder is fit on the train stream's embeddings against the event
     labels and scored by ROC-AUC on all three streams. The replay's index
-    waves count into ``trainer.index_waves``."""
+    waves count into ``trainer.index_waves``. A seed-parallel Trainer is
+    refused: the decoder consumes one model's embeddings."""
     cfg = trainer.cfg
+    if cfg.n_seeds > 1:
+        raise ValueError(
+            "node classification runs on a single-seed Trainer — slice one "
+            "seed first (serve.LinkPredictor.from_checkpoint(run_index=...) "
+            "semantics)")
     mem, index_state = trainer._fresh_state()
     embs, labels = {}, {}
     for name in ("train", "val", "test"):

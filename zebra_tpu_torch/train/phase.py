@@ -6,7 +6,17 @@ extracted for the chunk (``index/waves.py``).
 Eager PyTorch replaces the JAX package's one ``lax.scan`` per phase: the
 batches run as a Python loop that only enqueues device work. Nothing is
 read back inside the loop: per-batch metrics stay on the device, and the
-caller reads a phase's metrics once."""
+caller reads a phase's metrics once.
+
+The same loop runs S seeds in one pass (``_run_phase_seeds``,
+``zebra_tpu/train/phase.py:377-558``) when given the lane offsets ``offs``:
+stacked parameters, flat memory tables (``train/step.py``), one batched
+forward, one ``backward()`` of the summed lane losses (the lanes share no
+parameter, so each gets its own gradient), one Adam step for all lanes,
+then the memory protocol for all lanes. Train lane s reads query blocks
+[src, dst, neg_s] of the shared scan's rows [E, 2+S, F] and its own
+negatives; eval shares the negatives and the rows [E, 3, F]. Only the
+dropout masks are drawn lane by lane, from each seed's generator."""
 
 from __future__ import annotations
 
@@ -36,7 +46,8 @@ class Stream(NamedTuple):
 
     src: torch.Tensor    # i32 [E]
     dst: torch.Tensor    # i32 [E]
-    neg: torch.Tensor    # i32 [E] negative node per event
+    neg: torch.Tensor    # i32 [E] negative node per event ([E, S]: one per
+                         # seed, seed-parallel training)
     t: torch.Tensor      # f32 [E]
     eidx: torch.Tensor   # i32 [E]
     valid: torch.Tensor  # bool [E]
@@ -45,12 +56,22 @@ class Stream(NamedTuple):
 def batch_queries(cfg: Config, rows: torch.Tensor,
                   t: torch.Tensor) -> TpprQueries:
     """A batch's extraction rows [b, 3, F] → queries [M, 3b, k] in
-    src‖dst‖neg row order."""
-    b = rows.shape[0]
-    q = unpack_queries(rows, t, cfg.n_tppr, cfg.topk)      # [b, M, 3, k]
-    return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(cfg.n_tppr, 3 * b,
-                                                       cfg.topk)
-                         for x in q))
+    src‖dst‖neg row order; per lane, [S, b, 3, F] → [S, M, 3b, k]."""
+    lanes, (b, _, f) = rows.shape[:-3], rows.shape[-3:]
+    m, k = cfg.n_tppr, cfg.topk
+    if lanes:
+        rows, t = rows.reshape(-1, 3, f), t.repeat(lanes[0])
+    q = unpack_queries(rows, t, m, k)                      # [·b, M, 3, k]
+    return TpprQueries(*(x.reshape(lanes + (b, m, 3, k)).movedim(-4, -2)
+                         .reshape(lanes + (m, 3 * b, k)) for x in q))
+
+
+def _lane_blocks(n_seeds: int, device) -> torch.Tensor:
+    """The query blocks each train lane reads: [src, dst, neg_s] → i64
+    [S, 3]."""
+    lanes = torch.arange(n_seeds, device=device)
+    return torch.stack([torch.zeros_like(lanes), torch.ones_like(lanes),
+                        2 + lanes], dim=1)
 
 
 def _mark(marks: Optional[list], name: str) -> None:
@@ -65,7 +86,7 @@ def _mark(marks: Optional[list], name: str) -> None:
 def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
               edge_feats: torch.Tensor, stream: Stream, queries: torch.Tensor,
               n_valid: Sequence[int], generator=None,
-              marks: Optional[List] = None) -> torch.Tensor:
+              marks: Optional[List] = None, offs=None) -> torch.Tensor:
     """One pass over the batches of ``stream`` with their extraction rows
     ``queries`` [E, 3, F]. ``n_valid`` holds each batch's count of valid
     events (known on the host): a batch with padding passes its mask to the
@@ -74,20 +95,35 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     masks. Updates ``mem`` in place; returns the per-batch metrics
     [n_batches, 4] (:data:`METRICS`) on the device.
 
+    Seed-parallel, ``offs`` (i64 [S], s·N) selects the S-lane pass (module
+    docstring): stacked ``params``, flat ``mem``, ``generator`` one per
+    lane, train negatives [E, S] with rows [E, 2+S, F]; the metrics are
+    [n_batches, S, 4].
+
     ``marks``, a list, receives a (part, CUDA event) pair after each part
     of each batch: "forward" (queries, towers, loss), "backward", "adam"
     (train only), "protocol" (the memory protocol), "metrics"."""
     b = cfg.bs
+    per_lane = offs is not None and stream.neg.dim() == 2
+    blocks = _lane_blocks(offs.shape[0], queries.device) if per_lane else None
     out = []
     for i, nv in enumerate(n_valid):
         s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
         valid = None if nv == b else s.valid
-        q = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
-        nodes3 = torch.cat([s.src, s.dst, s.neg])
+        rows = queries[i * b: (i + 1) * b]
+        if per_lane:
+            # lane s: the shared src and dst blocks and its own negative's
+            q = batch_queries(cfg, rows[:, blocks].transpose(0, 1), s.t)
+            n_l = blocks.shape[0]
+            nodes3 = torch.cat([s.src.expand(n_l, b), s.dst.expand(n_l, b),
+                                s.neg.T], dim=1)
+        else:
+            q = batch_queries(cfg, rows, s.t)
+            nodes3 = torch.cat([s.src, s.dst, s.neg])
         if train:
             optimizer.zero_grad(set_to_none=True)
             emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                           train=True, generator=generator)
+                           train=True, generator=generator, offs=offs)
             pos_logit, neg_logit = _scores(cfg, params, emb, b)
             bce = F.binary_cross_entropy_with_logits
             loss = (
@@ -96,31 +132,35 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                 + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
                                    reduction="none"), s.valid))
             _mark(marks, "forward")
-            loss.backward()
+            # the lanes share no parameter: the sum's gradient is each
+            # lane's own
+            (loss if offs is None else loss.sum()).backward()
             _mark(marks, "backward")
             optimizer.step()
             _mark(marks, "adam")
             # commit earlier batches' messages with the updated parameters,
             # then store this batch's (one-batch staleness)
             _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
-                            None if valid is None else torch.cat([valid, valid]))
+                            None if valid is None else torch.cat([valid, valid]),
+                            offs)
             _store_messages(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                            s.eidx, valid)
+                            s.eidx, valid, offs)
             loss = loss.detach()
         else:
             with torch.no_grad():
-                emb = _forward(cfg, params, mem, edge_feats, nodes3, q)
+                emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
+                               offs=offs)
                 pos_logit, neg_logit = _scores(cfg, params, emb, b)
             _mark(marks, "forward")
             eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                              s.eidx, valid)
-            loss = torch.zeros((), device=emb.device)
+                              s.eidx, valid, offs)
+            loss = torch.zeros(pos_logit.shape[:-1], device=emb.device)
         _mark(marks, "protocol")
         with torch.no_grad():
             pos_p, neg_p = torch.sigmoid(pos_logit), torch.sigmoid(neg_logit)
             out.append(torch.stack([
                 loss, masked_ap(pos_p, neg_p, s.valid),
                 masked_auc(pos_p, neg_p, s.valid),
-                masked_rank_acc(pos_p, neg_p, s.valid)]))
+                masked_rank_acc(pos_p, neg_p, s.valid)], dim=-1))
         _mark(marks, "metrics")
     return torch.stack(out)

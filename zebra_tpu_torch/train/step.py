@@ -16,6 +16,16 @@ EVAL batch: raw memory everywhere; the batch's messages are stored and
 committed at once (:func:`eval_store_commit`). A flush of every pending
 message (:func:`flush_pending`) runs at the train→eval transition.
 
+SEED-PARALLEL (``cfg.parallel_runs`` = S > 1; the counterpart of the JAX
+package's ``*_flat`` helpers, ``zebra_tpu/train/step.py:544-718``): the
+parameters carry a leading [S] axis and the memory tables are carried flat,
+[S·N, ...], seed s owning rows [s·N, (s+1)·N). Every function here takes
+``offs`` (i64 [S], s·N; None for one seed): ids are moved into each lane's
+rows in int64 after the queries are unpacked (:func:`lane_ids`), never
+inside the f32 index rows, so S·N may pass 2^24. The forward and the
+memory protocol then run all lanes in one set of operations; the last-wins
+winner of a sender does not depend on the seed and is computed once.
+
 The memory tables are updated in place, under ``torch.no_grad()``; the
 gradients reach the parameters, never the tables. ``valid`` None means
 every event of the batch is valid: each scatter then writes every row it
@@ -25,6 +35,8 @@ reads a count back (the trainer passes masks only for the padded tail of
 a stream)."""
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -36,21 +48,106 @@ from zebra_tpu_torch.models.tgn import (
     cell_apply,
     diffusion_embed,
     diffusion_static_input,
+    lane_params,
     message_cell_input,
     message_input,
 )
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
 
 
-def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
+def make_optimizer(cfg: Config, params):
     """``optax.adam(cfg.lr)``: the same update rule, with the moments on the
-    parameters' device."""
+    parameters' device. Stacked parameters (S > 1 seeds) get a
+    :class:`SeedAdam` at ``cfg.parallel_lr`` (``cfg.lr`` for every seed when
+    unset)."""
+    if cfg.n_seeds > 1:
+        return SeedAdam(params, cfg.parallel_lr or (cfg.lr,) * cfg.n_seeds)
     return torch.optim.Adam(params.parameters(), lr=cfg.lr,
                             betas=(0.9, 0.999), eps=1e-8)
 
 
+class SeedAdam:
+    """Adam over stacked parameters [S, ...], lane s at its own lr.
+
+    ``torch.optim.Adam`` holds one lr per parameter group, and a group per
+    seed would step each seed with its own set of operations. Here every
+    stacked leaf and its two moments are split once into S lane views, and
+    one step is ``torch.optim.Adam``'s foreach update on those views: the
+    same operations in the same order, with the step size of lane s from
+    ``lrs[s]``. Lane s therefore steps as a single-seed Adam at ``lrs[s]``
+    does (the foreach update on the card, and on the CPU, where foreach
+    runs the single-tensor update tensor by tensor), with about as many
+    operations as one seed's step. All lanes step together, so one step
+    count serves them."""
+
+    def __init__(self, params, lrs: Sequence[float],
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        self.params = list(params.parameters())
+        self.lrs = tuple(float(x) for x in lrs)
+        if any(p.shape[0] != len(self.lrs) for p in self.params):
+            raise ValueError(f"every parameter needs a leading seed axis of "
+                             f"{len(self.lrs)} lanes")
+        self.betas, self.eps = betas, eps
+        self.steps = 0
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        lanes = lambda ts: [v for t in ts for v in t.unbind(0)]
+        self._p, self._m, self._v = (lanes(ts) for ts in (
+            self.params, self.exp_avg, self.exp_avg_sq))
+        self._lr = [lr for _ in self.params for lr in self.lrs]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [v for p in self.params for v in p.grad.unbind(0)]
+        beta1, beta2 = self.betas
+        self.steps += 1
+        torch._foreach_lerp_(self._m, grads, 1 - beta1)
+        torch._foreach_mul_(self._v, beta2)
+        torch._foreach_addcmul_(self._v, grads, grads, 1 - beta2)
+        bc1, bc2 = 1 - beta1 ** self.steps, 1 - beta2 ** self.steps
+        denom = torch._foreach_sqrt(self._v)
+        torch._foreach_div_(denom, [bc2 ** 0.5] * len(denom))
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_addcdiv_(self._p, self._m, denom,
+                                [(lr / bc1) * -1 for lr in self._lr])
+
+    def state_dict(self) -> dict:
+        return {"steps": self.steps, "lrs": list(self.lrs),
+                "exp_avg": self.exp_avg, "exp_avg_sq": self.exp_avg_sq}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load in place, so the lane views keep referring to the live
+        moments."""
+        if tuple(state["lrs"]) != self.lrs:
+            raise ValueError(f"the state's per-seed lrs {state['lrs']} are "
+                             f"not this optimizer's {list(self.lrs)}")
+        for live, saved in zip(self.exp_avg + self.exp_avg_sq,
+                               state["exp_avg"] + state["exp_avg_sq"]):
+            live.copy_(saved)
+        self.steps = int(state["steps"])
+
+
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, x, 0.0).sum() / mask.sum().clamp(min=1)
+    """Mean of ``x`` over its last axis where ``mask`` holds."""
+    return torch.where(mask, x, 0.0).sum(-1) / mask.sum().clamp(min=1)
+
+
+def lane_ids(ids: torch.Tensor, offs: Optional[torch.Tensor],
+             shared: bool = True) -> torch.Tensor:
+    """The flat-table rows of node ids ``ids`` in each seed lane: i64
+    ``ids + offs[s]`` with a leading lane axis, or ``ids`` itself when
+    ``offs`` is None (one seed). ``shared`` ids are the same for every lane
+    ([...]); otherwise they carry the lane axis already ([S, ...])."""
+    if offs is None:
+        return ids
+    ids = ids.to(torch.int64)
+    if shared:
+        ids = ids[None]
+    return ids + offs.view((-1,) + (1,) * (ids.dim() - 1))
 
 
 # ------------------------------------------------------------------ forward
@@ -87,10 +184,18 @@ def _train_lazy_rows(cfg: Config, params, mem: MemoryState, nodes3,
 
 def _forward(cfg: Config, params, mem: MemoryState, edge_feats: torch.Tensor,
              nodes: torch.Tensor, q: TpprQueries, train: bool = False,
-             generator=None) -> torch.Tensor:
+             generator=None, offs=None) -> torch.Tensor:
     """Diffusion embeddings of the query rows ``nodes`` [Q] with their T-PPR
     queries ``q`` (fields [M, Q, k]) → [Q, H]. Train mode reads lazily
-    updated memory and applies dropout with masks from ``generator``."""
+    updated memory and applies dropout with masks from ``generator``.
+
+    Seed-parallel (``offs``): stacked parameters and flat tables, ``nodes``
+    and ``q`` shared by the lanes ([Q], [M, Q, k]) or per lane ([S, Q],
+    [S, M, Q, k]) → [S, Q, H]; ``generator`` is one generator per lane.
+    The lazy plan then sorts all lanes' row ids in one sort."""
+    if offs is not None:
+        nodes = lane_ids(nodes, offs, shared=nodes.dim() == 1)
+        q = q._replace(nbr=lane_ids(q.nbr, offs, shared=q.nbr.dim() == 3))
     if train:
         src_rows, nbr_rows = _train_lazy_rows(
             cfg, params, mem, nodes, q, make_lazy_plan(cfg, q, nodes))
@@ -102,11 +207,13 @@ def _forward(cfg: Config, params, mem: MemoryState, edge_feats: torch.Tensor,
 
 
 def _scores(cfg: Config, params, emb: torch.Tensor, b: int):
-    """Link logits of src against dst and against neg → (pos, neg) [b]."""
-    e_src, e_dst, e_neg = emb[:b], emb[b: 2 * b], emb[2 * b:]
-    logits = affinity_score(params, torch.cat([e_src, e_src]),
-                            torch.cat([e_dst, e_neg]), cfg.mxu_dtype)
-    return logits[:b], logits[b:]
+    """Link logits of src against dst and against neg → (pos, neg) [b]
+    ([S, b] each for stacked parameters and emb [S, 3b, H])."""
+    e_src, e_dst, e_neg = (emb[..., :b, :], emb[..., b: 2 * b, :],
+                           emb[..., 2 * b:, :])
+    logits = affinity_score(params, torch.cat([e_src, e_src], dim=-2),
+                            torch.cat([e_dst, e_neg], dim=-2), cfg.mxu_dtype)
+    return logits[..., :b], logits[..., b:]
 
 
 # ------------------------------------------------------------------ memory protocol
@@ -119,22 +226,23 @@ def _selected(mask):
 
 @torch.no_grad()
 def _commit_pending(cfg: Config, params, mem: MemoryState, positives,
-                    valid2=None) -> MemoryState:
+                    valid2=None, offs=None) -> MemoryState:
     """Commit the pending messages of the batch's positives [2b] and clear
     their message rows, in place. Duplicate positives compute equal values,
     so the order of their writes does not matter."""
+    positives = lane_ids(positives, offs)
     rows = mem.memory[positives]
     msg, flag = message_input(cfg, params, mem, positives, rows)
     if valid2 is not None:
         flag = flag & valid2
     upd = cell_apply(cfg, params, msg, rows).to(mem.memory.dtype)
-    new_memory = torch.where(flag[:, None], upd, rows)
+    new_memory = torch.where(flag[..., None], upd, rows)
     new_last = torch.where(flag, mem.msg_ts[positives],
                            mem.last_update[positives])
     sel = _selected(valid2)
     if sel is not None:
         positives, new_memory, new_last = (
-            x[sel] for x in (positives, new_memory, new_last))
+            positives[..., sel], new_memory[..., sel, :], new_last[..., sel])
     mem.memory[positives] = new_memory
     mem.last_update[positives] = new_last
     mem.messages[positives] = 0.0
@@ -143,12 +251,14 @@ def _commit_pending(cfg: Config, params, mem: MemoryState, positives,
 
 
 def _build_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
-                    eidx, valid):
+                    eidx, valid, offs=None):
     """This batch's raw messages in the stored (compact) layout, both
     directions → (snd, t2, valid2, win, msg [2b, msg_table_dim] f32).
     ``win`` [2b] is the batch position of the last valid message of each
-    position's sender (the winner; -1 where the sender sent none)."""
-    n = mem.memory.shape[0]
+    position's sender (the winner; -1 where the sender sent none). With
+    ``offs``, snd [S, 2b] holds each lane's rows and msg is [S, 2b, ·]; t2,
+    valid2 and win are the lanes' shared ones."""
+    n = mem.memory.shape[0] // (1 if offs is None else offs.shape[0])
     snd = torch.cat([src, dst]).to(torch.int64)
     rcv = torch.cat([dst, src]).to(torch.int64)
     t2 = torch.cat([t, t])
@@ -162,15 +272,18 @@ def _build_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
     tgt = snd if valid2 is None else torch.where(valid2, snd, n)
     winner.scatter_reduce_(0, tgt, pos, "amax", include_self=True)
 
+    win = winner[snd]
+    snd, rcv = lane_ids(snd, offs), lane_ids(rcv, offs)
     basis = time_basis(cfg.time_dim, edge_feats.device)
     # fresh edge ids past the feature table read the zero row 0
     e_safe = torch.where(e2 < edge_feats.shape[0], e2, 0)
+    feats = edge_feats[e_safe]
     msg = torch.cat([
         mem.memory[rcv].float(),
-        edge_feats[e_safe],
+        feats.expand(snd.shape + feats.shape[-1:]),
         time_encode(t2 - mem.last_update[snd], basis),
     ], dim=-1)
-    return snd, t2, valid2, winner[snd], msg
+    return snd, t2, valid2, win, msg
 
 
 def _winner_writes(snd, valid2, win):
@@ -179,22 +292,23 @@ def _winner_writes(snd, valid2, win):
     its winner's values. With a mask: the winners alone."""
     if valid2 is None:
         return snd, win
-    pos = torch.arange(snd.shape[0], device=snd.device)
+    pos = torch.arange(snd.shape[-1], device=snd.device)
     keep = _selected(valid2 & (win == pos))
-    return snd[keep], keep
+    return snd[..., keep], keep
 
 
 @torch.no_grad()
 def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
-                    dst, t, eidx, valid=None) -> MemoryState:
+                    dst, t, eidx, valid=None, offs=None) -> MemoryState:
     """Store this batch's messages, both directions, the chronologically
     last per sender, over the pending rows (flag column 1), in place."""
     snd, t2, valid2, win, msg = _build_messages(cfg, mem, edge_feats, src,
-                                                dst, t, eidx, valid)
-    one = torch.ones((msg.shape[0], 1), dtype=msg.dtype, device=msg.device)
+                                                dst, t, eidx, valid, offs)
+    one = torch.ones(msg.shape[:-1] + (1,), dtype=msg.dtype,
+                     device=msg.device)
     msg = torch.cat([msg, one], dim=-1).to(mem.messages.dtype)
     rows, take = _winner_writes(snd, valid2, win)
-    mem.messages[rows] = msg[take]
+    mem.messages[rows] = msg[..., take, :]
     mem.msg_ts[rows] = t2[take]
     mem.msg_count[rows] = 1.0
     return mem
@@ -202,7 +316,7 @@ def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
 
 @torch.no_grad()
 def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
-                      src, dst, t, eidx, valid=None) -> MemoryState:
+                      src, dst, t, eidx, valid=None, offs=None) -> MemoryState:
     """Fused eval-batch store+commit for the ``last`` aggregator: every
     committed positive is a sender of this batch, so its cell input is this
     batch's winner message, rounded through ``messages.dtype`` as the
@@ -210,7 +324,7 @@ def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
     last_update and msg_ts; every valid sender's message row and count are
     cleared. Updates ``mem`` in place and returns it."""
     snd, t2, valid2, win, msg = _build_messages(
-        cfg, mem, edge_feats, src, dst, t, eidx, valid)
+        cfg, mem, edge_feats, src, dst, t, eidx, valid, offs)
     rows = mem.memory[snd]
     raw = msg.to(mem.messages.dtype)
     cell_in = message_cell_input(cfg, params, raw, rows)
@@ -218,8 +332,8 @@ def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
 
     rows_w, take = _winner_writes(snd, valid2, win)
     sel = _selected(valid2)
-    snd_v = snd if sel is None else snd[sel]
-    mem.memory[rows_w] = upd[take]
+    snd_v = snd if sel is None else snd[..., sel]
+    mem.memory[rows_w] = upd[..., take, :]
     mem.last_update[rows_w] = t2[take]
     mem.msg_ts[rows_w] = t2[take]
     mem.messages[snd_v] = 0.0
@@ -241,3 +355,20 @@ def flush_pending(cfg: Config, params, mem: MemoryState) -> MemoryState:
         msg_ts=mem.msg_ts.clone(),
         msg_count=torch.zeros_like(mem.msg_count),
     )
+
+
+@torch.no_grad()
+def flush_pending_seeds(cfg: Config, params, mem: MemoryState) -> MemoryState:
+    """:func:`flush_pending` of flat seed-parallel tables, one seed at a
+    time (``_flush_mem_seeds``): the dense f32 scratch of the cell stays at
+    one seed's N rows. Returns new tables and leaves ``mem`` as it was."""
+    n_seeds = cfg.n_seeds
+    n = mem.memory.shape[0] // n_seeds
+    out = MemoryState(*(torch.empty_like(x) for x in mem))
+    for s in range(n_seeds):
+        rows = slice(s * n, (s + 1) * n)
+        lane = flush_pending(cfg, lane_params(params, s),
+                             MemoryState(*(x[rows] for x in mem)))
+        for o, x in zip(out, lane):
+            o[rows] = x
+    return out
