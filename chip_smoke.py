@@ -53,8 +53,25 @@ Phases, in order; any failure exits non-zero:
      agrees with ``from_checkpoint(run_index=s)``, ``from_checkpoint(
      ensemble=True)`` is bit-equal to ``from_trainer``, one santa_scan
      launch per observe call;
-10. one ``{"kernels": [...]}`` line;
-11. last line ``{"ok": true, "device": {...}}``.
+10. pruning: the MOOC pruning run (``scripts/run_baselines.sh:40``: BFS
+    width 10, depth 2, top-20, α (0.1, 0.1), β (0.5, 0.95)) at full width
+    on a MOOC-shaped stream (7,144 nodes, 120,000 events), with no santa
+    kernel launched in the whole phase:
+    - ``pruned_topk`` on one train batch's 600 roots on the card and on
+      the CPU from the same index (the same entries, weights within 1e-5
+      relative), the card's call twice (bit-equal) and with the sorted
+      dedup forced (the same entries); its ms per call;
+    - ``Trainer``: a warm-up epoch, a timed epoch (train events/s, the
+      BFS's host ms per batch), ``validate()`` and ``test()``; the first
+      3,000 events replayed with dropout 0 on the card and on the CPU, at
+      the train phase's replay bars; lane 1 of ``parallel_runs=2`` against
+      a single-seed Trainer with seed 1, at the seeds phase's lane bars;
+    - ``LinkPredictor.from_trainer`` on the card and on the CPU: score at
+      b ∈ {1, 32, 256, 2048}, four observe calls of 200 events (ms per
+      call), a brand-new edge in the queries after its fold, and
+      ``rebuild_every=1000`` deferring the fold until ``flush_index()``;
+11. one ``{"kernels": [...]}`` line;
+12. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
@@ -75,7 +92,8 @@ from zebra_tpu_torch import build, cli
 from zebra_tpu_torch.data.dataset import load_feat
 from zebra_tpu_torch.data.preprocess import write_ml
 from zebra_tpu_torch.data.synthetic import synthetic_stream
-from zebra_tpu_torch.index import merge, scan
+from zebra_tpu_torch.index import merge, pruning, scan
+from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
     TpprState,
@@ -86,11 +104,19 @@ from zebra_tpu_torch.index.streaming import (
     row_width,
     streaming_scan,
 )
+from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.profile_serve import flagship
-from zebra_tpu_torch.profile_train import bench_stream, flagship_training
+from zebra_tpu_torch.profile_train import (
+    bench_stream,
+    bfs_roots,
+    flagship_training,
+    mooc_pruning,
+)
 from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.loop import Trainer
+from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
+from zebra_tpu_torch.utils.profiling import device_ms
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -166,38 +192,15 @@ LANE_LOSS_ATOL, LANE_METRIC_ATOL = 1e-5, 1e-3
 # another order) and a member against its single-seed predictor (a batched
 # product against a plain one).
 ENSEMBLE_MEAN_ATOL, ENSEMBLE_MEMBER_ATOL = 1e-6, 1e-5
-
-
-def device_ms(fn, n: int = 100, per_round: int = 100, warmup: int = 10) -> float:
-    """Median device time of ``fn()`` in ms over ``n`` calls (CUDA events).
-    Calls run in rounds of ``per_round``; before each round a spin kernel
-    holds the stream while the round is enqueued, so the events time the
-    device's work and not the host's launch latency. A round must fit the
-    device's queue of pending launches (about a thousand, events included):
-    once it is full the host waits, and the calls after the spin would be
-    timed at the host's enqueue rate."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    host_s = (time.perf_counter() - t0) / 10
-    times = []
-    for lo in range(0, n, per_round):
-        m = min(per_round, n - lo)
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(m)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(m)]
-        # ≥ 2 GHz·(2·enqueue time) cycles outlasts the enqueue at any clock
-        torch.cuda._sleep(int(min(2 * m * host_s * 2e9, 2e10)))
-        for s, e in zip(starts, ends):
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        times += [s.elapsed_time(e) for s, e in zip(starts, ends)]
-    return float(np.median(times))
+# Pruning phase: the BFS of this train batch, its bars (CUDA against CPU:
+# the same live entries but those within 1e-4 of the k-th weight, the rule
+# of tests/test_pruning_index.py:108-116, and weights within 1e-5 relative;
+# the sorted dedup against the matrix on the card: the same, within 1e-6),
+# the seed lanes, and the serve leg's observe calls; scores and memory at
+# the serve phase's bars.
+BFS_BATCH, BFS_REL, DEDUP_REL = 100, 1e-5, 1e-6
+PRUNE_SEEDS, PRUNE_LANES = 2, (1,)
+PRUNE_OBSERVE_CALLS, PRUNE_OBSERVE_B = 4, 200
 
 
 def merge_work(rows: torch.Tensor, m: int, k: int):
@@ -640,12 +643,13 @@ def train_phase(card: str):
     return train_end_index
 
 
-def replay_phase(card: str):
-    """The first TRAIN_REPLAY_EVENTS bench events at full width, dropout 0,
-    through one ``train_epoch`` and ``validate()`` on the card and on the
-    CPU; both Trainers draw the same params (a CPU generator)."""
-    cfg, splits, edge_feats = flagship_training(
-        seed=0, n_events=TRAIN_REPLAY_EVENTS, dropout=0.0)
+def replay_phase(card: str, build=flagship_training, tag: str = "replay"):
+    """The first TRAIN_REPLAY_EVENTS events of ``build``'s configuration
+    and stream at full width, dropout 0, through one ``train_epoch`` and
+    ``validate()`` on the card and on the CPU; both Trainers draw the same
+    params (a CPU generator). The index (streaming) is held bit-equal."""
+    cfg, splits, edge_feats = build(seed=0, n_events=TRAIN_REPLAY_EVENTS,
+                                    dropout=0.0)
     gpu = Trainer(cfg, splits, edge_feats, device="cuda")
     cpu = Trainer(cfg, splits, edge_feats, device="cpu")
     for a, b in zip(gpu.params.parameters(), cpu.params.parameters()):
@@ -654,9 +658,11 @@ def replay_phase(card: str):
     for leg, run in (("train", lambda t: t.train_epoch()),
                      ("val", lambda t: t.validate()[0])):
         rg, rc = run(gpu), run(cpu)
-        got, want = gpu.index_state.data.cpu(), cpu.index_state.data
-        index_bitwise = bool(torch.equal(got, want))
-        assert index_bitwise, (leg, int((got != want).any(1).sum()))
+        index_bitwise = None
+        if gpu.index_state is not None:
+            got, want = gpu.index_state.data.cpu(), cpu.index_state.data
+            index_bitwise = bool(torch.equal(got, want))
+            assert index_bitwise, (leg, int((got != want).any(1).sum()))
         diff = (gpu.mem.memory.cpu().float() - cpu.mem.memory.float()).abs()
         mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
         loss_err = float(np.abs(rg.per_batch[:, 0] - rc.per_batch[:, 0]).max())
@@ -666,11 +672,11 @@ def replay_phase(card: str):
                         memory_diff_share=mem_share,
                         batch_loss_max_abs_err=loss_err,
                         ap_cuda=rg.ap, ap_cpu=rc.ap)
-        print(f"replay {leg}: " + json.dumps(out[leg]), flush=True)
+        print(f"{tag} {leg}: " + json.dumps(out[leg]), flush=True)
         assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
             leg, mem_err, mem_share)
         assert loss_err <= TRAIN_LOSS_ATOL, (leg, loss_err)
-    print("replay " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS, card=card,
+    print(f"{tag} " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS, card=card,
                                       **out)), flush=True)
 
 
@@ -930,16 +936,17 @@ def seeds_train(card: str, single_index: torch.Tensor):
     return trainer, launches_all
 
 
-def seeds_replay(card: str):
-    """Lanes SEED_REPLAY_LANES of a seed-parallel Trainer on the first
-    TRAIN_REPLAY_EVENTS events against single-seed Trainers with those
-    seeds, dropout 0.1: one epoch and ``validate()``."""
-    cfg, splits, edge_feats = flagship_training(
-        seed=0, n_events=TRAIN_REPLAY_EVENTS)
-    par = Trainer(cfg.replace(parallel_runs=SEEDS), splits, edge_feats,
+def seeds_replay(card: str, build=flagship_training, n_seeds: int = SEEDS,
+                 lanes=SEED_REPLAY_LANES, tag: str = "seeds replay"):
+    """Lanes ``lanes`` of an ``n_seeds``-seed Trainer on the first
+    TRAIN_REPLAY_EVENTS events of ``build``'s configuration and stream
+    against single-seed Trainers with those seeds, dropout 0.1: one epoch
+    and ``validate()``."""
+    cfg, splits, edge_feats = build(seed=0, n_events=TRAIN_REPLAY_EVENTS)
+    par = Trainer(cfg.replace(parallel_runs=n_seeds), splits, edge_feats,
                   device="cuda")
     singles = {s: Trainer(cfg.replace(seed=s), splits, edge_feats,
-                          device="cuda") for s in SEED_REPLAY_LANES}
+                          device="cuda") for s in lanes}
     rp, vp = par.train_epoch(), par.validate()[0]
     n = par.cfg.n_nodes
     out = {}
@@ -962,16 +969,15 @@ def seeds_replay(card: str):
                       val_metric_max_abs_err=metric_err,
                       bitwise=loss_err == 0 and param_err == 0
                       and mem_err == 0 and metric_err == 0)
-        print(f"seeds replay lane {s}: " + json.dumps(out[s]), flush=True)
+        print(f"{tag} lane {s}: " + json.dumps(out[s]), flush=True)
         assert loss_err <= LANE_LOSS_ATOL, (s, loss_err)
         steps = rp.per_batch.shape[0]
         assert param_err <= 2 * cfg.lr * steps, (s, param_err, steps)
         assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
             s, mem_err, mem_share)
         assert metric_err <= LANE_METRIC_ATOL, (s, metric_err)
-    print("seeds replay " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS,
-                                            card=card, lanes=out)),
-          flush=True)
+    print(f"{tag} " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS, card=card,
+                                      lanes=out)), flush=True)
 
 
 def seeds_ensemble(trainer: Trainer, card: str):
@@ -1043,6 +1049,250 @@ def seeds_phase(card: str, single_index: torch.Tensor):
     return merge_launches, scan_launches, merged
 
 
+def entry_err(got, want, rel: float) -> float:
+    """The largest relative weight difference between two queries' live
+    entries (TpprQueries, fields [M, Q, k]). Raises unless both hold the
+    same (eidx, nbr) entries, but for entries within 1e-4 of the k-th
+    weight, with equal dt, and the weights agree within ``rel``."""
+    g, w = ([x.cpu().numpy() for x in q] for q in (got, want))
+    worst = 0.0
+    for m in range(w[3].shape[0]):
+        for i in range(w[3].shape[1]):
+            sets = []
+            for nbr, eidx, dt, wt in (g, w):
+                live = wt[m, i] > 0
+                sets.append({(int(e), int(n)): (float(x), float(d))
+                             for e, n, d, x in zip(eidx[m, i][live],
+                                                   nbr[m, i][live],
+                                                   dt[m, i][live],
+                                                   wt[m, i][live])})
+            a, b = sets
+            cut = min((x for x, _ in b.values()), default=0.0)
+            for key in a.keys() ^ b.keys():
+                x = (b.get(key) or a.get(key))[0]
+                assert abs(x - cut) <= 1e-4 * cut, (m, i, key, x, cut)
+            for key in a.keys() & b.keys():
+                assert a[key][1] == b[key][1], (m, i, key)
+                worst = max(worst, abs(a[key][0] - b[key][0]) / b[key][0])
+    assert worst <= rel, worst
+    return worst
+
+
+def prune_bfs(trainer: Trainer, card: str):
+    """``pruned_topk`` on the roots of train batch BFS_BATCH (src, dst and
+    the negatives: 600 at bs 200) on the card, twice, with the sorted dedup
+    forced, and on the CPU from the same index."""
+    cfg = trainer.cfg
+    blocks, t = bfs_roots(trainer, BFS_BATCH)
+    ab = ensemble_tensors(cfg, trainer.device)
+    call = lambda: pruned_queries(cfg, trainer.train_nbr_index, ab, blocks, t)
+    first, second = call(), call()
+    for a, b in zip(first, second):
+        _equal(a, b, "pruned_topk twice on the card")
+    tr = trainer.splits.train
+    cpu_index = build_neighbor_index(tr.sources, tr.destinations,
+                                     tr.timestamps, tr.edge_idxs,
+                                     cfg.n_nodes, "cpu")
+    for f in ("arena", "offsets", "keys", "times"):
+        assert torch.equal(getattr(cpu_index, f),
+                           getattr(trainer.train_nbr_index, f).cpu()), f
+    on_cpu = pruned_queries(cfg, cpu_index, ensemble_tensors(cfg, "cpu"),
+                            [x.cpu() for x in blocks], t.cpu())
+    cpu_err = entry_err(first, on_cpu, BFS_REL)
+    keep = pruning._MATCH_MATRIX_MAX_C
+    pruning._MATCH_MATRIX_MAX_C = 0
+    try:
+        by_sort = call()
+        sort_ms = device_ms(call, n=20, per_round=5)
+    finally:
+        pruning._MATCH_MATRIX_MAX_C = keep
+    dedup_err = entry_err(by_sort, first, DEDUP_REL)
+    ms = device_ms(call, n=20, per_round=5)
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - t0)
+    res = dict(roots=int(t.shape[0]) * len(blocks), width=cfg.n_degree,
+               depth=cfg.n_layer, k=cfg.topk, members=cfg.n_tppr,
+               live_share=float((first.w > 0).float().mean()),
+               bitwise_twice=True, cpu_max_rel_err=cpu_err,
+               sorted_dedup_max_rel_err=dedup_err, ms=ms,
+               sorted_dedup_ms=sort_ms,
+               host_enqueue_ms=1e3 * float(np.median(host)), card=card)
+    print(f"pruning bfs: {ms:.4f} ms per call on the device, "
+          f"{res['host_enqueue_ms']:.3f} ms of host time  ({card})",
+          flush=True)
+    print("pruning bfs " + json.dumps(res), flush=True)
+
+
+def prune_train(trainer: Trainer, card: str):
+    """A warm-up and a timed epoch, ``validate()`` and ``test()``."""
+    n_train = trainer.splits.train.n_interactions
+    epochs = []
+    for e in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        batches = int(r.per_batch.shape[0])
+        assert np.isfinite(r.per_batch).all() and r.waves == 0, e
+        bfs_ms = 1e3 * r.index_seconds / batches
+        print(f"pruning train epoch {e}{' (warm-up)' if e == 1 else ''}: "
+              f"{s:.3f} s, {n_train / s:.1f} train events/s, BFS "
+              f"{bfs_ms:.3f} ms of host time per batch ({batches} batches), "
+              f"{_metrics(r)}  ({card})", flush=True)
+        epochs.append(dict(seconds=s, events_per_s=n_train / s,
+                           bfs_host_ms_per_batch=bfs_ms, batches=batches,
+                           loss=r.loss, ap=r.ap, auc=r.auc, acc=r.acc))
+    t0 = time.perf_counter()
+    val, nn_val = trainer.validate()
+    test, nn_test = trainer.test()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
+    for name, r in phases.items():
+        print(f"pruning {name:8s} {r.seconds:.3f} s, {_metrics(r)}  ({card})",
+              flush=True)
+        assert r.waves == 0 and np.isfinite(r.per_batch).all(), name
+    assert trainer.index_state is None and trainer.index_waves == 0
+    assert epochs[1]["ap"] > 0.5 and val.ap > 0.5 and test.ap > 0.5, (
+        epochs[1]["ap"], val.ap, test.ap)
+    res = dict(train_events=n_train, n_nodes=trainer.cfg.n_nodes,
+               arena_slots=int(trainer.full_nbr_index.ts.shape[0]),
+               max_degree=trainer.full_nbr_index.max_degree, epochs=epochs,
+               eval_s=eval_s,
+               phases={k: dict(seconds=r.seconds, ap=r.ap, auc=r.auc,
+                               acc=r.acc) for k, r in phases.items()},
+               peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+               card=card)
+    print("pruning train " + json.dumps(res), flush=True)
+
+
+def _prune_requests(pred: LinkPredictor, cols, timed: bool):
+    """The serve leg's calls on ``pred`` (the test split's columns ``cols``):
+    observe calls, scores at each batch size, a brand-new edge and its
+    fold. Returns the scores, whether the new edge was seen before and
+    after its fold, and the timings."""
+    sync = torch.cuda.synchronize if timed else (lambda: None)
+    src, dst, ts, eidx = cols
+    obs_s = []
+    for c in range(PRUNE_OBSERVE_CALLS):
+        sl = slice(c * PRUNE_OBSERVE_B, (c + 1) * PRUNE_OBSERVE_B)
+        t0 = time.perf_counter()
+        pred.observe(src[sl], dst[sl], ts[sl], eidx[sl])
+        sync()
+        obs_s.append(time.perf_counter() - t0)
+    lo = PRUNE_OBSERVE_CALLS * PRUNE_OBSERVE_B
+    scores, score_s = {}, {}
+    for b in SCORE_BS:
+        sl = slice(lo, lo + b)
+        scores[b] = pred.score(src[sl], dst[sl], ts[sl])
+        if timed:
+            lat = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                pred.score(src[sl], dst[sl], ts[sl])
+                lat.append(time.perf_counter() - t0)
+            score_s[b] = float(np.median(lat))
+    t_new, e_new = float(ts[-1]) + 100.0, int(eidx.max()) + 1
+    seen = lambda: bool((pred._queries(
+        *(torch.tensor([x], device=pred.device) for x in (src[0], src[0])),
+        torch.tensor([t_new + 1.0], device=pred.device),
+        with_neg=False).eidx[:, 0] == e_new).any())
+    before = seen()
+    pred.observe([src[0]], [dst[1]], [t_new], [e_new])
+    after = seen()
+    scores["new"] = pred.score([src[0]], [dst[1]], [t_new + 1.0])
+    return scores, (before, after), dict(
+        observe_ms=[1e3 * x for x in obs_s],
+        score_ms={b: 1e3 * x for b, x in score_s.items()})
+
+
+def _cpu_twin(trainer: Trainer, rebuild_every: int = 1) -> LinkPredictor:
+    """On the CPU, the predictor ``LinkPredictor.from_trainer`` makes."""
+    fu = trainer.splits.full
+    return LinkPredictor(trainer.cfg, trainer.params,
+                         MemoryState(**trainer._memory_tables()), None,
+                         trainer.edge_feats, trainer.full_nbr_index,
+                         (fu.sources, fu.destinations, fu.timestamps,
+                          fu.edge_idxs), rebuild_every, device="cpu")
+
+
+def prune_serve(trainer: Trainer, card: str):
+    """``LinkPredictor.from_trainer`` over the pruning Trainer, and the same
+    predictor on the CPU: the serve leg's calls on both, compared; then the
+    two with ``rebuild_every=1000``."""
+    te, fu = trainer.splits.test, trainer.splits.full
+    cols = (te.sources, te.destinations, te.timestamps.astype(np.float32),
+            te.edge_idxs)
+    gpu, cpu = LinkPredictor.from_trainer(trainer), _cpu_twin(trainer)
+    gs, g_seen, timing = _prune_requests(gpu, cols, timed=True)
+    cs, c_seen, _ = _prune_requests(cpu, cols, timed=False)
+    assert g_seen == c_seen == (False, True), (g_seen, c_seen)
+    score_err = max(float(np.abs(gs[b] - cs[b]).max()) for b in gs)
+    assert score_err <= SCORE_ATOL, score_err
+    for b in SCORE_BS:
+        assert gs[b].shape == (b,) and np.isfinite(gs[b]).all(), b
+    diff = (gpu.mem.memory.cpu().float() - cpu.mem.memory.float()).abs()
+    mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
+    assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
+        mem_err, mem_share)
+    assert torch.equal(gpu.mem.last_update.cpu(), cpu.mem.last_update)
+    for f in ("arena", "offsets", "keys", "times"):
+        assert torch.equal(getattr(gpu.nbr_index, f).cpu(),
+                           getattr(cpu.nbr_index, f)), f
+    deferred = []
+    t_new, e_new = float(fu.timestamps[-1]) + 100.0, int(
+        fu.edge_idxs.max()) + 1
+    for pred in (LinkPredictor.from_trainer(trainer, rebuild_every=1000),
+                 _cpu_twin(trainer, rebuild_every=1000)):
+        pred.observe([cols[0][0]], [cols[1][1]], [t_new], [e_new])
+        slots, pending = int(pred.nbr_index.ts.shape[0]), pred._pending_n
+        pred.flush_index()
+        deferred.append((pending, slots, int(pred.nbr_index.ts.shape[0]),
+                         pred._pending_n))
+    n_arena = 2 * fu.n_interactions
+    assert deferred[0] == deferred[1] == (1, n_arena, n_arena + 2, 0), (
+        deferred)
+    for b in SCORE_BS:
+        print(f"pruning serve score b={b:5d}: {timing['score_ms'][b]:.3f} "
+              f"ms/call  ({card})", flush=True)
+    print("pruning serve observe b=200: " + ", ".join(
+        f"{x:.3f}" for x in timing["observe_ms"]) + f" ms/call  ({card})",
+        flush=True)
+    res = dict(score_max_abs_err=score_err, memory_max_abs_err=mem_err,
+               memory_diff_share=mem_share, new_edge_seen=list(g_seen),
+               deferred_fold=deferred[0], **timing, card=card)
+    print("pruning serve " + json.dumps(res), flush=True)
+
+
+def prune_phase(card: str):
+    """The pruning strategy (module docstring, phase 10); fails if a santa
+    kernel launched during it."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    cfg, splits, edge_feats = mooc_pruning(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    print(f"pruning: Trainer built in {time.perf_counter() - t0:.3f} s "
+          f"({splits.full.n_interactions} events, {trainer.cfg.n_nodes} "
+          "rows)", flush=True)
+    prune_bfs(trainer, card)
+    prune_train(trainer, card)
+    prune_serve(trainer, card)
+    del trainer
+    replay_phase(card, build=mooc_pruning, tag="pruning replay")
+    seeds_replay(card, build=mooc_pruning, n_seeds=PRUNE_SEEDS,
+                 lanes=PRUNE_LANES, tag="pruning seeds replay")
+    assert merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches == 0, (
+        merge.SANTA_MERGE.launches, scan.SANTA_SCAN.launches)
+    print(f"pruning: phase took {time.perf_counter() - t0:.1f} s, 0 "
+          "santa_merge and 0 santa_scan launches", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -1078,6 +1328,7 @@ def main() -> int:
     single_index = train_phase(card)
     merge_launches = fit_phase(card)
     seed_merges, seed_scans, seed_merge = seeds_phase(card, single_index)
+    prune_phase(card)
 
     def entry(name, results, main, launches):
         return dict(

@@ -67,11 +67,13 @@ RUN_NAMES = [
     dict(data="wiki", topk=20, alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95),
          bs=200, n_epoch=3, lr=1e-3),
     dict(data="toy", enable_random=True, n_layer=1, lr=3e-3),
+    dict(data="mooc", tppr_strategy="pruning", n_degree=10, n_layer=2,
+         topk=20, alpha_list=(0.1, 0.1), beta_list=(0.5, 0.95)),
 ]
 
 
 @pytest.mark.parametrize("kw", RUN_NAMES, ids=["default", "flagship",
-                                                "random"])
+                                                "random", "pruning"])
 def test_run_name_matches_jax(kw):
     assert Config(**kw).run_name() == JaxConfig(**kw).run_name()
 
@@ -89,6 +91,8 @@ DIFFS = {
     "extents": dict(n_nodes=384, n_edges=99, edge_dim=1),
     "updater": dict(memory_updater="rnn", n_head=4),
     "parallel_lr": dict(parallel_runs=2, parallel_lr=(1e-3, 3e-4)),
+    # the BFS's width and depth shape no state: only the strategy differs
+    "strategy": dict(tppr_strategy="pruning", n_degree=5, n_layer=3),
 }
 
 
@@ -104,7 +108,7 @@ def test_state_compat_diff_matches_jax(change):
 OUTSIDE = [
     (["--parallel_runs", "2", "--fused_dispatch"], "parallel_runs"),
     (["--parallel_lr", "1e-3", "1e-4"], "parallel_lr"),
-    (["--tppr_strategy", "pruning"], "tppr_strategy"),
+    (["--embedding_module", "time"], "embedding_module='time'"),
     (["--embedding_module", "graph_sum"], "embedding_module"),
     (["--aggregator", "mean"], "aggregator"),
     (["--message_function", "mlp"], "message_function"),

@@ -136,7 +136,7 @@ def test_ids_past_f32_width_raise(call):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tppr_strategy", "pruning"),
+    ("embedding_module", "graph_sum"),
     ("embedding_module", "graph_attention"),
     ("aggregator", "mean"),
     ("message_function", "mlp"),

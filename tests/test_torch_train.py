@@ -96,7 +96,10 @@ def _memory(cfg, dtype, seed=2):
 
 
 def _params(jcfg):
-    jp = init_tgn_params(jax.random.PRNGKey(0), jcfg)
+    # a JAX Trainer built earlier in the process makes its prng_impl the
+    # default (zebra_tpu/train/loop.py:374): pin the key's impl, so the
+    # params do not depend on which tests ran before
+    jp = init_tgn_params(jax.random.key(0, impl="threefry2x32"), jcfg)
     pp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jp, pp.requires_grad_(True)
 

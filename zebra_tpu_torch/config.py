@@ -41,8 +41,8 @@ class Config:
     topk: int = 10
     alpha_list: Sequence[float] = (0.1,)
     beta_list: Sequence[float] = (0.9,)
-    n_degree: int = 10               # pruning width and depth: part of the
-    n_layer: int = 2                 # run name only in this slice
+    n_degree: int = 10               # pruning strategy: the BFS's width
+    n_layer: int = 2                 # and depth
 
     # ---- towers ----
     embedding_module: str = "diffusion"
@@ -150,7 +150,8 @@ class Config:
                     f"--parallel_lr needs one value per parallel run: got "
                     f"{len(self.parallel_lr)} for {n_seeds} runs")
         outside = {
-            "tppr_strategy": self.tppr_strategy != "streaming",
+            "tppr_strategy": self.tppr_strategy not in ("streaming",
+                                                        "pruning"),
             "embedding_module": self.embedding_module != "diffusion",
             "aggregator": self.aggregator != "last",
             "message_function": self.message_function != "identity",
@@ -180,10 +181,10 @@ class Config:
         bad = [f"{k}={getattr(self, k)!r}" for k, v in outside.items() if v]
         if bad:
             raise ValueError(
-                "outside the ported slice (streaming strategy, diffusion "
-                "tower, last aggregator, identity messages, per-position lazy "
-                "updates, the hand-written merge kernel, one device in one "
-                "process): " + ", ".join(bad)
+                "outside the ported slice (streaming and pruning "
+                "strategies, diffusion tower, last aggregator, identity "
+                "messages, per-position lazy updates, the hand-written merge "
+                "kernel, one device in one process): " + ", ".join(bad)
             )
 
     @classmethod
@@ -235,6 +236,15 @@ class Config:
         if self.compute_dtype == "bfloat16":
             return torch.bfloat16
         return None
+
+    @property
+    def needs_adjacency(self) -> bool:
+        """Whether this config queries a padded-CSR adjacency index: the
+        pruning strategy's bounded BFS and the recursive towers both do
+        (``zebra_tpu/config.py:needs_adjacency``). Shared by the Trainer and
+        ``LinkPredictor.from_checkpoint`` so the two cannot disagree."""
+        return self.tppr_strategy == "pruning" or self.embedding_module in (
+            "graph_attention", "graph_sum")
 
     # Fields that shape or give meaning to a ``save_state`` checkpoint: a
     # restore across a change of any of them would mis-shape the state or

@@ -1,19 +1,27 @@
 """Where a training epoch's time goes on the card.
 
     python3 -m zebra_tpu_torch.profile_train [--parallel_runs S]
+        [--tppr_strategy pruning [--n_degree W] [--n_layer D]]
 
 Builds the flagship training configuration at full width on the bench
-stream (the one ``chip_smoke.py`` trains), with S seeds in one pass when
-``--parallel_runs`` is given, runs a warm-up epoch, then:
+stream (the one ``chip_smoke.py`` trains), or with ``--tppr_strategy
+pruning`` the MOOC pruning run on its MOOC-shaped stream
+(:func:`mooc_pruning`, BFS width ``--n_degree`` and depth ``--n_layer``),
+with S seeds in one pass when ``--parallel_runs`` is given, runs a warm-up
+epoch, then:
 - one epoch with CUDA events between its parts, read after the epoch: the
-  device timeline split into the index wave loop ("index"), the towers'
-  forward with the loss ("forward"), "backward", "adam", the memory
-  protocol ("protocol") and the per-batch metrics ("metrics"), each the
-  sum of the gaps that end at its marks. Where the host enqueues slower
-  than the device runs, a gap is the host's enqueue time of that part;
-- one epoch without events, for the epoch's seconds;
+  device timeline split into the index wave loop ("index", streaming) or
+  the batches' BFS calls ("query", pruning), the towers' forward with the
+  loss ("forward"), "backward", "adam", the memory protocol ("protocol")
+  and the per-batch metrics ("metrics"), each the sum of the gaps that end
+  at its marks. Where the host enqueues slower than the device runs, a gap
+  is the host's enqueue time of that part;
+- one epoch without events, for the epoch's seconds (and, under pruning,
+  the BFS calls' host time per batch);
 - one epoch under ``torch.profiler``: the device-busy share and the
-  kernels that take the device time.
+  kernels that take the device time;
+- under pruning, one train batch's BFS alone: its device time (CUDA
+  events) and the aten operations it enqueues.
 Prints one JSON line; train events/s count every seed's events. Needs a
 CUDA device."""
 
@@ -31,6 +39,11 @@ from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge
 from zebra_tpu_torch.profile_serve import device_ops
 from zebra_tpu_torch.train.loop import Trainer
+from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
+from zebra_tpu_torch.utils.profiling import count_ops, device_ms
+
+# MOOC (BASELINE.md:66): 7,144 nodes, 411,749 events, 4 edge features
+MOOC_USERS, MOOC_ITEMS = 7047, 97
 
 
 def bench_stream(seed: int = 0):
@@ -56,6 +69,39 @@ def flagship_training(seed: int = 0, n_events: int = 120_000, **overrides):
     return cfg, splits, edge_feats[: n_events + 1]
 
 
+def mooc_pruning(seed: int = 0, n_events: int = 120_000, **overrides):
+    """The MOOC pruning run of ``scripts/run_baselines.sh:40`` (with the
+    shared flags of ``:23-25``) at full width: pruning T-PPR with BFS width
+    10 and depth 2, top-20, α (0.1, 0.1), β (0.5, 0.95), the diffusion
+    tower, GRU, ``last`` aggregator, identity messages, dims 100, bs 200,
+    lr 1e-4, bf16 tables; on a MOOC-shaped synthetic stream, 7,047 users ×
+    97 items (MOOC's 7,144 nodes), edge_dim 4, cut from MOOC's 411,749
+    events to the first ``n_events``. Returns (cfg, splits, edge_feats) on
+    the host; ``overrides`` replace config fields."""
+    data, edge_feats = synthetic_stream(n_events, MOOC_USERS, MOOC_ITEMS,
+                                        edge_dim=4, seed=seed)
+    cfg = Config(**{**dict(
+        bs=200, node_dim=100, time_dim=100, memory_dim=100, topk=20,
+        alpha_list=(0.1, 0.1), beta_list=(0.5, 0.95),
+        tppr_strategy="pruning", n_degree=10, n_layer=2, seed=seed),
+        **overrides})
+    splits = split_data(data.sources, data.destinations, data.timestamps,
+                        data.edge_idxs, data.labels)
+    return cfg, splits, edge_feats
+
+
+def bfs_roots(trainer: Trainer, i: int = 0):
+    """The roots of train batch ``i``'s BFS as ``run_phase`` queries them
+    (epoch 0's negatives, one block per seed): (id blocks, times) on the
+    trainer's device."""
+    b = trainer.cfg.bs
+    s = trainer._streams["train"].stream
+    sl = slice(i * b, (i + 1) * b)
+    negs = trainer._draw_train_negs(0).reshape(-1, s.src.shape[0])[:, sl]
+    return ([s.src[sl], s.dst[sl],
+             *torch.from_numpy(negs).to(trainer.device)], s.t[sl])
+
+
 def split_marks(marks) -> dict:
     """Seconds of device time per part: each gap between consecutive marks
     goes to the part of the mark that ends it."""
@@ -68,9 +114,19 @@ def split_marks(marks) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser("zebra_tpu_torch.profile_train")
     ap.add_argument("--parallel_runs", type=int, default=1)
+    ap.add_argument("--tppr_strategy", default="streaming",
+                    choices=["streaming", "pruning"])
+    ap.add_argument("--n_degree", type=int, default=10)
+    ap.add_argument("--n_layer", type=int, default=2)
     args = ap.parse_args()
-    cfg, splits, edge_feats = flagship_training(
-        parallel_runs=args.parallel_runs)
+    pruning = args.tppr_strategy == "pruning"
+    if pruning:
+        cfg, splits, edge_feats = mooc_pruning(
+            parallel_runs=args.parallel_runs, n_degree=args.n_degree,
+            n_layer=args.n_layer)
+    else:
+        cfg, splits, edge_feats = flagship_training(
+            parallel_runs=args.parallel_runs)
     trainer = Trainer(cfg, splits, edge_feats, device="cuda")
     n_train = splits.train.n_interactions * cfg.n_seeds
     trainer.train_epoch()                               # warm-up
@@ -104,10 +160,22 @@ def main() -> None:
     merge_s = sum(us for name, (_, us) in per_kernel.items()
                   if "santa_merge" in name) / 1e6
 
+    batches = int(plain.per_batch.shape[0])
+    bfs = {}
+    if pruning:
+        blocks, t = bfs_roots(trainer, batches // 2)
+        ab = ensemble_tensors(cfg, trainer.device)
+        call = lambda: pruned_queries(cfg, trainer.train_nbr_index, ab,
+                                      blocks, t)
+        bfs = dict(bfs_host_ms_per_batch=1e3 * plain.index_seconds / batches,
+                   bfs_device_ms_per_call=device_ms(call, n=20, per_round=5),
+                   bfs_ops_per_call=count_ops(call),
+                   bfs_roots_per_call=(2 + cfg.n_seeds) * cfg.bs)
     mean = lambda x: float(torch.as_tensor(x, dtype=torch.float64).mean())
     print(json.dumps(dict(
-        parallel_runs=cfg.n_seeds,
-        train_events=n_train, batches=int(plain.per_batch.shape[0]),
+        tppr_strategy=cfg.tppr_strategy, n_degree=cfg.n_degree,
+        n_layer=cfg.n_layer, parallel_runs=cfg.n_seeds,
+        train_events=n_train, batches=batches,
         waves=plain.waves, santa_merge_launches=launches,
         epoch_s=epoch_s, train_events_per_s=n_train / epoch_s,
         index_host_s=plain.index_seconds,
@@ -117,7 +185,7 @@ def main() -> None:
         traced_epoch_s=traced_s, device_busy_s=busy_s,
         device_busy_share_traced=busy_s / traced_s,
         device_busy_share_of_epoch=busy_s / epoch_s,
-        santa_merge_device_s=merge_s,
+        santa_merge_device_s=merge_s, **bfs,
         device_kernels=sum(n for n, _ in per_kernel.values()),
         top_device_ops=[(name[:60], n, round(us / 1e3, 3))
                         for name, (n, us) in top],

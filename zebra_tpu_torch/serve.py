@@ -12,7 +12,14 @@ Example::
 The predictor runs on CUDA unless ``device="cpu"`` is passed. ``observe``
 streams the events through the T-PPR index (``fill_scan``: one
 ``santa_scan`` kernel launch per call on the card), then applies the
-eval-mode memory protocol; ``score`` is read-only.
+eval-mode memory protocol; ``score`` is read-only. Both refuse node ids
+outside [0, N) on the host, before anything reaches the device.
+
+Under the pruning strategy the predictor holds no T-PPR state but an
+adjacency index (``nbr_index``) and the event stream it was built from
+(``events``); ``score`` queries it by a bounded BFS, and ``observe`` folds
+the new events into it (a rebuild on the host every ``rebuild_every``
+events, or at ``flush_index()``) before the memory protocol.
 
 A seed-parallel training run (``--parallel_runs``) serves one seed,
 ``LinkPredictor.from_checkpoint(path, run_index=s)``, or all of them as a
@@ -23,13 +30,18 @@ probability from one batched pass."""
 from __future__ import annotations
 
 import copy
-from typing import Optional
+import logging
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.index.neighbor_finder import (
+    NeighborIndex,
+    build_neighbor_index,
+)
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
     TpprQueries,
@@ -41,7 +53,25 @@ from zebra_tpu_torch.index.streaming import (
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import affinity_score, params_from_state_dict
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
+from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import _forward, eval_store_commit
+
+logger = logging.getLogger("zebra_tpu_torch")
+
+
+def check_node_ids(n_nodes: int, *cols) -> None:
+    """Raise ``ValueError`` unless every id in the host columns ``cols``
+    lies in [0, ``n_nodes``): on the card an id outside would trip a
+    device-side assert in a gather, which leaves the process's CUDA context
+    unusable."""
+    ids = [np.asarray(c) for c in cols if np.size(c)]
+    if not ids:
+        return
+    lo = min(int(c.min()) for c in ids)
+    hi = max(int(c.max()) for c in ids)
+    if lo < 0 or hi >= n_nodes:
+        raise ValueError(f"node ids must lie in [0, {n_nodes}), got "
+                         f"[{lo}, {hi}]")
 
 
 class LinkPredictor:
@@ -53,18 +83,42 @@ class LinkPredictor:
     _stacked = False  # EnsemblePredictor: params and memory carry [S, ...]
 
     def __init__(self, cfg: Config, params, mem: MemoryState,
-                 index_state: TpprState, edge_feats, device=None):
+                 index_state: Optional[TpprState], edge_feats,
+                 nbr_index: Optional[NeighborIndex] = None,
+                 events: Optional[Tuple[np.ndarray, ...]] = None,
+                 rebuild_every: int = 1, device=None):
+        """``index_state`` is the streaming strategy's T-PPR state (None
+        under pruning). ``nbr_index`` is the pruning strategy's adjacency
+        index and ``events`` the (sources, destinations, timestamps,
+        edge_idxs) stream it was built from: with them ``observe()`` folds
+        new interactions into the index, by a rebuild on the host once
+        ``rebuild_every`` events are pending (1: at every call;
+        ``flush_index()`` forces one). Without ``events`` the index stays
+        as given, and observe() warns once."""
         self.device = resolve_device(device)
-        check_id_width(cfg.n_nodes, cfg.n_edges)
+        if index_state is not None:
+            # the packed T-PPR rows hold ids as f32 values
+            check_id_width(cfg.n_nodes, cfg.n_edges)
         self.cfg = cfg
         dev = self.device
         self.params = copy.deepcopy(params).to(dev).requires_grad_(False)
         self.mem = MemoryState(*(x.to(dev, copy=True) for x in mem))
-        self.index_state = TpprState(index_state.data.to(dev, copy=True))
+        self.index_state = (None if index_state is None else
+                            TpprState(index_state.data.to(dev, copy=True)))
         self.edge_feats = torch.as_tensor(edge_feats).to(
             dev, torch.float32, copy=True)
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
         self._offs = None   # the members' row offsets (EnsemblePredictor)
+        # the index is never changed in place (a fold builds a new one), so
+        # a Trainer's may be shared
+        self.nbr_index = None if nbr_index is None else nbr_index.to(dev)
+        self._alpha_beta = ensemble_tensors(cfg, dev)
+        self._events = (None if events is None else
+                        tuple(np.array(c) for c in events[:4]))
+        self._pending: list = []
+        self._pending_n = 0
+        self.rebuild_every = max(1, int(rebuild_every))
+        self._warned_static = False
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[Config] = None,
@@ -74,9 +128,10 @@ class LinkPredictor:
         """A predictor over a ``Trainer.save_state`` file, with no live
         Trainer (the deployment path). ``cfg`` defaults to the one stored in
         the file; ``edge_feats`` to zeros, which a model trained with real
-        edge features refuses. ``events`` and ``rebuild_every`` serve the
-        adjacency-index strategies, which this slice's Config refuses; they
-        are accepted so a JAX call carries over, and unused.
+        edge features refuses. ``events``, the training stream's
+        (sources, destinations, timestamps, edge_idxs), is required under
+        the pruning strategy: the adjacency index is built from it (the
+        state file holds none), and ``rebuild_every`` is the predictor's.
 
         From a seed-parallel file (``--parallel_runs``: params and memory
         carry a leading seed axis, the index is shared) ``run_index``
@@ -118,14 +173,27 @@ class LinkPredictor:
                     "edge features; pass edge_feats= (the training "
                     "ml_{d}.npy matrix)")
             edge_feats = np.zeros((cfg.n_edges, cfg.edge_dim), np.float32)
+        nbr_index = None
+        if cfg.needs_adjacency:
+            if events is None:
+                raise ValueError(
+                    f"tppr_strategy={cfg.tppr_strategy!r} / embedding_module="
+                    f"{cfg.embedding_module!r} query an adjacency index; "
+                    "pass events=(sources, destinations, timestamps, "
+                    "edge_idxs) of the training stream")
+            nbr_index = build_neighbor_index(*events[:4], cfg.n_nodes, dev)
+        index_state = ckpt["index_state"]
         return cls(cfg, params_from_state_dict(params), MemoryState(**mem),
-                   TpprState(ckpt["index_state"]), edge_feats, device=dev)
+                   None if index_state is None else TpprState(index_state),
+                   edge_feats, nbr_index, events, rebuild_every, device=dev)
 
     @classmethod
-    def from_trainer(cls, trainer) -> "LinkPredictor":
+    def from_trainer(cls, trainer, rebuild_every: int = 1) -> "LinkPredictor":
         """A predictor over a port Trainer's current params, memory, index
         and edge features, on the Trainer's device (copies: the Trainer
-        trains on undisturbed). A seed-parallel Trainer serves through
+        trains on undisturbed); under the pruning strategy the full graph's
+        adjacency index, with the full split's events as the base stream of
+        the folds. A seed-parallel Trainer serves through
         ``EnsemblePredictor.from_trainer``."""
         n_seeds = trainer.cfg.n_seeds
         if n_seeds > 1 and not cls._stacked:
@@ -137,22 +205,74 @@ class LinkPredictor:
             raise ValueError("EnsemblePredictor needs a seed-parallel Trainer "
                              "(--parallel_runs > 1)")
         cfg = trainer.cfg.replace(parallel_runs=1, parallel_lr=None)
+        fu = trainer.splits.full
         return cls(cfg, trainer.params,
                    MemoryState(**trainer._memory_tables()),
                    trainer.index_state, trainer.edge_feats,
-                   device=trainer.device)
+                   trainer.full_nbr_index,
+                   (fu.sources, fu.destinations, fu.timestamps, fu.edge_idxs),
+                   rebuild_every, device=trainer.device)
 
-    def _ids(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.int32)).to(self.device)
+    # ------------------------------------------------------------ adjacency
 
-    def _times(self, t) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(t, np.float32)).to(self.device)
+    def _append_events(self, src, dst, t, eidx) -> None:
+        """Queue observed interactions for the adjacency index, and fold
+        them once ``rebuild_every`` are pending (a no-op for the streaming
+        strategy, whose index is the updated T-PPR state)."""
+        if self.nbr_index is None:
+            return
+        if self._events is None:
+            if not self._warned_static:
+                logger.warning(
+                    "LinkPredictor has no base event stream: observe()d "
+                    "interactions update memory%s but NOT the adjacency "
+                    "index — pruning/recursive queries will not see them. "
+                    "Pass events= (or use from_trainer) to enable index "
+                    "folding.",
+                    "/T-PPR state" if self.index_state is not None else "")
+                self._warned_static = True
+            return
+        self._pending.append((np.asarray(src, np.int64),
+                              np.asarray(dst, np.int64),
+                              np.asarray(t, np.float64),
+                              np.asarray(eidx, np.int64)))
+        self._pending_n += len(self._pending[-1][0])
+        if self._pending_n >= self.rebuild_every:
+            self.flush_index()
+
+    def flush_index(self) -> None:
+        """Fold every pending observed interaction into the adjacency index:
+        a rebuild on the host from the base stream and the pending events,
+        then one upload."""
+        if not self._pending:
+            return
+        self._events = tuple(
+            np.concatenate([base] + [p[i] for p in self._pending])
+            for i, base in enumerate(self._events))
+        self._pending, self._pending_n = [], 0
+        self.nbr_index = build_neighbor_index(*self._events, self.cfg.n_nodes,
+                                              self.device)
+
+    # ------------------------------------------------------------ requests
+
+    def _request(self, src, dst, t):
+        """Host columns → (src, dst, t) on the device, after checking the
+        node ids on the host."""
+        check_node_ids(self.cfg.n_nodes, src, dst)
+        ids = lambda x: torch.as_tensor(np.asarray(x, np.int32)).to(
+            self.device)
+        return ids(src), ids(dst), torch.as_tensor(
+            np.asarray(t, np.float32)).to(self.device)
 
     def _queries(self, src, dst, t, with_neg: bool = True) -> TpprQueries:
         """Read-only T-PPR top-k at the query times, fields [M, nb·b, k]:
         src‖dst‖dst blocks when ``with_neg`` (the training layout),
-        src‖dst for plain scoring."""
+        src‖dst for plain scoring. Under the pruning strategy one BFS over
+        the adjacency index."""
         cols = [src, dst] + ([dst] if with_neg else [])
+        if self.nbr_index is not None:
+            return pruned_queries(self.cfg, self.nbr_index, self._alpha_beta,
+                                  cols, t)
         q = read_topk(self.index_state, torch.stack(cols, dim=1), t,
                       self.cfg.n_tppr, self.cfg.topk)       # [B, M, nb, k]
         m, k = self.cfg.n_tppr, self.cfg.topk
@@ -162,8 +282,7 @@ class LinkPredictor:
     def score(self, src, dst, t) -> np.ndarray:
         """P(interaction) for each (src, dst) candidate at its timestamp."""
         with torch.no_grad():
-            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
-            return self._probs(src, dst, t).cpu().numpy()
+            return self._probs(*self._request(src, dst, t)).cpu().numpy()
 
     def _probs(self, src, dst, t) -> torch.Tensor:
         """Link probabilities on the device: [B], or [S, B] for the members
@@ -178,19 +297,23 @@ class LinkPredictor:
         return torch.sigmoid(logit)
 
     def observe(self, src, dst, t, eidx) -> None:
-        """Ingest observed interactions: stream them through the T-PPR index
-        (updated in place), then store-and-commit their messages into
-        memory (the eval protocol). Edge ids must stay below 2^24
-        (``fill_scan`` checks)."""
+        """Ingest observed interactions: fold them into the adjacency index
+        (pruning; see ``rebuild_every``) or stream them through the T-PPR
+        index (streaming, updated in place; edge ids must stay below 2^24,
+        ``fill_scan`` checks), then store-and-commit their messages into
+        memory (the eval protocol)."""
         with torch.no_grad():
-            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
-            eidx = self._ids(eidx)
+            cols = self._request(src, dst, t)
+            self._append_events(src, dst, t, eidx)
+            src, dst, t = cols
+            eidx = torch.as_tensor(np.asarray(eidx, np.int32)).to(self.device)
             valid = torch.ones(src.shape[0], dtype=torch.bool,
                                device=self.device)
             # no pre-edge queries: they would feed embedding-sourced
             # messages, which this slice's Config refuses
-            self.index_state = fill_scan(self.index_state, self._tppr, src,
-                                         dst, t, eidx, valid)
+            if self.index_state is not None:
+                self.index_state = fill_scan(self.index_state, self._tppr,
+                                             src, dst, t, eidx, valid)
             self.mem = self._updated_mem(src, dst, t, eidx, valid)
 
     def _updated_mem(self, src, dst, t, eidx, valid) -> MemoryState:
@@ -207,8 +330,9 @@ class EnsemblePredictor(LinkPredictor):
     tables, the T-PPR index is shared (its evolution does not depend on the
     model), and ``score`` returns the mean link probability of the S
     members from one batched pass. ``observe`` runs the shared index scan
-    once (one ``santa_scan`` launch on the card), then the eval memory
-    protocol of all members at once. The members' tables are held flat,
+    once (one ``santa_scan`` launch on the card; under the pruning strategy
+    one fold of the shared adjacency index), then the eval memory protocol
+    of all members at once. The members' tables are held flat,
     [S·N, ...], as the seed-parallel Trainer holds them.
 
     Build with ``LinkPredictor.from_checkpoint(path, ensemble=True)`` or
@@ -218,11 +342,14 @@ class EnsemblePredictor(LinkPredictor):
     _stacked = True
 
     def __init__(self, cfg: Config, params, mem: MemoryState,
-                 index_state: TpprState, edge_feats, device=None):
+                 index_state: Optional[TpprState], edge_feats,
+                 nbr_index: Optional[NeighborIndex] = None,
+                 events: Optional[Tuple[np.ndarray, ...]] = None,
+                 rebuild_every: int = 1, device=None):
         n_models = next(iter(params.parameters())).shape[0]
         super().__init__(cfg, params, MemoryState(*(
             x.reshape((-1,) + x.shape[2:]) for x in mem)), index_state,
-            edge_feats, device)
+            edge_feats, nbr_index, events, rebuild_every, device)
         self._offs = torch.arange(n_models, dtype=torch.int64,
                                   device=self.device) * cfg.n_nodes
 
@@ -233,11 +360,10 @@ class EnsemblePredictor(LinkPredictor):
     def score(self, src, dst, t) -> np.ndarray:
         """The mean member probability for each (src, dst) candidate."""
         with torch.no_grad():
-            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
-            return self._probs(src, dst, t).mean(0).cpu().numpy()
+            return self._probs(*self._request(src, dst, t)).mean(0).cpu(
+            ).numpy()
 
     def member_scores(self, src, dst, t) -> np.ndarray:
         """Per-member probabilities [S, B] (``score`` is their mean)."""
         with torch.no_grad():
-            src, dst, t = self._ids(src), self._ids(dst), self._times(t)
-            return self._probs(src, dst, t).cpu().numpy()
+            return self._probs(*self._request(src, dst, t)).cpu().numpy()

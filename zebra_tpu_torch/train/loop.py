@@ -9,7 +9,11 @@ runs the wave scan (``index/waves.py``: one ``santa_merge`` launch per wave
 on the card), which extracts every event's T-PPR queries before its
 update, and ``run_phase`` trains over the chunk's batches with them. The
 index state at the end of the train stream is the state validation starts
-from.
+from. Under the pruning strategy there is no index state and no wave
+scan: each batch's queries are a bounded BFS over an adjacency index built
+once, of the train graph in training and of the full graph in validate
+and test (``index/pruning.py``); a stop request then takes effect at the
+end of the epoch, as in the JAX package.
 
 validate: flush pending messages (the train→eval transition), run the
 transductive val stream from (train-end memory, train-end index), keep that
@@ -58,6 +62,7 @@ from zebra_tpu_torch.config import Config, torch_dtype
 from zebra_tpu_torch.data.dataset import Data, DatasetSplits
 from zebra_tpu_torch.data.sampler import RandEdgeSampler
 from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
     TpprState,
@@ -92,8 +97,8 @@ class PhaseResult:
     loss: float = 0.0
     seconds: float = 0.0
     index_seconds: float = 0.0   # host clock in the index: scheduling and
-                                 # enqueueing the waves (the device runs
-                                 # them behind the host)
+                                 # enqueueing the waves, or the BFS calls
+                                 # (the device runs them behind the host)
     waves: int = 0               # index waves run: one santa_merge launch
                                  # each on the card
     per_batch: Optional[np.ndarray] = field(  # [real batches, 4]: loss,
@@ -139,7 +144,9 @@ class Trainer:
                 "represents nodes by their memory rows, like the "
                 "reference's active path (tgn_model.py:85). Pass "
                 "--ignore_node_feats to silence.")
-        check_id_width(cfg.n_nodes, cfg.n_edges)
+        if cfg.tppr_strategy == "streaming":
+            # the packed T-PPR rows hold ids as f32 values
+            check_id_width(cfg.n_nodes, cfg.n_edges)
         self.cfg, self.splits = cfg, splits
         self.edge_feats = torch.as_tensor(
             np.asarray(edge_feats, np.float32)).to(dev)
@@ -165,6 +172,14 @@ class Trainer:
         }
         # eval negatives are fixed, so their wave plans are made once
         self._eval_plans: Dict[str, Dict[int, WavePlan]] = {}
+        # adjacency indices of the pruning strategy: the train graph in
+        # training, the full graph in validate and test
+        self.train_nbr_index = self.full_nbr_index = None
+        if cfg.needs_adjacency:
+            self.train_nbr_index, self.full_nbr_index = (
+                build_neighbor_index(d.sources, d.destinations, d.timestamps,
+                                     d.edge_idxs, cfg.n_nodes, dev)
+                for d in (tr, fu))
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list,
                                        cfg.topk)
 
@@ -240,13 +255,16 @@ class Trainer:
 
     # ---------------------------------------------------------------- helpers
 
-    def _fresh_state(self) -> Tuple[MemoryState, TpprState]:
-        """Zeroed memory (S·N flat rows for S seeds) and an empty index."""
+    def _fresh_state(self) -> Tuple[MemoryState, Optional[TpprState]]:
+        """Zeroed memory (S·N flat rows for S seeds) and an empty index
+        (None under the pruning strategy, which keeps no index state)."""
         cfg = self.cfg
         mem = init_memory(cfg.n_nodes * self._n_seeds, cfg.memory_dim,
                           cfg.msg_table_dim,
                           torch_dtype(cfg.message_dtype),
                           torch_dtype(cfg.memory_dtype), device=self.device)
+        if cfg.tppr_strategy != "streaming":
+            return mem, None
         return mem, init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk,
                                     device=self.device)
 
@@ -317,21 +335,24 @@ class Trainer:
                                    self.cfg.wave_cap, self.device)
         return plans
 
-    def _phase(self, name: str, train: bool, index_state: TpprState,
+    def _phase(self, name: str, train: bool,
+               index_state: Optional[TpprState],
                marks: Optional[list] = None, start_chunk: int = 0,
                max_chunks: Optional[int] = None
-               ) -> Tuple[TpprState, PhaseResult]:
+               ) -> Tuple[Optional[TpprState], PhaseResult]:
         """One pass over stream ``name``: per superchunk, the wave scan of
-        the index, then the batches. Updates ``self.mem``, ``index_state``
-        and, in training, the parameters in place; reads the metrics back
-        once, at the end.
+        the index, then the batches (pruning: the batches, each with its
+        BFS). Updates ``self.mem``, ``index_state`` and, in training, the
+        parameters in place; reads the metrics back once, at the end.
 
         Runs the superchunks from ``start_chunk`` on, at most
         ``max_chunks`` of them; in training it advances the cursor after
-        each and stops after the current one once a stop was requested. The
-        metrics cover the superchunks that ran."""
+        each and, under the streaming strategy, stops after the current one
+        once a stop was requested. The metrics cover the superchunks that
+        ran."""
         t0 = time.perf_counter()
         cfg = self.cfg
+        streaming = cfg.tppr_strategy == "streaming"
         ps = self._streams[name]
         stream = ps.stream
         stop = ps.n_chunks if max_chunks is None else min(
@@ -342,12 +363,14 @@ class Trainer:
                 f"empty superchunk window: start_chunk={start_chunk}, "
                 f"max_chunks={max_chunks} select none of the {ps.n_chunks} "
                 "chunks")
+        plans = None
         if train:
             # [E], or [E, S]: the phases' layout of one negative per seed
             negs = np.ascontiguousarray(self._draw_train_negs(self._epoch_id).T)
             stream = stream._replace(neg=torch.from_numpy(negs).to(self.device))
-            plans = self._wave_plans(name, negs, chunks)
-        else:
+            if streaming:
+                plans = self._wave_plans(name, negs, chunks)
+        elif streaming:
             if name not in self._eval_plans:
                 self._eval_plans[name] = self._wave_plans(
                     name, ps.host["neg"], range(ps.n_chunks))
@@ -357,28 +380,32 @@ class Trainer:
         chunk = stream.src.shape[0] // ps.n_chunks
         per_chunk = chunk // cfg.bs
         n_valid = ps.n_valid()
-        metrics, waves = [], 0
+        metrics, waves, bfs_s = [], 0, []
+        nbr_index = self.train_nbr_index if train else self.full_nbr_index
         _mark(marks, "start")
         for ci in chunks:
             cs = Stream(*(x[ci * chunk: (ci + 1) * chunk] for x in stream))
-            ti = time.perf_counter()
-            index_state, rows = wave_scan_chunk(index_state, self._tppr, *cs,
-                                                plans[ci])
-            if cfg.profile and self.device.type == "cuda":
-                # the index's share covers the device's work, at the cost
-                # of the overlap with the towers
-                torch.cuda.synchronize(self.device)
-            t_index += time.perf_counter() - ti
-            waves += plans[ci].n_waves
-            _mark(marks, "index")
+            if streaming:
+                ti = time.perf_counter()
+                index_state, queries = wave_scan_chunk(
+                    index_state, self._tppr, *cs, plans[ci])
+                if cfg.profile and self.device.type == "cuda":
+                    # the index's share covers the device's work, at the
+                    # cost of the overlap with the towers
+                    torch.cuda.synchronize(self.device)
+                t_index += time.perf_counter() - ti
+                waves += plans[ci].n_waves
+                _mark(marks, "index")
+            else:
+                queries = nbr_index
             metrics.append(run_phase(
                 cfg, train, self.params, self.optimizer, self.mem,
-                self.edge_feats, cs, rows,
+                self.edge_feats, cs, queries,
                 n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist(),
-                self._dropout if train else None, marks, self._offs))
+                self._dropout if train else None, marks, self._offs, bfs_s))
             if train:
                 self._chunk_cursor = ci + 1
-                if self._stop_requested:
+                if self._stop_requested and streaming:
                     break
         self.index_waves += waves
         per_batch = torch.cat(metrics).cpu().numpy()
@@ -396,7 +423,8 @@ class Trainer:
         return index_state, PhaseResult(
             loss=mean[0], ap=mean[1], auc=mean[2], acc=mean[3],
             seconds=time.perf_counter() - t0,
-            index_seconds=t_index, waves=waves, per_batch=per_batch)
+            index_seconds=t_index + sum(bfs_s), waves=waves,
+            per_batch=per_batch)
 
     # ---------------------------------------------------------------- epochs
 
@@ -431,8 +459,7 @@ class Trainer:
         # the flush makes new tables: train_mem stays the unflushed backup
         flush = flush_pending if self._n_seeds == 1 else flush_pending_seeds
         self.mem = flush(self.cfg, self.params, train_mem)
-        val_idx, trans = self._phase("val", False,
-                                     TpprState(train_idx.data.clone()))
+        val_idx, trans = self._phase("val", False, _copy_index(train_idx))
         val_mem = self.mem
         # the inductive leg consumes the train-end state; nothing reads it
         # afterwards
@@ -447,8 +474,8 @@ class Trainer:
         JAX Trainer does."""
         val_mem, val_idx = self.mem, self.index_state
         self.mem = MemoryState(*(x.clone() for x in val_mem))
-        self.index_state, trans = self._phase(
-            "test", False, TpprState(val_idx.data.clone()))
+        self.index_state, trans = self._phase("test", False,
+                                              _copy_index(val_idx))
         self.mem = val_mem
         _, induct = self._phase("nn_test", False, val_idx)
         return trans, induct
@@ -474,10 +501,11 @@ class Trainer:
 
     def save_state(self, path: str, epoch: int = 0,
                    chunk: Optional[int] = None) -> None:
-        """Full-state checkpoint: params, Adam's state, memory, index, the
-        dropout generator's state, the negative base and epoch id, the
-        epoch and the stream cursor (``chunk``, the next superchunk to run;
-        the Trainer's own cursor by default), and fit's early-stop fields.
+        """Full-state checkpoint: params, Adam's state, memory, index (None
+        under the pruning strategy), the dropout generator's state, the
+        negative base and epoch id, the epoch and the stream cursor
+        (``chunk``, the next superchunk to run; the Trainer's own cursor by
+        default), and fit's early-stop fields.
         Seed-parallel: params and Adam's moments with their [S] axis,
         memory [S, N, ...], the shared index, the dropout states [S, ·] and
         the negative bases [S].
@@ -497,7 +525,8 @@ class Trainer:
             "params": self.params.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "mem": self._memory_tables(),
-            "index_state": self.index_state.data,
+            "index_state": (None if self.index_state is None
+                            else self.index_state.data),
             "dropout": dropout,
             "epoch": int(epoch),
             "chunk": int(chunk),
@@ -528,7 +557,8 @@ class Trainer:
         self.params.load_state_dict(ckpt["params"])
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.mem = self._memory_from(ckpt["mem"])
-        self.index_state = TpprState(ckpt["index_state"].to(self.device))
+        self.index_state = (None if ckpt["index_state"] is None else
+                            TpprState(ckpt["index_state"].to(self.device)))
         if self._n_seeds == 1:
             self._dropout.set_state(ckpt["dropout"])
             self._neg_base = ckpt["neg_base"]
@@ -851,6 +881,12 @@ class Trainer:
                     cfg.parallel_lr or (cfg.lr,) * s_n)],
             },
         }
+
+
+def _copy_index(index_state: Optional[TpprState]) -> Optional[TpprState]:
+    """A copy of the index state (None, the pruning strategy's, stays
+    None)."""
+    return None if index_state is None else TpprState(index_state.data.clone())
 
 
 def _fmt_seeds(x) -> str:

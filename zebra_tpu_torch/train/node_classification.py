@@ -4,9 +4,10 @@
 1. :func:`collect_source_embeddings`: an eval-mode replay of a stream (the
    evaluation protocol for memory and index) that emits each event's
    source embedding. Destinations stand in the negative slot, as in the
-   reference's call. The index runs through the Trainer's wave path
-   (``plan_waves`` + ``wave_scan_chunk``: one ``santa_merge`` launch per
-   wave on the card).
+   reference's call. The streaming index runs through the Trainer's wave
+   path (``plan_waves`` + ``wave_scan_chunk``: one ``santa_merge`` launch
+   per wave on the card); under the pruning strategy each batch's src‖dst
+   roots take one BFS over an adjacency index.
 2. :class:`NodeDecoder`: the reference head dim → 80 → 10 → 1 with dropout.
 3. :func:`train_node_classifier` (Adam and BCE) and
    :func:`eval_node_classification` (pairwise ROC-AUC).
@@ -22,10 +23,16 @@ from torch import nn
 
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.index.layout import TpprParams
+from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
 from zebra_tpu_torch.index.streaming import TpprQueries, TpprState
 from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
 from zebra_tpu_torch.models.memory import MemoryState
-from zebra_tpu_torch.train.phase import Stream, batch_queries
+from zebra_tpu_torch.train.phase import (
+    Stream,
+    batch_queries,
+    ensemble_tensors,
+    pruned_queries,
+)
 from zebra_tpu_torch.train.step import _forward, eval_store_commit
 
 DECODER_DROPOUT = 0.3
@@ -33,33 +40,42 @@ DECODER_DROPOUT = 0.3
 
 @torch.no_grad()
 def collect_source_embeddings(cfg: Config, params, mem: MemoryState,
-                              index_state: TpprState, edge_feats, ps
-                              ) -> Tuple[MemoryState, TpprState,
+                              index_state: Optional[TpprState], edge_feats,
+                              ps, nbr_index: Optional[NeighborIndex] = None
+                              ) -> Tuple[MemoryState, Optional[TpprState],
                                          torch.Tensor, int]:
     """Eval-mode replay of the phase stream ``ps`` (a Trainer's
     ``PhaseStream``) from (``mem``, ``index_state``), both updated in
-    place. Returns them, the source embeddings [padded events, H] in
-    stream order, and the index waves run."""
+    place; under the pruning strategy ``index_state`` is None and the
+    queries search ``nbr_index``. Returns them, the source embeddings
+    [padded events, H] in stream order, and the index waves run."""
     tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
+    if nbr_index is not None:
+        alpha_beta = ensemble_tensors(cfg, edge_feats.device)
     host, b = ps.host, cfg.bs
     chunk = len(host["src"]) // ps.n_chunks
     n_valid = ps.n_valid().tolist()
     out, waves = [], 0
     for lo in range(0, len(host["src"]), chunk):
         sl = slice(lo, lo + chunk)
-        plan = plan_waves(host["src"][sl], host["dst"][sl], host["dst"][sl],
-                          host["valid"][sl], cfg.n_nodes, cfg.wave_cap,
-                          edge_feats.device)
         cs = Stream(*(x[sl] for x in ps.stream))
-        index_state, rows = wave_scan_chunk(index_state, tppr, cs.src, cs.dst,
-                                            cs.dst, cs.t, cs.eidx, cs.valid,
-                                            plan)
-        waves += plan.n_waves
+        if nbr_index is None:
+            plan = plan_waves(host["src"][sl], host["dst"][sl],
+                              host["dst"][sl], host["valid"][sl], cfg.n_nodes,
+                              cfg.wave_cap, edge_feats.device)
+            index_state, rows = wave_scan_chunk(
+                index_state, tppr, cs.src, cs.dst, cs.dst, cs.t, cs.eidx,
+                cs.valid, plan)
+            waves += plan.n_waves
         for j in range(chunk // b):
             s = Stream(*(x[j * b: (j + 1) * b] for x in cs))
             # the neg slot duplicates dst: embed src‖dst only
-            q = batch_queries(cfg, rows[j * b: (j + 1) * b], s.t)
-            q = TpprQueries(*(x[:, : 2 * b] for x in q))
+            if nbr_index is None:
+                q = batch_queries(cfg, rows[j * b: (j + 1) * b], s.t)
+                q = TpprQueries(*(x[:, : 2 * b] for x in q))
+            else:
+                q = pruned_queries(cfg, nbr_index, alpha_beta,
+                                   [s.src, s.dst], s.t)
             emb = _forward(cfg, params, mem, edge_feats,
                            torch.cat([s.src, s.dst]), q)
             nv = n_valid[(lo + j * b) // b]
@@ -169,7 +185,9 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
     params in eval mode, emitting each event's source embedding; the
     decoder is fit on the train stream's embeddings against the event
     labels and scored by ROC-AUC on all three streams. The replay's index
-    waves count into ``trainer.index_waves``. A seed-parallel Trainer is
+    waves count into ``trainer.index_waves``; under the pruning strategy
+    the replay queries the train graph on the train stream and the full
+    graph on the val and test streams. A seed-parallel Trainer is
     refused: the decoder consumes one model's embeddings."""
     cfg = trainer.cfg
     if cfg.n_seeds > 1:
@@ -178,12 +196,15 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
             "seed first (serve.LinkPredictor.from_checkpoint(run_index=...) "
             "semantics)")
     mem, index_state = trainer._fresh_state()
+    nbr_index = {"train": trainer.train_nbr_index,
+                 "val": trainer.full_nbr_index,
+                 "test": trainer.full_nbr_index}
     embs, labels = {}, {}
     for name in ("train", "val", "test"):
         data = getattr(trainer.splits, name)
         mem, index_state, e, waves = collect_source_embeddings(
             cfg, trainer.params, mem, index_state, trainer.edge_feats,
-            trainer._streams[name])
+            trainer._streams[name], nbr_index[name])
         trainer.index_waves += waves
         embs[name] = e[: data.n_interactions]   # padding trails the events
         labels[name] = torch.as_tensor(data.labels, dtype=torch.float32,

@@ -1,7 +1,9 @@
 """One pass over a phase's batches (counterpart of the single-seed wave
 path of ``zebra_tpu/train/phase.py``): towers, loss, optimizer, memory
-protocol and metrics, batch by batch, with the T-PPR queries the wave scan
-extracted for the chunk (``index/waves.py``).
+protocol and metrics, batch by batch, with each batch's T-PPR queries:
+under the streaming strategy the rows the wave scan extracted for the
+chunk (``index/waves.py``), under the pruning strategy a bounded BFS over
+an adjacency index (``index/pruning.py``), one call per batch.
 
 Eager PyTorch replaces the JAX package's one ``lax.scan`` per phase: the
 batches run as a Python loop that only enqueues device work. Nothing is
@@ -14,18 +16,22 @@ stacked parameters, flat memory tables (``train/step.py``), one batched
 forward, one ``backward()`` of the summed lane losses (the lanes share no
 parameter, so each gets its own gradient), one Adam step for all lanes,
 then the memory protocol for all lanes. Train lane s reads query blocks
-[src, dst, neg_s] of the shared scan's rows [E, 2+S, F] and its own
-negatives; eval shares the negatives and the rows [E, 3, F]. Only the
+[src, dst, neg_s]: of the shared scan's rows [E, 2+S, F], or of one BFS
+call over the roots [src; dst; neg_0 … neg_{S-1}] (the BFS answers each
+root on its own); eval shares the negatives and the query blocks. Only the
 dropout masks are drawn lane by lane, from each seed's generator."""
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+import time
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
 from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
+from zebra_tpu_torch.index.pruning import pruned_topk
 from zebra_tpu_torch.index.streaming import TpprQueries, unpack_queries
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.ops.metrics import masked_ap, masked_auc, masked_rank_acc
@@ -66,6 +72,33 @@ def batch_queries(cfg: Config, rows: torch.Tensor,
                          .reshape(lanes + (m, 3 * b, k)) for x in q))
 
 
+def ensemble_tensors(cfg: Config, device):
+    """(α, β) of the ensemble members as f32 [M] tensors on ``device``;
+    made once per phase, since a copy from the host would wait for the
+    device."""
+    return (torch.tensor(cfg.alpha_list, device=device),
+            torch.tensor(cfg.beta_list, device=device))
+
+
+def pruned_queries(cfg: Config, index: NeighborIndex, alpha_beta, blocks,
+                   t: torch.Tensor) -> TpprQueries:
+    """The pruning strategy's queries of the id blocks ``blocks`` (each
+    [b]), all at the times ``t`` [b]: one BFS over the concatenated roots
+    → fields [M, len(blocks)·b, k] in block order. ``alpha_beta`` is
+    :func:`ensemble_tensors`."""
+    return pruned_topk(index, *alpha_beta, torch.cat(blocks),
+                       t.repeat(len(blocks)), cfg.n_degree, cfg.n_layer,
+                       cfg.topk)
+
+
+def _lane_rows(n_seeds: int, b: int, device) -> torch.Tensor:
+    """The rows of a seed-parallel BFS call over [src; dst; neg_0 … neg_{S-1}]
+    that train lane s reads, [src, dst, neg_s] → i64 [S, 3b]."""
+    shared = torch.arange(2 * b, device=device).expand(n_seeds, -1)
+    own = 2 * b + torch.arange(n_seeds * b, device=device).view(n_seeds, b)
+    return torch.cat([shared, own], dim=1)
+
+
 def _lane_blocks(n_seeds: int, device) -> torch.Tensor:
     """The query blocks each train lane reads: [src, dst, neg_s] → i64
     [S, 3]."""
@@ -84,16 +117,21 @@ def _mark(marks: Optional[list], name: str) -> None:
 
 
 def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
-              edge_feats: torch.Tensor, stream: Stream, queries: torch.Tensor,
+              edge_feats: torch.Tensor, stream: Stream,
+              queries: Union[torch.Tensor, NeighborIndex],
               n_valid: Sequence[int], generator=None,
-              marks: Optional[List] = None, offs=None) -> torch.Tensor:
-    """One pass over the batches of ``stream`` with their extraction rows
-    ``queries`` [E, 3, F]. ``n_valid`` holds each batch's count of valid
-    events (known on the host): a batch with padding passes its mask to the
-    memory protocol, a full one passes None. Train batches take an Adam
-    step of ``optimizer`` on ``params``; ``generator`` draws the dropout
-    masks. Updates ``mem`` in place; returns the per-batch metrics
-    [n_batches, 4] (:data:`METRICS`) on the device.
+              marks: Optional[List] = None, offs=None,
+              bfs_s: Optional[List[float]] = None) -> torch.Tensor:
+    """One pass over the batches of ``stream`` with their T-PPR queries:
+    ``queries`` holds the extraction rows [E, 3, F] (streaming), or is the
+    adjacency index the batches' BFS calls search (pruning; ``bfs_s``, a
+    list, then receives the host seconds of each call). ``n_valid`` holds
+    each batch's count of valid events (known on the host): a batch with
+    padding passes its mask to the memory protocol, a full one passes
+    None. Train batches take an Adam step of ``optimizer`` on ``params``;
+    ``generator`` draws the dropout masks. Updates ``mem`` in place;
+    returns the per-batch metrics [n_batches, 4] (:data:`METRICS`) on the
+    device.
 
     Seed-parallel, ``offs`` (i64 [S], s·N) selects the S-lane pass (module
     docstring): stacked ``params``, flat ``mem``, ``generator`` one per
@@ -101,24 +139,42 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     [n_batches, S, 4].
 
     ``marks``, a list, receives a (part, CUDA event) pair after each part
-    of each batch: "forward" (queries, towers, loss), "backward", "adam"
-    (train only), "protocol" (the memory protocol), "metrics"."""
+    of each batch: "query" (the BFS, pruning only), "forward" (queries,
+    towers, loss), "backward", "adam" (train only), "protocol" (the memory
+    protocol), "metrics"."""
     b = cfg.bs
     per_lane = offs is not None and stream.neg.dim() == 2
-    blocks = _lane_blocks(offs.shape[0], queries.device) if per_lane else None
+    index = queries if isinstance(queries, NeighborIndex) else None
+    if index is not None:
+        alpha_beta = ensemble_tensors(cfg, index.arena.device)
+    if per_lane:
+        n_l = offs.shape[0]
+        blocks = (_lane_rows(n_l, b, offs.device) if index is not None
+                  else _lane_blocks(n_l, offs.device))
     out = []
     for i, nv in enumerate(n_valid):
         s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
         valid = None if nv == b else s.valid
-        rows = queries[i * b: (i + 1) * b]
-        if per_lane:
-            # lane s: the shared src and dst blocks and its own negative's
+        if index is not None:
+            t0 = time.perf_counter()
+            negs = list(s.neg.T) if per_lane else [s.neg]
+            q = pruned_queries(cfg, index, alpha_beta, [s.src, s.dst, *negs],
+                               s.t)
+            if per_lane:
+                # lane s: the shared src and dst roots and its own negatives
+                q = TpprQueries(*(x[:, blocks].movedim(1, 0) for x in q))
+            if bfs_s is not None:
+                bfs_s.append(time.perf_counter() - t0)
+            _mark(marks, "query")
+        elif per_lane:
+            rows = queries[i * b: (i + 1) * b]
             q = batch_queries(cfg, rows[:, blocks].transpose(0, 1), s.t)
-            n_l = blocks.shape[0]
+        else:
+            q = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
+        if per_lane:
             nodes3 = torch.cat([s.src.expand(n_l, b), s.dst.expand(n_l, b),
                                 s.neg.T], dim=1)
         else:
-            q = batch_queries(cfg, rows, s.t)
             nodes3 = torch.cat([s.src, s.dst, s.neg])
         if train:
             optimizer.zero_grad(set_to_none=True)

@@ -6,7 +6,9 @@
   events/s rate.
 - ``trace_context``: a ``torch.profiler`` trace of a region, with CUDA
   activity where a card is present, exported as a Chrome trace into a
-  directory (``with trace_context("/tmp/trace"): ...``)."""
+  directory (``with trace_context("/tmp/trace"): ...``).
+- ``device_ms``: a call's median device time on the card (CUDA events).
+- ``count_ops``: the aten operations a call enqueues."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 
 class PhaseTimers:
@@ -65,3 +67,56 @@ def trace_context(log_dir: Optional[str]) -> Iterator[None]:
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def device_ms(fn: Callable[[], object], n: int = 100, per_round: int = 100,
+              warmup: int = 10) -> float:
+    """Median device time of ``fn()`` in ms over ``n`` calls (CUDA events).
+    Calls run in rounds of ``per_round``; before each round a spin kernel
+    holds the stream while the round is enqueued, so the events time the
+    device's work and not the host's launch latency. A round must fit the
+    device's queue of pending launches (about a thousand, events included):
+    once it is full the host waits, and the calls after the spin would be
+    timed at the host's enqueue rate."""
+    import numpy as np
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / 10
+    times = []
+    for lo in range(0, n, per_round):
+        m = min(per_round, n - lo)
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(m)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(m)]
+        # ≥ 2 GHz·(2·enqueue time) cycles outlasts the enqueue at any clock
+        torch.cuda._sleep(int(min(2 * m * host_s * 2e9, 2e10)))
+        for s, e in zip(starts, ends):
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        times += [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    return float(np.median(times))
+
+
+def count_ops(fn: Callable[[], object]) -> int:
+    """The aten operations one call of ``fn`` dispatches (each one a
+    launch or a host-side tensor operation)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
