@@ -70,13 +70,32 @@ Phases, in order; any failure exits non-zero:
       b ∈ {1, 32, 256, 2048}, four observe calls of 200 events (ms per
       call), a brand-new edge in the queries after its fold, and
       ``rebuild_every=1000`` deferring the fold until ``flush_index()``;
-11. one ``{"kernels": [...]}`` line;
-12. last line ``{"ok": true, "device": {...}}``.
+11. towers: README's ``--embedding_module graph_attention`` run (n_degree
+    10, n_layer 2, 2 heads, dims 100, bf16 tables, bs 200, lr 1e-4) at
+    full width on a Wikipedia-shaped stream (9,227 nodes, edge_dim 172,
+    120,000 events), with no santa kernel launched in the whole phase:
+    - ``recursive_embed`` on one train batch's 600 roots (66,600 gathered
+      rows) in train and eval mode, graph_attention and graph_sum, on the
+      card and on the CPU from the same params, memory with pending
+      messages and adjacency index; its ms per call;
+    - ``Trainer``: a warm-up and a timed epoch (train events/s), one
+      train batch's device time by CUDA events (the device's busy share of
+      the epoch), ``validate()``, ``test()``, peak memory;
+    - the first 3,000 events replayed on the card and on the CPU at the
+      train phase's bars, and 1,500 with graph_sum, identity and time;
+      lane 1 of ``parallel_runs=2`` against a single-seed Trainer;
+    - ``LinkPredictor.from_trainer`` on the card and on the CPU: score at
+      b ∈ {1, 32, 256, 2048} (ms per call, memory at 2048), four observe
+      calls of 200 events, and a brand-new edge whose id lies past the
+      feature table, observed and scored;
+12. one ``{"kernels": [...]}`` line;
+13. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -89,11 +108,15 @@ import numpy as np
 import torch
 
 from zebra_tpu_torch import build, cli
+from zebra_tpu_torch.config import torch_dtype
 from zebra_tpu_torch.data.dataset import load_feat
 from zebra_tpu_torch.data.preprocess import write_ml
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge, pruning, scan
-from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
+from zebra_tpu_torch.index.neighbor_finder import (
+    build_neighbor_index,
+    most_recent_neighbors,
+)
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
     TpprState,
@@ -104,13 +127,17 @@ from zebra_tpu_torch.index.streaming import (
     row_width,
     streaming_scan,
 )
+from zebra_tpu_torch.models.embedding import recursive_embed
 from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.models.tgn import init_tgn_params
 from zebra_tpu_torch.profile_serve import flagship
 from zebra_tpu_torch.profile_train import (
     bench_stream,
     bfs_roots,
     flagship_training,
     mooc_pruning,
+    train_batch,
+    wikipedia_attention,
 )
 from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
@@ -201,6 +228,17 @@ ENSEMBLE_MEAN_ATOL, ENSEMBLE_MEMBER_ATOL = 1e-6, 1e-5
 BFS_BATCH, BFS_REL, DEDUP_REL = 100, 1e-5, 1e-6
 PRUNE_SEEDS, PRUNE_LANES = 2, (1,)
 PRUNE_OBSERVE_CALLS, PRUNE_OBSERVE_B = 4, 200
+# Towers phase: the repo's TGN attention run on a Wikipedia-shaped stream
+# (profile_train.wikipedia_attention). One train batch's embeddings, card
+# against CPU from the same params, memory and graph: the products'
+# summation order (cuBLAS against the CPU's BLAS) through two hops and, in
+# train mode, the lazy GRU of 66,600 rows, within 1e-4 of the result's
+# largest entry. The replays, the seed lane and the serve leg keep the
+# train, seeds and serve phases' bars; graph_sum, identity and time replay
+# fewer events.
+TOWER_BATCH, TOWER_ATOL = 100, 1e-4
+TOWER_REPLAYS = (("graph_sum", 1500), ("identity", 1500), ("time", 1500))
+TOWER_SEEDS, TOWER_LANES = 2, (1,)
 
 
 def merge_work(rows: torch.Tensor, m: int, k: int):
@@ -643,13 +681,13 @@ def train_phase(card: str):
     return train_end_index
 
 
-def replay_phase(card: str, build=flagship_training, tag: str = "replay"):
-    """The first TRAIN_REPLAY_EVENTS events of ``build``'s configuration
-    and stream at full width, dropout 0, through one ``train_epoch`` and
+def replay_phase(card: str, build=flagship_training, tag: str = "replay",
+                 n_events: int = TRAIN_REPLAY_EVENTS):
+    """The first ``n_events`` events of ``build``'s configuration and
+    stream at full width, dropout 0, through one ``train_epoch`` and
     ``validate()`` on the card and on the CPU; both Trainers draw the same
     params (a CPU generator). The index (streaming) is held bit-equal."""
-    cfg, splits, edge_feats = build(seed=0, n_events=TRAIN_REPLAY_EVENTS,
-                                    dropout=0.0)
+    cfg, splits, edge_feats = build(seed=0, n_events=n_events, dropout=0.0)
     gpu = Trainer(cfg, splits, edge_feats, device="cuda")
     cpu = Trainer(cfg, splits, edge_feats, device="cpu")
     for a, b in zip(gpu.params.parameters(), cpu.params.parameters()):
@@ -676,8 +714,8 @@ def replay_phase(card: str, build=flagship_training, tag: str = "replay"):
         assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
             leg, mem_err, mem_share)
         assert loss_err <= TRAIN_LOSS_ATOL, (leg, loss_err)
-    print(f"{tag} " + json.dumps(dict(events=TRAIN_REPLAY_EVENTS, card=card,
-                                      **out)), flush=True)
+    print(f"{tag} " + json.dumps(dict(events=n_events, card=card, **out)),
+          flush=True)
 
 
 def write_bench_dataset(root: Path, n_events: int) -> None:
@@ -1198,10 +1236,7 @@ def _prune_requests(pred: LinkPredictor, cols, timed: bool):
                 lat.append(time.perf_counter() - t0)
             score_s[b] = float(np.median(lat))
     t_new, e_new = float(ts[-1]) + 100.0, int(eidx.max()) + 1
-    seen = lambda: bool((pred._queries(
-        *(torch.tensor([x], device=pred.device) for x in (src[0], src[0])),
-        torch.tensor([t_new + 1.0], device=pred.device),
-        with_neg=False).eidx[:, 0] == e_new).any())
+    seen = lambda: _sees_edge(pred, src[0], t_new + 1.0, e_new)
     before = seen()
     pred.observe([src[0]], [dst[1]], [t_new], [e_new])
     after = seen()
@@ -1209,6 +1244,18 @@ def _prune_requests(pred: LinkPredictor, cols, timed: bool):
     return scores, (before, after), dict(
         observe_ms=[1e3 * x for x in obs_s],
         score_ms={b: 1e3 * x for b, x in score_s.items()})
+
+
+def _sees_edge(pred: LinkPredictor, node, t: float, e: int) -> bool:
+    """Whether a query of ``node`` at ``t`` reads edge ``e``: among its
+    T-PPR entries (the diffusion tower), or as its newest neighbor (the
+    recursive towers)."""
+    node, t = (torch.tensor([x], device=pred.device) for x in (node, t))
+    if pred.cfg.uses_tppr:
+        q = pred._queries(node, node, t, with_neg=False)
+        return bool((q.eidx[:, 0] == e).any())
+    return bool(most_recent_neighbors(pred.nbr_index, node, t, 1)[1][0, 0]
+                == e)
 
 
 def _cpu_twin(trainer: Trainer, rebuild_every: int = 1) -> LinkPredictor:
@@ -1293,6 +1340,209 @@ def prune_phase(card: str):
           "santa_merge and 0 santa_scan launches", flush=True)
 
 
+def _pending_memory(cfg, t_max: float, seed: int) -> MemoryState:
+    """Memory tables of ``cfg`` on the CPU, in its storage dtypes, drawn
+    from ``seed``: rows in ±0.5, last updates and message times before
+    ``t_max``, a pending message on about half the rows."""
+    g = torch.Generator().manual_seed(seed)
+    n = cfg.n_nodes
+    u = lambda *shape: torch.rand(shape, generator=g)
+    msgs = u(n, cfg.msg_table_dim + 1) - 0.5
+    msgs[:, -1] = (u(n) < 0.5).float()
+    return MemoryState(
+        memory=(u(n, cfg.memory_dim) - 0.5).to(torch_dtype(cfg.memory_dtype)),
+        last_update=u(n) * t_max / 2,
+        messages=msgs.to(torch_dtype(cfg.message_dtype)),
+        msg_ts=t_max / 2 + u(n) * t_max / 2,
+        msg_count=msgs[:, -1].clone())
+
+
+def towers_embed(trainer: Trainer, card: str):
+    """``recursive_embed`` on the 600 roots of train batch TOWER_BATCH, in
+    train and eval mode, for graph_attention and graph_sum, on the card and
+    on the CPU from the same params, memory and train graph."""
+    cfg = trainer.cfg
+    blocks, t = bfs_roots(trainer, TOWER_BATCH)
+    roots, times = torch.cat(blocks), t.repeat(len(blocks))
+    tr = trainer.splits.train
+    cpu_index = build_neighbor_index(tr.sources, tr.destinations,
+                                     tr.timestamps, tr.edge_idxs,
+                                     cfg.n_nodes, "cpu")
+    mem = _pending_memory(cfg, float(t.min()), seed=1)
+    gpu_mem = MemoryState(*(x.cuda() for x in mem))
+    out = {}
+    for tower in ("graph_attention", "graph_sum"):
+        tcfg = cfg.replace(embedding_module=tower)
+        params = init_tgn_params(tcfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        gpu_params = init_tgn_params(tcfg, torch.Generator().manual_seed(0),
+                                     "cuda")
+        for train in (True, False):
+            call = lambda p, m, ef, idx, r, tm: recursive_embed(
+                tcfg, p, m, ef, idx, r, tm, train)
+            with torch.no_grad():
+                got = call(gpu_params, gpu_mem, trainer.edge_feats,
+                           trainer.train_nbr_index, roots, times)
+                want = call(params, mem, trainer.edge_feats.cpu(), cpu_index,
+                            roots.cpu(), times.cpu())
+                ms = device_ms(lambda: call(
+                    gpu_params, gpu_mem, trainer.edge_feats,
+                    trainer.train_nbr_index, roots, times), n=10, per_round=5)
+            assert got.shape == want.shape == (roots.shape[0], cfg.node_dim)
+            assert torch.isfinite(got).all()
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got.cpu() - want).abs().max())
+            assert err <= TOWER_ATOL * scale, (tower, train, err, scale)
+            mode = "train" if train else "eval"
+            out[f"{tower}_{mode}"] = dict(ms=ms, max_abs_err=err,
+                                         max_abs=scale)
+            print(f"towers {tower} {mode}: {ms:.4f} ms per call on the "
+                  f"device, max abs err {err:.3g} against the CPU  ({card})",
+                  flush=True)
+    print("towers embed " + json.dumps(dict(
+        roots=int(roots.shape[0]), gathered_rows=int(roots.shape[0]) * sum(
+            cfg.n_degree ** h for h in range(cfg.n_layer + 1)),
+        n_degree=cfg.n_degree, n_layer=cfg.n_layer, card=card, **out)),
+        flush=True)
+
+
+def towers_train(trainer: Trainer, card: str):
+    """A warm-up and a timed epoch, ``validate()``, ``test()``, then one
+    train batch's device time (CUDA events with the stream held, so the
+    host's enqueue is not timed; every batch runs the same kernels on the
+    same shapes). The device's busy share of the epoch is the batches'
+    device time over the epoch's seconds. (A ``torch.profiler`` trace of a
+    whole epoch holds millions of events; reading them back took longer
+    than the phase, and the host ran slower while they were alive.)"""
+    n_train = trainer.splits.train.n_interactions
+    epochs = []
+    for e in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        batches = int(r.per_batch.shape[0])
+        assert np.isfinite(r.per_batch).all() and r.waves == 0, e
+        print(f"towers train epoch {e}{' (warm-up)' if e == 1 else ''}: "
+              f"{s:.3f} s, {n_train / s:.1f} train events/s ({batches} "
+              f"batches), {_metrics(r)}  ({card})", flush=True)
+        epochs.append(dict(seconds=s, events_per_s=n_train / s,
+                           batches=batches, loss=r.loss, ap=r.ap, auc=r.auc,
+                           acc=r.acc))
+    t0 = time.perf_counter()
+    val, nn_val = trainer.validate()
+    test, nn_test = trainer.test()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    # after the eval phases, since each timed call is a train step; one
+    # batch is about 620 launches, so a round of one fits the queue
+    batch_ms = device_ms(train_batch(trainer, batches // 2), n=10,
+                         per_round=1)
+    busy_s = batches * batch_ms / 1e3
+    phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
+    for name, r in phases.items():
+        print(f"towers {name:8s} {r.seconds:.3f} s, {_metrics(r)}  ({card})",
+              flush=True)
+        assert r.waves == 0 and np.isfinite(r.per_batch).all(), name
+    assert trainer.index_state is None and trainer.index_waves == 0
+    assert epochs[1]["ap"] > 0.5 and val.ap > 0.5 and test.ap > 0.5, (
+        epochs[1]["ap"], val.ap, test.ap)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = dict(train_events=n_train, n_nodes=trainer.cfg.n_nodes,
+               arena_slots=int(trainer.full_nbr_index.ts.shape[0]),
+               max_degree=trainer.full_nbr_index.max_degree, epochs=epochs,
+               device_ms_per_batch=batch_ms, device_busy_s=busy_s,
+               device_busy_share_of_epoch=busy_s / epochs[1]["seconds"],
+               eval_s=eval_s,
+               phases={k: dict(seconds=r.seconds, ap=r.ap, auc=r.auc,
+                               acc=r.acc) for k, r in phases.items()},
+               peak_device_gib=peak, card=card)
+    print(f"towers train: {batch_ms:.3f} ms of device time per batch, "
+          f"device busy {busy_s:.3f} s per epoch, "
+          f"{100 * busy_s / epochs[1]['seconds']:.1f}% of the timed epoch; "
+          f"peak device memory {peak:.3f} GiB  ({card})", flush=True)
+    print("towers train " + json.dumps(res), flush=True)
+
+
+def towers_serve(trainer: Trainer, card: str):
+    """``LinkPredictor.from_trainer`` over the tower Trainer, and the same
+    predictor on the CPU: the serve leg's calls on both (its brand-new edge
+    id lies past the feature table), compared; peak memory of a score call
+    at b = 2048."""
+    te = trainer.splits.test
+    cols = (te.sources, te.destinations, te.timestamps.astype(np.float32),
+            te.edge_idxs)
+    gpu, cpu = LinkPredictor.from_trainer(trainer), _cpu_twin(trainer)
+    assert int(cols[3].max()) + 1 >= trainer.edge_feats.shape[0]
+    gs, g_seen, timing = _prune_requests(gpu, cols, timed=True)
+    cs, c_seen, _ = _prune_requests(cpu, cols, timed=False)
+    assert g_seen == c_seen == (False, True), (g_seen, c_seen)
+    score_err = max(float(np.abs(gs[b] - cs[b]).max()) for b in gs)
+    assert score_err <= SCORE_ATOL, score_err
+    for b in SCORE_BS:
+        assert gs[b].shape == (b,) and np.isfinite(gs[b]).all(), b
+    diff = (gpu.mem.memory.cpu().float() - cpu.mem.memory.float()).abs()
+    mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
+    assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
+        mem_err, mem_share)
+    assert torch.equal(gpu.mem.last_update.cpu(), cpu.mem.last_update)
+    b = SCORE_BS[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gpu.score(cols[0][:b], cols[1][:b], cols[2][-1] + np.zeros(b, np.float32))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    for b in SCORE_BS:
+        print(f"towers serve score b={b:5d}: {timing['score_ms'][b]:.3f} "
+              f"ms/call  ({card})", flush=True)
+    print("towers serve observe b=200: " + ", ".join(
+        f"{x:.3f}" for x in timing["observe_ms"]) + f" ms/call; score at "
+        f"b=2048 takes {peak:.3f} GiB above the state  ({card})", flush=True)
+    res = dict(score_max_abs_err=score_err, memory_max_abs_err=mem_err,
+               memory_diff_share=mem_share, new_edge_seen=list(g_seen),
+               new_edge_past_the_table=True, score_2048_peak_gib=peak,
+               **timing, card=card)
+    print("towers serve " + json.dumps(res), flush=True)
+
+
+def towers_phase(card: str):
+    """The towers other than diffusion (module docstring, phase 11); fails
+    if a santa kernel launched during it."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    cfg, splits, edge_feats = wikipedia_attention(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    print(f"towers: Trainer built in {time.perf_counter() - t0:.3f} s "
+          f"({splits.full.n_interactions} events, {trainer.cfg.n_nodes} "
+          "rows)", flush=True)
+    steps = [("embed", lambda: towers_embed(trainer, card)),
+             ("train", lambda: towers_train(trainer, card)),
+             ("serve", lambda: towers_serve(trainer, card)),
+             ("replay", lambda: replay_phase(
+                 card, build=wikipedia_attention, tag="towers replay"))]
+    steps += [(f"replay {tower}", lambda tower=tower, n=n: replay_phase(
+        card, build=functools.partial(wikipedia_attention,
+                                      embedding_module=tower),
+        tag=f"towers replay {tower}", n_events=n))
+        for tower, n in TOWER_REPLAYS]
+    steps.append(("seeds", lambda: seeds_replay(
+        card, build=wikipedia_attention, n_seeds=TOWER_SEEDS,
+        lanes=TOWER_LANES, tag="towers seeds replay")))
+    for name, step in steps:
+        t1 = time.perf_counter()
+        step()
+        print(f"towers: {name} took {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    del trainer
+    assert merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches == 0, (
+        merge.SANTA_MERGE.launches, scan.SANTA_SCAN.launches)
+    print(f"towers: phase took {time.perf_counter() - t0:.1f} s, 0 "
+          "santa_merge and 0 santa_scan launches", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -1329,6 +1579,7 @@ def main() -> int:
     merge_launches = fit_phase(card)
     seed_merges, seed_scans, seed_merge = seeds_phase(card, single_index)
     prune_phase(card)
+    towers_phase(card)
 
     def entry(name, results, main, launches):
         return dict(

@@ -90,7 +90,7 @@ def test_cli_n_runs_use_consecutive_seeds(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--parallel_runs", "2",
                                    "--fused_dispatch"],
-                                  ["--embedding_module", "identity"]])
+                                  ["--interleave_node_ids"]])
 def test_cli_refuses_what_the_port_cannot_run(tmp_path, flag):
     with pytest.raises(ValueError, match=flag[0][2:]):
         cli.main(_argv(tmp_path, "toy", *flag))

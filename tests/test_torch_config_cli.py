@@ -69,11 +69,16 @@ RUN_NAMES = [
     dict(data="toy", enable_random=True, n_layer=1, lr=3e-3),
     dict(data="mooc", tppr_strategy="pruning", n_degree=10, n_layer=2,
          topk=20, alpha_list=(0.1, 0.1), beta_list=(0.5, 0.95)),
-]
+] + [dict(data="wikipedia", embedding_module=tower, n_degree=10, n_layer=2,
+          tppr_strategy=strategy)
+     for tower, strategy in (("graph_attention", "streaming"),
+                             ("graph_sum", "pruning"),
+                             ("identity", "streaming"), ("time", "pruning"))]
 
 
-@pytest.mark.parametrize("kw", RUN_NAMES, ids=["default", "flagship",
-                                                "random", "pruning"])
+@pytest.mark.parametrize("kw", RUN_NAMES, ids=[
+    "default", "flagship", "random", "pruning", "graph_attention",
+    "graph_sum", "identity", "time"])
 def test_run_name_matches_jax(kw):
     assert Config(**kw).run_name() == JaxConfig(**kw).run_name()
 
@@ -93,6 +98,9 @@ DIFFS = {
     "parallel_lr": dict(parallel_runs=2, parallel_lr=(1e-3, 3e-4)),
     # the BFS's width and depth shape no state: only the strategy differs
     "strategy": dict(tppr_strategy="pruning", n_degree=5, n_layer=3),
+    # a recursive tower holds a layer per hop: n_layer counts there
+    "recursive_tower": dict(embedding_module="graph_sum", n_layer=3),
+    "memory_only_tower": dict(embedding_module="identity", n_layer=3),
 }
 
 
@@ -108,8 +116,8 @@ def test_state_compat_diff_matches_jax(change):
 OUTSIDE = [
     (["--parallel_runs", "2", "--fused_dispatch"], "parallel_runs"),
     (["--parallel_lr", "1e-3", "1e-4"], "parallel_lr"),
-    (["--embedding_module", "time"], "embedding_module='time'"),
-    (["--embedding_module", "graph_sum"], "embedding_module"),
+    (["--embedding_module", "graph_attention", "--n_head", "3"], "n_head"),
+    (["--memory_dim", "64"], "memory_dim"),
     (["--aggregator", "mean"], "aggregator"),
     (["--message_function", "mlp"], "message_function"),
     (["--use_source_embedding_in_message"], "use_source_embedding_in_message"),

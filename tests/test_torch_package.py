@@ -136,8 +136,8 @@ def test_ids_past_f32_width_raise(call):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("embedding_module", "graph_sum"),
-    ("embedding_module", "graph_attention"),
+    ("debug_nans", True),
+    ("host_backup", True),
     ("aggregator", "mean"),
     ("message_function", "mlp"),
     ("use_source_embedding_in_message", True),
@@ -151,6 +151,17 @@ def test_ids_past_f32_width_raise(call):
 def test_config_refuses_values_outside_the_slice(field, value):
     with pytest.raises(ValueError, match=field):
         Config.from_dict(dataclasses.asdict(JaxConfig(**{field: value})))
+
+
+@pytest.mark.parametrize("tower", ["graph_attention", "graph_sum",
+                                   "identity", "time"])
+def test_config_accepts_the_towers(tower):
+    jcfg = JaxConfig(embedding_module=tower, alpha_list=(0.1, 0.1),
+                     beta_list=(0.05, 0.95))
+    cfg = Config.from_dict(dataclasses.asdict(jcfg))
+    assert cfg.hidden_dim == jcfg.hidden_dim == cfg.node_dim
+    assert cfg.needs_adjacency == jcfg.needs_adjacency
+    assert not cfg.uses_tppr and not cfg.keeps_tppr_index
 
 
 def test_config_from_jax_dict_keeps_fields_and_derived_widths():

@@ -12,8 +12,9 @@ CUDA tensor every hand-written kernel launches (the SANTA merge,
 ``csrc/santa_merge.cu`` and ``csrc/santa_scan.cu``), and on a CPU tensor its
 plain PyTorch version runs.
 
-Ported so far, for the streaming strategy, the diffusion tower, the GRU/RNN
-updater and the ``last`` aggregator, one seed on one device: the training
+Ported so far, for the streaming and pruning strategies, every tower
+(diffusion, graph_attention, graph_sum, identity, time), the GRU/RNN
+updater and the ``last`` aggregator, S seeds on one device: the training
 run (``python -m zebra_tpu_torch.train``, :mod:`.cli`;
 ``train.loop.Trainer``: ``fit`` with early stopping and state files,
 ``train_epoch``, ``validate``, ``test``; ``train.node_classification``),

@@ -4,8 +4,12 @@ numpy (the port never imports JAX).
 - params: a numpy pytree ``{"fc1": {"w", "b"}, ..., "cell": {"w_ih", ...}}``
   (``jax.tree.map(np.asarray, params)``) ↔ the port's ``nn.ModuleDict``,
   also into a port ``Trainer`` (:func:`load_trainer_params`), whose
-  ``params`` come back through :func:`params_to_numpy`. A seed-parallel
-  tree carries a leading [S] axis on every leaf, and crosses as it is;
+  ``params`` come back through :func:`params_to_numpy`. JAX's per-layer
+  lists (``attn``, ``sum_fc1``, ``sum_fc2``) become one port name per layer
+  (``attn_0`` …) and its nested MergeLayer dicts (``merge_fc1: {w, b}``)
+  leaves ``merge_fc1_w``, ``merge_fc1_b``; the way back restores JAX's
+  tree. A seed-parallel tree carries a leading [S] axis on every leaf, and
+  crosses as it is;
 - memory: any object with ``MemoryState``'s five fields ↔ the port's
   ``MemoryState``; a seed-parallel run's tables are [S, N, ...] (the JAX
   Trainer's and ``EnsemblePredictor``'s layout), and the port Trainer's
@@ -54,14 +58,39 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Mapping[str, Mapping[str, Any]],
-                      device=None) -> nn.ModuleDict:
+# JAX's per-layer parameter lists, and the nested dicts inside a layer
+LISTED = ("attn", "sum_fc1", "sum_fc2")
+NESTED = ("merge_fc1", "merge_fc2")
+
+
+def _flat_layer(layer: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX layer dict → one level: ``{"merge_fc1": {"w": …}}`` →
+    ``{"merge_fc1_w": …}``."""
+    out = {}
+    for key, v in layer.items():
+        if isinstance(v, Mapping):
+            out.update({f"{key}_{k}": x for k, x in v.items()})
+        else:
+            out[key] = v
+    return out
+
+
+def params_from_numpy(tree: Mapping[str, Any], device=None) -> nn.ModuleDict:
+    """A JAX parameter tree of numpy arrays → the port's tree on
+    ``device``."""
     dev = resolve_device(device)
+    layers = {}
+    for name, v in tree.items():
+        if isinstance(v, (list, tuple)):
+            layers.update({f"{name}_{l}": _flat_layer(x)
+                           for l, x in enumerate(v)})
+        else:
+            layers[name] = _flat_layer(v)
     return nn.ModuleDict({
         name: nn.ParameterDict({
             key: to_tensor(v, dev, torch.float32) for key, v in layer.items()
         })
-        for name, layer in tree.items()
+        for name, layer in layers.items()
     }).requires_grad_(False)
 
 
@@ -72,11 +101,24 @@ def load_trainer_params(trainer, tree: Mapping[str, Mapping[str, Any]]) -> None:
     trainer.set_params(params_from_numpy(tree, trainer.device))
 
 
-def params_to_numpy(params: nn.ModuleDict) -> Dict[str, Dict[str, np.ndarray]]:
-    return {
-        name: {key: to_numpy(v) for key, v in layer.items()}
-        for name, layer in params.items()
-    }
+def params_to_numpy(params: nn.ModuleDict) -> Dict[str, Any]:
+    """The port's tree → numpy arrays in JAX's layout (per-layer lists,
+    nested MergeLayer dicts)."""
+    tree: Dict[str, Any] = {}
+    for name, layer in params.items():
+        leaves: Dict[str, Any] = {}
+        for key, v in layer.items():
+            nest = next((n for n in NESTED if key.startswith(n + "_")), None)
+            if nest is None:
+                leaves[key] = to_numpy(v)
+            else:
+                leaves.setdefault(nest, {})[key[len(nest) + 1:]] = to_numpy(v)
+        base, _, l = name.rpartition("_")
+        if base in LISTED and l.isdigit():
+            tree.setdefault(base, []).append(leaves)   # layers in order
+        else:
+            tree[name] = leaves
+    return tree
 
 
 def memory_from_numpy(mem, cfg: Config, device=None) -> MemoryState:

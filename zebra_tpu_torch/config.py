@@ -17,6 +17,9 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the embedding modules of the JAX package, all ported
+TOWERS = ("diffusion", "graph_attention", "graph_sum", "identity", "time")
+RECURSIVE = ("graph_attention", "graph_sum")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -41,8 +44,9 @@ class Config:
     topk: int = 10
     alpha_list: Sequence[float] = (0.1,)
     beta_list: Sequence[float] = (0.9,)
-    n_degree: int = 10               # pruning strategy: the BFS's width
-    n_layer: int = 2                 # and depth
+    n_degree: int = 10               # the pruning BFS's width and depth,
+    n_layer: int = 2                 # and the recursive towers' (neighbors
+                                     # per hop, hops)
 
     # ---- towers ----
     embedding_module: str = "diffusion"
@@ -152,7 +156,7 @@ class Config:
         outside = {
             "tppr_strategy": self.tppr_strategy not in ("streaming",
                                                         "pruning"),
-            "embedding_module": self.embedding_module != "diffusion",
+            "embedding_module": self.embedding_module not in TOWERS,
             "aggregator": self.aggregator != "last",
             "message_function": self.message_function != "identity",
             "use_source_embedding_in_message":
@@ -182,10 +186,21 @@ class Config:
         if bad:
             raise ValueError(
                 "outside the ported slice (streaming and pruning "
-                "strategies, diffusion tower, last aggregator, identity "
+                "strategies, the diffusion, graph_attention, graph_sum, "
+                "identity and time towers, last aggregator, identity "
                 "messages, per-position lazy updates, the hand-written merge "
                 "kernel, one device in one process): " + ", ".join(bad)
             )
+        if self.node_dim != self.memory_dim:
+            raise ValueError(
+                f"node_dim={self.node_dim} must equal memory_dim="
+                f"{self.memory_dim}: every tower feeds memory rows as node "
+                "representations")
+        q_dim = self.node_dim + self.time_dim
+        if self.embedding_module == "graph_attention" and q_dim % self.n_head:
+            raise ValueError(
+                f"n_head={self.n_head} must divide the attention query width "
+                f"node_dim + time_dim = {q_dim}")
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "Config":
@@ -204,8 +219,11 @@ class Config:
 
     @property
     def hidden_dim(self) -> int:
-        """Link-head input width: node_dim per member plus the source tower."""
-        return self.node_dim * (self.n_tppr + 1)
+        """Link-head input width: for the diffusion tower node_dim per
+        member plus the source tower, for every other tower node_dim."""
+        if self.embedding_module == "diffusion":
+            return self.node_dim * (self.n_tppr + 1)
+        return self.node_dim
 
     @property
     def message_dim(self) -> int:
@@ -243,8 +261,21 @@ class Config:
         pruning strategy's bounded BFS and the recursive towers both do
         (``zebra_tpu/config.py:needs_adjacency``). Shared by the Trainer and
         ``LinkPredictor.from_checkpoint`` so the two cannot disagree."""
-        return self.tppr_strategy == "pruning" or self.embedding_module in (
-            "graph_attention", "graph_sum")
+        return (self.tppr_strategy == "pruning"
+                or self.embedding_module in RECURSIVE)
+
+    @property
+    def uses_tppr(self) -> bool:
+        """Whether the tower reads T-PPR queries: only diffusion does. The
+        other towers read memory rows, and the recursive ones the adjacency
+        index, under either strategy."""
+        return self.embedding_module == "diffusion"
+
+    @property
+    def keeps_tppr_index(self) -> bool:
+        """Whether a T-PPR index state and its wave scans exist: the
+        diffusion tower under the streaming strategy."""
+        return self.uses_tppr and self.tppr_strategy == "streaming"
 
     # Fields that shape or give meaning to a ``save_state`` checkpoint: a
     # restore across a change of any of them would mis-shape the state or
@@ -266,8 +297,8 @@ class Config:
     def state_compat_diff(cls, saved: "Config", live: "Config") -> List[str]:
         """Field-level diff of the state-shaping fields between a
         checkpoint's config and the live one, in the JAX package's wording;
-        empty = compatible. (Its n_layer line concerns the recursive towers,
-        which this slice refuses.)"""
+        empty = compatible. ``n_layer`` counts where a recursive tower is
+        involved, whose parameters hold one layer per hop."""
         diffs = []
         for name in cls.STATE_FIELDS:
             sv, lv = getattr(saved, name), getattr(live, name)
@@ -275,6 +306,11 @@ class Config:
                 sv, lv = max(1, int(sv)), max(1, int(lv))
             if sv != lv:
                 diffs.append(f"{name}: checkpoint={sv!r} vs live={lv!r}")
+        if (saved.embedding_module in RECURSIVE
+                or live.embedding_module in RECURSIVE):
+            if saved.n_layer != live.n_layer:
+                diffs.append(f"n_layer: checkpoint={saved.n_layer!r} vs "
+                             f"live={live.n_layer!r}")
         if (saved.parallel_lr is None) != (live.parallel_lr is None):
             diffs.append(
                 f"parallel_lr: checkpoint "

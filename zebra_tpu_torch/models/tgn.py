@@ -9,12 +9,18 @@ in train mode.
 - the MergeLayer link head.
 
 Parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s with the JAX
-pytree's keys (``affinity_fc1/2``, ``cell``, ``fc1``, ``fc2``, ``fc1_src``,
-``fc2_src``) and JAX's [in, out] weight layout, so ``params["fc1"]["w"]``
-reads like the JAX code and :mod:`zebra_tpu_torch.bridge` copies weights
-across one to one. Init follows the JAX distributions: Xavier-normal
-tower/head weights, U(±1/√in) biases, U(±1/√H) cell parameters; the numbers
-differ because the generators differ. Dropout masks are drawn from an
+pytree's keys (``affinity_fc1/2``, ``cell``, and the diffusion tower's
+``fc1``, ``fc2``, ``fc1_src``, ``fc2_src``) and JAX's [in, out] weight
+layout, so ``params["fc1"]["w"]`` reads like the JAX code. The tree is two
+levels deep: the other towers' per-layer lists are flattened to one name
+per layer (``attn_0``, ``sum_fc1_0``, ``sum_fc2_0`` …) and the attention
+layer's MergeLayer to leaves ``merge_fc1_w`` …; ``time_proj`` keeps its
+name. :mod:`zebra_tpu_torch.bridge` carries weights across to and from
+JAX's tree. Init follows the JAX distributions: Xavier-normal
+tower/head weights, U(±1/√in) biases, U(±1/√H) cell parameters, the
+attention and sum layers' and the time projection's laws of
+``zebra_tpu/models/tgn.py``; the numbers differ because the generators
+differ. Dropout masks are drawn from an
 explicit ``torch.Generator`` on the activations' device; they cannot equal
 JAX's ``rbg`` masks, so comparisons with JAX run with dropout 0.
 
@@ -31,43 +37,77 @@ from torch import nn
 
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.models.attention import attention_layer_init
 from zebra_tpu_torch.models.cells import CELLS, add_bias, matmul
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
 
 
-def _linear_init(generator: torch.Generator, d_in: int,
-                 d_out: int) -> nn.ParameterDict:
-    std = (2.0 / (d_in + d_out)) ** 0.5
+def _linear_init(generator: torch.Generator, d_in: int, d_out: int,
+                 xavier: bool = True) -> nn.ParameterDict:
+    """Xavier-normal weight (torch Linear's U(±1/√in) when not ``xavier``)
+    and a U(±1/√in) bias."""
     bound = 1.0 / d_in ** 0.5
-    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
-                    device=generator.device) * std
+    dev = generator.device
+    if xavier:
+        std = (2.0 / (d_in + d_out)) ** 0.5
+        w = torch.randn((d_in, d_out), generator=generator,
+                        dtype=torch.float32, device=dev) * std
+    else:
+        w = torch.rand((d_in, d_out), generator=generator,
+                       dtype=torch.float32, device=dev) * (2 * bound) - bound
     u = torch.rand((d_out,), generator=generator, dtype=torch.float32,
-                   device=generator.device)
+                   device=dev)
     return nn.ParameterDict({"w": w, "b": u * (2 * bound) - bound})
+
+
+def _tower_init(cfg: Config, generator: torch.Generator) -> dict:
+    """The parameters of a tower other than diffusion: one attention or
+    sum layer per hop, the time projection, or none (identity)."""
+    d, em = cfg.node_dim, cfg.embedding_module
+    nbr_in = d + cfg.time_dim + cfg.edge_dim
+    layers = range(cfg.n_layer)
+    if em == "graph_attention":
+        return {f"attn_{l}": attention_layer_init(
+            generator, d, cfg.edge_dim, cfg.time_dim, cfg.n_head)
+            for l in layers}
+    if em == "graph_sum":
+        return {**{f"sum_fc1_{l}": _linear_init(generator, nbr_in, d, False)
+                   for l in layers},
+                **{f"sum_fc2_{l}": _linear_init(
+                    generator, 2 * d + cfg.time_dim, d, False)
+                   for l in layers}}
+    if em == "time":
+        # JODIE's NormalLinear(1, D): weight and bias ~ N(0, 1/√D)
+        std = 1.0 / d ** 0.5
+        draw = lambda *shape: torch.randn(shape, generator=generator,
+                                          device=generator.device) * std
+        return {"time_proj": nn.ParameterDict({"w": draw(1, d),
+                                               "b": draw(d)})}
+    return {}
 
 
 def init_tgn_params(cfg: Config, generator: torch.Generator,
                     device=None) -> nn.ModuleDict:
     """Random parameters for ``cfg`` drawn from ``generator`` (on its own
     device, so a seed gives the same weights whatever ``device`` is), then
-    placed on ``device``."""
-    if cfg.node_dim != cfg.memory_dim:
-        raise ValueError("the towers feed memory rows as node "
-                         "representations: node_dim must equal memory_dim")
+    placed on ``device``. The link head is sized by ``cfg.hidden_dim``."""
     dev = resolve_device(device)
     d = cfg.node_dim
     h = cfg.hidden_dim
     cell_init, _ = CELLS[cfg.memory_updater]
-    params = nn.ModuleDict({
-        "fc1": _linear_init(generator, d + cfg.time_dim + cfg.edge_dim, d),
-        "fc2": _linear_init(generator, d, d),
-        "fc1_src": _linear_init(generator, d, d),
-        "fc2_src": _linear_init(generator, d, d),
-        "affinity_fc1": _linear_init(generator, 2 * h, h),
-        "affinity_fc2": _linear_init(generator, h, 1),
-        "cell": cell_init(generator, cfg.cell_input_dim, cfg.memory_dim),
-    })
-    return params.to(dev).requires_grad_(False)
+    params = {}
+    if cfg.embedding_module == "diffusion":
+        params.update(
+            fc1=_linear_init(generator, d + cfg.time_dim + cfg.edge_dim, d),
+            fc2=_linear_init(generator, d, d),
+            fc1_src=_linear_init(generator, d, d),
+            fc2_src=_linear_init(generator, d, d))
+    params.update(
+        affinity_fc1=_linear_init(generator, 2 * h, h),
+        affinity_fc2=_linear_init(generator, h, 1),
+        cell=cell_init(generator, cfg.cell_input_dim, cfg.memory_dim))
+    params.update(_tower_init(cfg, generator))
+    return nn.ModuleDict(params).to(dev).requires_grad_(False)
 
 
 def init_seed_params(cfg: Config, device=None) -> nn.ModuleDict:
@@ -97,8 +137,9 @@ def lane_params(params, s: int):
 
 
 def params_from_state_dict(state) -> nn.ModuleDict:
-    """A parameter tree from a ``state_dict()`` (keys ``"fc1.w"`` …), with
-    the shapes the state holds: single-seed or stacked."""
+    """A parameter tree from a ``state_dict()`` (keys ``"fc1.w"``,
+    ``"attn_0.merge_fc1_w"`` …), with the shapes the state holds:
+    single-seed or stacked."""
     tree: dict = {}
     for key, v in state.items():
         name, leaf = key.split(".")

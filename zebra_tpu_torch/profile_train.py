@@ -2,26 +2,34 @@
 
     python3 -m zebra_tpu_torch.profile_train [--parallel_runs S]
         [--tppr_strategy pruning [--n_degree W] [--n_layer D]]
+        [--embedding_module graph_attention|graph_sum|identity|time]
 
 Builds the flagship training configuration at full width on the bench
 stream (the one ``chip_smoke.py`` trains), or with ``--tppr_strategy
 pruning`` the MOOC pruning run on its MOOC-shaped stream
 (:func:`mooc_pruning`, BFS width ``--n_degree`` and depth ``--n_layer``),
-with S seeds in one pass when ``--parallel_runs`` is given, runs a warm-up
-epoch, then:
+or with ``--embedding_module`` the Wikipedia TGN run of that tower on its
+Wikipedia-shaped stream (:func:`wikipedia_attention`, neighbors per hop
+``--n_degree``, hops ``--n_layer``), with S seeds in one pass when
+``--parallel_runs`` is given, runs a warm-up epoch, then:
 - one epoch with CUDA events between its parts, read after the epoch: the
-  device timeline split into the index wave loop ("index", streaming) or
-  the batches' BFS calls ("query", pruning), the towers' forward with the
-  loss ("forward"), "backward", "adam", the memory protocol ("protocol")
-  and the per-batch metrics ("metrics"), each the sum of the gaps that end
-  at its marks. Where the host enqueues slower than the device runs, a gap
+  device timeline split into the index wave loop ("index", streaming
+  diffusion) or the batches' BFS calls ("query", pruning diffusion), the
+  towers' forward with the loss ("forward": for the recursive towers the
+  neighbor lookups, the lazy GRU over every gathered row and the attention
+  or sum layers), "backward", "adam", the memory protocol ("protocol") and
+  the per-batch metrics ("metrics"), each the sum of the gaps that end at
+  its marks. Where the host enqueues slower than the device runs, a gap
   is the host's enqueue time of that part;
 - one epoch without events, for the epoch's seconds (and, under pruning,
   the BFS calls' host time per batch);
 - one epoch under ``torch.profiler``: the device-busy share and the
   kernels that take the device time;
 - under pruning, one train batch's BFS alone: its device time (CUDA
-  events) and the aten operations it enqueues.
+  events) and the aten operations it enqueues; for a recursive tower, one
+  train batch's neighbor lookups (one per hop) alone: their host time,
+  their device time and their aten operations; for any tower but
+  diffusion, the aten operations of one whole train batch.
 Prints one JSON line; train events/s count every seed's events. Needs a
 CUDA device."""
 
@@ -37,13 +45,21 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge
+from zebra_tpu_torch.index.neighbor_finder import most_recent_neighbors
 from zebra_tpu_torch.profile_serve import device_ops
 from zebra_tpu_torch.train.loop import Trainer
-from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
+from zebra_tpu_torch.train.phase import (
+    Stream,
+    ensemble_tensors,
+    pruned_queries,
+    run_phase,
+)
 from zebra_tpu_torch.utils.profiling import count_ops, device_ms
 
 # MOOC (BASELINE.md:66): 7,144 nodes, 411,749 events, 4 edge features
 MOOC_USERS, MOOC_ITEMS = 7047, 97
+# Wikipedia (BASELINE.md:67): 9,227 nodes, 157,474 events, 172 edge features
+WIKI_USERS, WIKI_PAGES = 8227, 1000
 
 
 def bench_stream(seed: int = 0):
@@ -90,6 +106,63 @@ def mooc_pruning(seed: int = 0, n_events: int = 120_000, **overrides):
     return cfg, splits, edge_feats
 
 
+def wikipedia_attention(seed: int = 0, n_events: int = 120_000,
+                        **overrides):
+    """The repo's TGN attention run, ``python train.py -d wikipedia
+    --embedding_module graph_attention`` (README.md:44-45), at the JAX
+    package's defaults: graph_attention with n_degree 10, n_layer 2 and
+    n_head 2, dims 100, GRU, ``last`` aggregator, identity messages, bf16
+    tables, bs 200, lr 1e-4; on a Wikipedia-shaped synthetic stream, 8,227
+    users × 1,000 pages (Wikipedia's 9,227 nodes), edge_dim 172, cut from
+    Wikipedia's 157,474 events to the first ``n_events``. Returns (cfg,
+    splits, edge_feats) on the host; ``overrides`` replace config fields
+    (another tower, say)."""
+    data, edge_feats = synthetic_stream(n_events, WIKI_USERS, WIKI_PAGES,
+                                        edge_dim=172, seed=seed)
+    cfg = Config(**{**dict(embedding_module="graph_attention", seed=seed),
+                    **overrides})
+    splits = split_data(data.sources, data.destinations, data.timestamps,
+                        data.edge_idxs, data.labels)
+    return cfg, splits, edge_feats
+
+
+def tower_lookups(trainer: Trainer, i: int = 0):
+    """A call that runs the recursive tower's neighbor lookups of train
+    batch ``i`` as its forward does: one ``most_recent_neighbors`` per hop,
+    over the batch's roots [src, dst, neg_s] of every seed lane (epoch 0's
+    negatives), then over the neighbors found, at their edge times."""
+    cfg = trainer.cfg
+    (src, dst, *negs), t = bfs_roots(trainer, i)
+    roots = torch.cat([torch.cat([src, dst, neg]) for neg in negs])
+    times = t.repeat(3 * len(negs))
+    index = trainer.train_nbr_index
+
+    def call():
+        nodes, cuts = roots, times
+        for _ in range(cfg.n_layer):
+            nbr, _, nts, _, _ = most_recent_neighbors(index, nodes, cuts,
+                                                      cfg.n_degree)
+            nodes, cuts = nbr.reshape(-1), nts.reshape(-1)
+        return nodes
+
+    return call
+
+
+def train_batch(trainer: Trainer, i: int = 0):
+    """A call that runs train batch ``i`` through ``run_phase`` on the
+    trainer's state (an Adam step and the memory protocol included)."""
+    b = trainer.cfg.bs
+    ps = trainer._streams["train"]
+    negs = trainer._draw_train_negs(0)
+    negs = torch.from_numpy(negs.T.copy() if negs.ndim == 2 else negs)
+    stream = ps.stream._replace(neg=negs.to(trainer.device))
+    s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+    return lambda: run_phase(
+        trainer.cfg, True, trainer.params, trainer.optimizer, trainer.mem,
+        trainer.edge_feats, s, None, [b], trainer._dropout, None,
+        trainer._offs, None, trainer.train_nbr_index)
+
+
 def bfs_roots(trainer: Trainer, i: int = 0):
     """The roots of train batch ``i``'s BFS as ``run_phase`` queries them
     (epoch 0's negatives, one block per seed): (id blocks, times) on the
@@ -118,9 +191,19 @@ def main() -> None:
                     choices=["streaming", "pruning"])
     ap.add_argument("--n_degree", type=int, default=10)
     ap.add_argument("--n_layer", type=int, default=2)
+    ap.add_argument("--embedding_module", default="diffusion",
+                    choices=["diffusion", "graph_attention", "graph_sum",
+                             "identity", "time"])
     args = ap.parse_args()
-    pruning = args.tppr_strategy == "pruning"
-    if pruning:
+    tower = args.embedding_module != "diffusion"
+    pruning = args.tppr_strategy == "pruning" and not tower
+    if tower:
+        cfg, splits, edge_feats = wikipedia_attention(
+            parallel_runs=args.parallel_runs,
+            embedding_module=args.embedding_module,
+            tppr_strategy=args.tppr_strategy, n_degree=args.n_degree,
+            n_layer=args.n_layer)
+    elif pruning:
         cfg, splits, edge_feats = mooc_pruning(
             parallel_runs=args.parallel_runs, n_degree=args.n_degree,
             n_layer=args.n_layer)
@@ -161,18 +244,40 @@ def main() -> None:
                   if "santa_merge" in name) / 1e6
 
     batches = int(plain.per_batch.shape[0])
-    bfs = {}
+    extra = {}
     if pruning:
         blocks, t = bfs_roots(trainer, batches // 2)
         ab = ensemble_tensors(cfg, trainer.device)
         call = lambda: pruned_queries(cfg, trainer.train_nbr_index, ab,
                                       blocks, t)
-        bfs = dict(bfs_host_ms_per_batch=1e3 * plain.index_seconds / batches,
-                   bfs_device_ms_per_call=device_ms(call, n=20, per_round=5),
-                   bfs_ops_per_call=count_ops(call),
-                   bfs_roots_per_call=(2 + cfg.n_seeds) * cfg.bs)
+        extra = dict(
+            bfs_host_ms_per_batch=1e3 * plain.index_seconds / batches,
+            bfs_device_ms_per_call=device_ms(call, n=20, per_round=5),
+            bfs_ops_per_call=count_ops(call),
+            bfs_roots_per_call=(2 + cfg.n_seeds) * cfg.bs)
+    elif tower:
+        if cfg.embedding_module in ("graph_attention", "graph_sum"):
+            call = tower_lookups(trainer, batches // 2)
+            host = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            extra = dict(
+                lookup_host_ms_per_batch=1e3 * sorted(host)[10],
+                lookup_device_ms_per_batch=device_ms(call, n=20,
+                                                     per_round=5),
+                lookup_ops_per_batch=count_ops(call),
+                gathered_rows_per_batch=sum(
+                    3 * cfg.n_seeds * cfg.bs * cfg.n_degree ** h
+                    for h in range(cfg.n_layer + 1)))
+        extra["ops_per_train_batch"] = count_ops(
+            train_batch(trainer, batches // 2))
     mean = lambda x: float(torch.as_tensor(x, dtype=torch.float64).mean())
     print(json.dumps(dict(
+        embedding_module=cfg.embedding_module,
         tppr_strategy=cfg.tppr_strategy, n_degree=cfg.n_degree,
         n_layer=cfg.n_layer, parallel_runs=cfg.n_seeds,
         train_events=n_train, batches=batches,
@@ -185,8 +290,10 @@ def main() -> None:
         traced_epoch_s=traced_s, device_busy_s=busy_s,
         device_busy_share_traced=busy_s / traced_s,
         device_busy_share_of_epoch=busy_s / epoch_s,
-        santa_merge_device_s=merge_s, **bfs,
+        santa_merge_device_s=merge_s, **extra,
         device_kernels=sum(n for n, _ in per_kernel.values()),
+        device_kernels_per_batch=sum(
+            n for n, _ in per_kernel.values()) / batches,
         top_device_ops=[(name[:60], n, round(us / 1e3, 3))
                         for name, (n, us) in top],
         loss=mean(plain.loss), ap=mean(plain.ap),

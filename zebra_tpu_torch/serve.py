@@ -19,7 +19,11 @@ Under the pruning strategy the predictor holds no T-PPR state but an
 adjacency index (``nbr_index``) and the event stream it was built from
 (``events``); ``score`` queries it by a bounded BFS, and ``observe`` folds
 the new events into it (a rebuild on the host every ``rebuild_every``
-events, or at ``flush_index()``) before the memory protocol.
+events, or at ``flush_index()``) before the memory protocol. The towers
+other than diffusion hold no T-PPR state under either strategy; the
+recursive ones search the adjacency index, which ``observe`` folds the
+same way. An observed edge id past the feature table reads the table's
+last row there, as JAX's clamped gather does.
 
 A seed-parallel training run (``--parallel_runs``) serves one seed,
 ``LinkPredictor.from_checkpoint(path, run_index=s)``, or all of them as a
@@ -87,10 +91,11 @@ class LinkPredictor:
                  nbr_index: Optional[NeighborIndex] = None,
                  events: Optional[Tuple[np.ndarray, ...]] = None,
                  rebuild_every: int = 1, device=None):
-        """``index_state`` is the streaming strategy's T-PPR state (None
-        under pruning). ``nbr_index`` is the pruning strategy's adjacency
-        index and ``events`` the (sources, destinations, timestamps,
-        edge_idxs) stream it was built from: with them ``observe()`` folds
+        """``index_state`` is the streaming diffusion tower's T-PPR state
+        (None otherwise). ``nbr_index`` is the adjacency index of the
+        pruning strategy and the recursive towers, and ``events`` the
+        (sources, destinations, timestamps, edge_idxs) stream it was built
+        from: with them ``observe()`` folds
         new interactions into the index, by a rebuild on the host once
         ``rebuild_every`` events are pending (1: at every call;
         ``flush_index()`` forces one). Without ``events`` the index stays
@@ -130,8 +135,9 @@ class LinkPredictor:
         the file; ``edge_feats`` to zeros, which a model trained with real
         edge features refuses. ``events``, the training stream's
         (sources, destinations, timestamps, edge_idxs), is required under
-        the pruning strategy: the adjacency index is built from it (the
-        state file holds none), and ``rebuild_every`` is the predictor's.
+        the pruning strategy and for the recursive towers: the adjacency
+        index is built from it (the state file holds none), and
+        ``rebuild_every`` is the predictor's.
 
         From a seed-parallel file (``--parallel_runs``: params and memory
         carry a leading seed axis, the index is shared) ``run_index``
@@ -191,8 +197,8 @@ class LinkPredictor:
     def from_trainer(cls, trainer, rebuild_every: int = 1) -> "LinkPredictor":
         """A predictor over a port Trainer's current params, memory, index
         and edge features, on the Trainer's device (copies: the Trainer
-        trains on undisturbed); under the pruning strategy the full graph's
-        adjacency index, with the full split's events as the base stream of
+        trains on undisturbed); under the pruning strategy and for the
+        recursive towers the full graph's adjacency index, with the full split's events as the base stream of
         the folds. A seed-parallel Trainer serves through
         ``EnsemblePredictor.from_trainer``."""
         n_seeds = trainer.cfg.n_seeds
@@ -264,13 +270,16 @@ class LinkPredictor:
         return ids(src), ids(dst), torch.as_tensor(
             np.asarray(t, np.float32)).to(self.device)
 
-    def _queries(self, src, dst, t, with_neg: bool = True) -> TpprQueries:
+    def _queries(self, src, dst, t,
+                 with_neg: bool = True) -> Optional[TpprQueries]:
         """Read-only T-PPR top-k at the query times, fields [M, nb·b, k]:
         src‖dst‖dst blocks when ``with_neg`` (the training layout),
         src‖dst for plain scoring. Under the pruning strategy one BFS over
-        the adjacency index."""
+        the adjacency index; None for a tower that reads no T-PPR query."""
+        if not self.cfg.uses_tppr:
+            return None
         cols = [src, dst] + ([dst] if with_neg else [])
-        if self.nbr_index is not None:
+        if self.cfg.tppr_strategy == "pruning":
             return pruned_queries(self.cfg, self.nbr_index, self._alpha_beta,
                                   cols, t)
         q = read_topk(self.index_state, torch.stack(cols, dim=1), t,
@@ -290,18 +299,20 @@ class LinkPredictor:
         b = src.shape[0]
         q = self._queries(src, dst, t, with_neg=False)
         nodes2 = torch.cat([src, dst])
+        times = None if self.cfg.uses_tppr else torch.cat([t, t])
         emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
-                       nodes2, q, offs=self._offs)
+                       nodes2, q, offs=self._offs, times=times,
+                       nbr_index=self.nbr_index)
         logit = affinity_score(self.params, emb[..., :b, :], emb[..., b:, :],
                                self.cfg.mxu_dtype)
         return torch.sigmoid(logit)
 
     def observe(self, src, dst, t, eidx) -> None:
         """Ingest observed interactions: fold them into the adjacency index
-        (pruning; see ``rebuild_every``) or stream them through the T-PPR
-        index (streaming, updated in place; edge ids must stay below 2^24,
-        ``fill_scan`` checks), then store-and-commit their messages into
-        memory (the eval protocol)."""
+        (pruning and the recursive towers; see ``rebuild_every``) or stream
+        them through the T-PPR index (streaming diffusion, updated in place;
+        edge ids must stay below 2^24, ``fill_scan`` checks), then
+        store-and-commit their messages into memory (the eval protocol)."""
         with torch.no_grad():
             cols = self._request(src, dst, t)
             self._append_events(src, dst, t, eidx)

@@ -13,7 +13,10 @@ from. Under the pruning strategy there is no index state and no wave
 scan: each batch's queries are a bounded BFS over an adjacency index built
 once, of the train graph in training and of the full graph in validate
 and test (``index/pruning.py``); a stop request then takes effect at the
-end of the epoch, as in the JAX package.
+end of the epoch, as in the JAX package. The towers other than diffusion
+keep no index state and run no wave scan and no BFS under either strategy
+(``Config.uses_tppr``); the recursive ones search those adjacency indices,
+and a stop request takes effect at the end of the epoch.
 
 validate: flush pending messages (the train→eval transition), run the
 transductive val stream from (train-end memory, train-end index), keep that
@@ -144,7 +147,7 @@ class Trainer:
                 "represents nodes by their memory rows, like the "
                 "reference's active path (tgn_model.py:85). Pass "
                 "--ignore_node_feats to silence.")
-        if cfg.tppr_strategy == "streaming":
+        if cfg.keeps_tppr_index:
             # the packed T-PPR rows hold ids as f32 values
             check_id_width(cfg.n_nodes, cfg.n_edges)
         self.cfg, self.splits = cfg, splits
@@ -172,8 +175,9 @@ class Trainer:
         }
         # eval negatives are fixed, so their wave plans are made once
         self._eval_plans: Dict[str, Dict[int, WavePlan]] = {}
-        # adjacency indices of the pruning strategy: the train graph in
-        # training, the full graph in validate and test
+        # adjacency indices of the pruning strategy and the recursive
+        # towers: the train graph in training, the full graph in validate
+        # and test
         self.train_nbr_index = self.full_nbr_index = None
         if cfg.needs_adjacency:
             self.train_nbr_index, self.full_nbr_index = (
@@ -257,13 +261,14 @@ class Trainer:
 
     def _fresh_state(self) -> Tuple[MemoryState, Optional[TpprState]]:
         """Zeroed memory (S·N flat rows for S seeds) and an empty index
-        (None under the pruning strategy, which keeps no index state)."""
+        (None where no T-PPR index is kept: the pruning strategy and the
+        towers other than diffusion)."""
         cfg = self.cfg
         mem = init_memory(cfg.n_nodes * self._n_seeds, cfg.memory_dim,
                           cfg.msg_table_dim,
                           torch_dtype(cfg.message_dtype),
                           torch_dtype(cfg.memory_dtype), device=self.device)
-        if cfg.tppr_strategy != "streaming":
+        if not cfg.keeps_tppr_index:
             return mem, None
         return mem, init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk,
                                     device=self.device)
@@ -342,17 +347,17 @@ class Trainer:
                ) -> Tuple[Optional[TpprState], PhaseResult]:
         """One pass over stream ``name``: per superchunk, the wave scan of
         the index, then the batches (pruning: the batches, each with its
-        BFS). Updates ``self.mem``, ``index_state`` and, in training, the
-        parameters in place; reads the metrics back once, at the end.
+        BFS; the other towers: the batches alone). Updates ``self.mem``,
+        ``index_state`` and, in training, the parameters in place; reads the
+        metrics back once, at the end.
 
         Runs the superchunks from ``start_chunk`` on, at most
         ``max_chunks`` of them; in training it advances the cursor after
-        each and, under the streaming strategy, stops after the current one
-        once a stop was requested. The metrics cover the superchunks that
-        ran."""
+        each and, where waves run, stops after the current one once a stop
+        was requested. The metrics cover the superchunks that ran."""
         t0 = time.perf_counter()
         cfg = self.cfg
-        streaming = cfg.tppr_strategy == "streaming"
+        wave_scan = cfg.keeps_tppr_index
         ps = self._streams[name]
         stream = ps.stream
         stop = ps.n_chunks if max_chunks is None else min(
@@ -368,14 +373,15 @@ class Trainer:
             # [E], or [E, S]: the phases' layout of one negative per seed
             negs = np.ascontiguousarray(self._draw_train_negs(self._epoch_id).T)
             stream = stream._replace(neg=torch.from_numpy(negs).to(self.device))
-            if streaming:
+            if wave_scan:
                 plans = self._wave_plans(name, negs, chunks)
-        elif streaming:
+        elif wave_scan:
             if name not in self._eval_plans:
                 self._eval_plans[name] = self._wave_plans(
                     name, ps.host["neg"], range(ps.n_chunks))
             plans = self._eval_plans[name]
-        t_index = time.perf_counter() - t0
+        # the wave plans' host time; the BFS calls add theirs below
+        t_index = time.perf_counter() - t0 if wave_scan else 0.0
 
         chunk = stream.src.shape[0] // ps.n_chunks
         per_chunk = chunk // cfg.bs
@@ -385,7 +391,7 @@ class Trainer:
         _mark(marks, "start")
         for ci in chunks:
             cs = Stream(*(x[ci * chunk: (ci + 1) * chunk] for x in stream))
-            if streaming:
+            if wave_scan:
                 ti = time.perf_counter()
                 index_state, queries = wave_scan_chunk(
                     index_state, self._tppr, *cs, plans[ci])
@@ -397,15 +403,17 @@ class Trainer:
                 waves += plans[ci].n_waves
                 _mark(marks, "index")
             else:
-                queries = nbr_index
+                # the BFS's index, or none for a tower without T-PPR
+                queries = nbr_index if cfg.uses_tppr else None
             metrics.append(run_phase(
                 cfg, train, self.params, self.optimizer, self.mem,
                 self.edge_feats, cs, queries,
                 n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist(),
-                self._dropout if train else None, marks, self._offs, bfs_s))
+                self._dropout if train else None, marks, self._offs, bfs_s,
+                nbr_index))
             if train:
                 self._chunk_cursor = ci + 1
-                if self._stop_requested and streaming:
+                if self._stop_requested and wave_scan:
                     break
         self.index_waves += waves
         per_batch = torch.cat(metrics).cpu().numpy()
@@ -502,7 +510,7 @@ class Trainer:
     def save_state(self, path: str, epoch: int = 0,
                    chunk: Optional[int] = None) -> None:
         """Full-state checkpoint: params, Adam's state, memory, index (None
-        under the pruning strategy), the dropout generator's state, the
+        where no T-PPR index is kept), the dropout generator's state, the
         negative base and epoch id, the epoch and the stream cursor
         (``chunk``, the next superchunk to run; the Trainer's own cursor by
         default), and fit's early-stop fields.
@@ -884,8 +892,8 @@ class Trainer:
 
 
 def _copy_index(index_state: Optional[TpprState]) -> Optional[TpprState]:
-    """A copy of the index state (None, the pruning strategy's, stays
-    None)."""
+    """A copy of the index state (None, where no T-PPR index is kept,
+    stays None)."""
     return None if index_state is None else TpprState(index_state.data.clone())
 
 

@@ -7,7 +7,9 @@
    reference's call. The streaming index runs through the Trainer's wave
    path (``plan_waves`` + ``wave_scan_chunk``: one ``santa_merge`` launch
    per wave on the card); under the pruning strategy each batch's src‖dst
-   roots take one BFS over an adjacency index.
+   roots take one BFS over an adjacency index. The towers other than
+   diffusion read no T-PPR query: the recursive ones search the adjacency
+   index at the events' times.
 2. :class:`NodeDecoder`: the reference head dim → 80 → 10 → 1 with dropout.
 3. :func:`train_node_classifier` (Adam and BCE) and
    :func:`eval_node_classification` (pairwise ROC-AUC).
@@ -46,11 +48,13 @@ def collect_source_embeddings(cfg: Config, params, mem: MemoryState,
                                          torch.Tensor, int]:
     """Eval-mode replay of the phase stream ``ps`` (a Trainer's
     ``PhaseStream``) from (``mem``, ``index_state``), both updated in
-    place; under the pruning strategy ``index_state`` is None and the
-    queries search ``nbr_index``. Returns them, the source embeddings
-    [padded events, H] in stream order, and the index waves run."""
+    place; where no T-PPR index is kept ``index_state`` is None, and the
+    pruning BFS or a recursive tower searches ``nbr_index``. Returns them,
+    the source embeddings [padded events, H] f32 in stream order, and the
+    index waves run."""
     tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
-    if nbr_index is not None:
+    bfs = cfg.uses_tppr and not cfg.keeps_tppr_index
+    if bfs:
         alpha_beta = ensemble_tensors(cfg, edge_feats.device)
     host, b = ps.host, cfg.bs
     chunk = len(host["src"]) // ps.n_chunks
@@ -59,7 +63,7 @@ def collect_source_embeddings(cfg: Config, params, mem: MemoryState,
     for lo in range(0, len(host["src"]), chunk):
         sl = slice(lo, lo + chunk)
         cs = Stream(*(x[sl] for x in ps.stream))
-        if nbr_index is None:
+        if cfg.keeps_tppr_index:
             plan = plan_waves(host["src"][sl], host["dst"][sl],
                               host["dst"][sl], host["valid"][sl], cfg.n_nodes,
                               cfg.wave_cap, edge_feats.device)
@@ -70,18 +74,22 @@ def collect_source_embeddings(cfg: Config, params, mem: MemoryState,
         for j in range(chunk // b):
             s = Stream(*(x[j * b: (j + 1) * b] for x in cs))
             # the neg slot duplicates dst: embed src‖dst only
-            if nbr_index is None:
+            q = None
+            if cfg.keeps_tppr_index:
                 q = batch_queries(cfg, rows[j * b: (j + 1) * b], s.t)
                 q = TpprQueries(*(x[:, : 2 * b] for x in q))
-            else:
+            elif bfs:
                 q = pruned_queries(cfg, nbr_index, alpha_beta,
                                    [s.src, s.dst], s.t)
+            times = None if cfg.uses_tppr else torch.cat([s.t, s.t])
             emb = _forward(cfg, params, mem, edge_feats,
-                           torch.cat([s.src, s.dst]), q)
+                           torch.cat([s.src, s.dst]), q, times=times,
+                           nbr_index=nbr_index)
             nv = n_valid[(lo + j * b) // b]
             eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
                               s.eidx, None if nv == b else s.valid)
-            out.append(emb[:b])
+            # the identity tower's eval rows keep the table's dtype
+            out.append(emb[:b].float())
     return mem, index_state, torch.cat(out), waves
 
 
@@ -185,9 +193,9 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
     params in eval mode, emitting each event's source embedding; the
     decoder is fit on the train stream's embeddings against the event
     labels and scored by ROC-AUC on all three streams. The replay's index
-    waves count into ``trainer.index_waves``; under the pruning strategy
-    the replay queries the train graph on the train stream and the full
-    graph on the val and test streams. A seed-parallel Trainer is
+    waves count into ``trainer.index_waves``; under the pruning strategy,
+    and for the recursive towers, the replay queries the train graph on the
+    train stream and the full graph on the val and test streams. A seed-parallel Trainer is
     refused: the decoder consumes one model's embeddings."""
     cfg = trainer.cfg
     if cfg.n_seeds > 1:

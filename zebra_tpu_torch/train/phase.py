@@ -1,9 +1,12 @@
 """One pass over a phase's batches (counterpart of the single-seed wave
 path of ``zebra_tpu/train/phase.py``): towers, loss, optimizer, memory
-protocol and metrics, batch by batch, with each batch's T-PPR queries:
-under the streaming strategy the rows the wave scan extracted for the
-chunk (``index/waves.py``), under the pruning strategy a bounded BFS over
-an adjacency index (``index/pruning.py``), one call per batch.
+protocol and metrics, batch by batch. The diffusion tower reads each
+batch's T-PPR queries: under the streaming strategy the rows the wave scan
+extracted for the chunk (``index/waves.py``), under the pruning strategy a
+bounded BFS over an adjacency index (``index/pruning.py``), one call per
+batch. The other towers read no T-PPR query under either strategy: they
+embed the roots at their event times, the recursive ones over the
+adjacency index of the phase's graph (``models/embedding.py``).
 
 Eager PyTorch replaces the JAX package's one ``lax.scan`` per phase: the
 batches run as a Python loop that only enqueues device work. Nothing is
@@ -118,16 +121,20 @@ def _mark(marks: Optional[list], name: str) -> None:
 
 def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
               edge_feats: torch.Tensor, stream: Stream,
-              queries: Union[torch.Tensor, NeighborIndex],
+              queries: Union[torch.Tensor, NeighborIndex, None],
               n_valid: Sequence[int], generator=None,
               marks: Optional[List] = None, offs=None,
-              bfs_s: Optional[List[float]] = None) -> torch.Tensor:
+              bfs_s: Optional[List[float]] = None,
+              nbr_index: Optional[NeighborIndex] = None) -> torch.Tensor:
     """One pass over the batches of ``stream`` with their T-PPR queries:
     ``queries`` holds the extraction rows [E, 3, F] (streaming), or is the
     adjacency index the batches' BFS calls search (pruning; ``bfs_s``, a
-    list, then receives the host seconds of each call). ``n_valid`` holds
-    each batch's count of valid events (known on the host): a batch with
-    padding passes its mask to the memory protocol, a full one passes
+    list, then receives the host seconds of each call), or is None for a
+    tower that reads no T-PPR query (``cfg.uses_tppr`` false). Those
+    towers embed each root at its event time; the recursive ones search
+    ``nbr_index``, the adjacency index of the phase's graph. ``n_valid``
+    holds each batch's count of valid events (known on the host): a batch
+    with padding passes its mask to the memory protocol, a full one passes
     None. Train batches take an Adam step of ``optimizer`` on ``params``;
     ``generator`` draws the dropout masks. Updates ``mem`` in place;
     returns the per-batch metrics [n_batches, 4] (:data:`METRICS`) on the
@@ -147,7 +154,7 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     index = queries if isinstance(queries, NeighborIndex) else None
     if index is not None:
         alpha_beta = ensemble_tensors(cfg, index.arena.device)
-    if per_lane:
+    if per_lane and queries is not None:
         n_l = offs.shape[0]
         blocks = (_lane_rows(n_l, b, offs.device) if index is not None
                   else _lane_blocks(n_l, offs.device))
@@ -155,7 +162,9 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     for i, nv in enumerate(n_valid):
         s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
         valid = None if nv == b else s.valid
-        if index is not None:
+        if queries is None:
+            q = None
+        elif index is not None:
             t0 = time.perf_counter()
             negs = list(s.neg.T) if per_lane else [s.neg]
             q = pruned_queries(cfg, index, alpha_beta, [s.src, s.dst, *negs],
@@ -171,15 +180,19 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
             q = batch_queries(cfg, rows[:, blocks].transpose(0, 1), s.t)
         else:
             q = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
+        times3 = None if cfg.uses_tppr else torch.cat([s.t, s.t, s.t])
         if per_lane:
-            nodes3 = torch.cat([s.src.expand(n_l, b), s.dst.expand(n_l, b),
-                                s.neg.T], dim=1)
+            # raw ids per lane; the forward moves them into the lane's rows
+            nodes3 = torch.cat([s.src.expand(offs.shape[0], b),
+                                s.dst.expand(offs.shape[0], b), s.neg.T],
+                               dim=1)
         else:
             nodes3 = torch.cat([s.src, s.dst, s.neg])
         if train:
             optimizer.zero_grad(set_to_none=True)
             emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                           train=True, generator=generator, offs=offs)
+                           train=True, generator=generator, offs=offs,
+                           times=times3, nbr_index=nbr_index)
             pos_logit, neg_logit = _scores(cfg, params, emb, b)
             bce = F.binary_cross_entropy_with_logits
             loss = (
@@ -205,7 +218,7 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
         else:
             with torch.no_grad():
                 emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                               offs=offs)
+                               offs=offs, times=times3, nbr_index=nbr_index)
                 pos_logit, neg_logit = _scores(cfg, params, emb, b)
             _mark(marks, "forward")
             eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,

@@ -1,6 +1,7 @@
 """Building blocks of the train and eval step (counterpart of
-``zebra_tpu/train/step.py``) for the ported slice: the diffusion tower, the
-``last`` aggregator and per-position lazy updates.
+``zebra_tpu/train/step.py``) for the ported slice: every tower (diffusion
+here, the others in ``models/embedding.py``), the ``last`` aggregator and
+per-position lazy updates.
 
 TRAIN batch (one-batch message staleness):
   1. differentiable forward with lazy memory: a selected neighbor row with a
@@ -41,7 +42,9 @@ from typing import Optional, Sequence
 import torch
 
 from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
 from zebra_tpu_torch.index.streaming import TpprQueries
+from zebra_tpu_torch.models.embedding import lane_ids, lazy_rows, tower_embed
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import (
     affinity_score,
@@ -136,31 +139,7 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, x, 0.0).sum(-1) / mask.sum().clamp(min=1)
 
 
-def lane_ids(ids: torch.Tensor, offs: Optional[torch.Tensor],
-             shared: bool = True) -> torch.Tensor:
-    """The flat-table rows of node ids ``ids`` in each seed lane: i64
-    ``ids + offs[s]`` with a leading lane axis, or ``ids`` itself when
-    ``offs`` is None (one seed). ``shared`` ids are the same for every lane
-    ([...]); otherwise they carry the lane axis already ([S, ...])."""
-    if offs is None:
-        return ids
-    ids = ids.to(torch.int64)
-    if shared:
-        ids = ids[None]
-    return ids + offs.view((-1,) + (1,) * (ids.dim() - 1))
-
-
 # ------------------------------------------------------------------ forward
-
-def _lazy_rows(cfg: Config, params, mem: MemoryState, ids, enable):
-    """Memory rows of ``ids``, passed through the updater cell where a
-    message is pending and ``enable`` holds (f32 then, as the cell's output
-    promotes a bf16 row)."""
-    rows = mem.memory[ids]
-    msg, flag = message_input(cfg, params, mem, ids, rows)
-    upd = cell_apply(cfg, params, msg, rows)
-    return torch.where((flag & enable)[..., None], upd, rows)
-
 
 def make_lazy_plan(cfg: Config, q: TpprQueries, nodes3) -> torch.Tensor:
     """Per-position lazy-update plan: whether each query node [3b] is among
@@ -176,23 +155,31 @@ def _train_lazy_rows(cfg: Config, params, mem: MemoryState, nodes3,
     """The lazily updated rows of the train forward: the 3b query rows
     (updated when ``in_sel``) and the [M, 3b, k] selected-neighbor rows
     (always updated)."""
-    src_rows = _lazy_rows(cfg, params, mem, nodes3, in_sel)
-    nbr_rows = _lazy_rows(cfg, params, mem, q.nbr,
-                          torch.ones_like(q.nbr, dtype=torch.bool))
+    src_rows = lazy_rows(cfg, params, mem, nodes3, in_sel)
+    nbr_rows = lazy_rows(cfg, params, mem, q.nbr,
+                         torch.ones_like(q.nbr, dtype=torch.bool))
     return src_rows, nbr_rows
 
 
 def _forward(cfg: Config, params, mem: MemoryState, edge_feats: torch.Tensor,
-             nodes: torch.Tensor, q: TpprQueries, train: bool = False,
-             generator=None, offs=None) -> torch.Tensor:
-    """Diffusion embeddings of the query rows ``nodes`` [Q] with their T-PPR
-    queries ``q`` (fields [M, Q, k]) → [Q, H]. Train mode reads lazily
-    updated memory and applies dropout with masks from ``generator``.
+             nodes: torch.Tensor, q: Optional[TpprQueries], train: bool = False,
+             generator=None, offs=None, times: Optional[torch.Tensor] = None,
+             nbr_index: Optional[NeighborIndex] = None) -> torch.Tensor:
+    """Embeddings of the query rows ``nodes`` [Q] → [Q, H], by the tower of
+    ``cfg.embedding_module``. Diffusion reads the rows' T-PPR queries ``q``
+    (fields [M, Q, k]); the other towers read the query ``times`` [Q] and,
+    the recursive ones, the adjacency index ``nbr_index``
+    (``models/embedding.py``). Train mode reads lazily updated memory and
+    applies the diffusion tower's dropout with masks from ``generator``.
 
     Seed-parallel (``offs``): stacked parameters and flat tables, ``nodes``
     and ``q`` shared by the lanes ([Q], [M, Q, k]) or per lane ([S, Q],
     [S, M, Q, k]) → [S, Q, H]; ``generator`` is one generator per lane.
-    The lazy plan then sorts all lanes' row ids in one sort."""
+    The diffusion tower's lazy plan then sorts all lanes' row ids in one
+    sort."""
+    if not cfg.uses_tppr:
+        return tower_embed(cfg, params, mem, edge_feats, nbr_index, nodes,
+                           times, train, offs)
     if offs is not None:
         nodes = lane_ids(nodes, offs, shared=nodes.dim() == 1)
         q = q._replace(nbr=lane_ids(q.nbr, offs, shared=q.nbr.dim() == 3))
