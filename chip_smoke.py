@@ -88,8 +88,34 @@ Phases, in order; any failure exits non-zero:
       b ∈ {1, 32, 256, 2048} (ms per call, memory at 2048), four observe
       calls of 200 events, and a brand-new edge whose id lies past the
       feature table, observed and scored;
-12. one ``{"kernels": [...]}`` line;
-13. last line ``{"ok": true, "device": {...}}``.
+12. options: the flagship training configuration with every single-device
+    model option of the port, ``--aggregator mean --message_function mlp
+    --use_source_embedding_in_message
+    --use_destination_embedding_in_message`` (the TGN options of the
+    reference CLI), at full width on the bench stream:
+    - ``Trainer``: a warm-up and a timed epoch (train events/s, one train
+      batch's device time by CUDA events: the busy share), ``validate()``
+      and ``test()``; one santa_merge launch per wave and no santa_scan;
+      the message table's bytes (872 columns and the flag) and peak
+      memory;
+    - the first 3,000 events replayed with dropout 0 on the card twice and
+      on the CPU (losses, memory, messages, ``msg_count``, ``msg_ts``), and
+      whether the two card runs are bit-equal; lane 1 of
+      ``parallel_runs=2`` against a single-seed Trainer with seed 1;
+    - ``LinkPredictor.from_trainer`` on the card and on the CPU: four
+      observe calls of 200 events, exactly one extracting santa_scan launch
+      each (the pre-edge queries feed the messages' embeddings), score at
+      b ∈ {1, 32, 256, 2048}, compared;
+    - the compaction on the plain flagship: ``lazy_unique_cap=-1`` (cap
+      9,600), a warm-up and a timed epoch beside phase 7's per-position
+      one, and a 3,000-event replay against per-position at JAX's bar
+      (rtol 2e-4, atol 2e-5, f32 tables); a cap of 1,000 overflows, logs
+      the warning, reruns the epoch per position, and the result is
+      bit-equal to a per-position epoch from the same start;
+    - ``debug_nans``: a NaN planted in an edge-feature row of the first
+      train batch raises ``FloatingPointError`` in that batch;
+13. one ``{"kernels": [...]}`` line;
+14. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
@@ -97,6 +123,7 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -239,6 +266,23 @@ PRUNE_OBSERVE_CALLS, PRUNE_OBSERVE_B = 4, 200
 TOWER_BATCH, TOWER_ATOL = 100, 1e-4
 TOWER_REPLAYS = (("graph_sum", 1500), ("identity", 1500), ("time", 1500))
 TOWER_SEEDS, TOWER_LANES = 2, (1,)
+# Options phase: every single-device model option of the port on the
+# flagship; its serve leg's observe calls; the compaction leg's caps and
+# JAX's bar for compacted against per-position training
+# (tests/test_train_loop.py:186-210, f32 tables).
+OPTIONS = dict(aggregator="mean", message_function="mlp",
+               use_source_embedding_in_message=True,
+               use_destination_embedding_in_message=True)
+OPTIONS_OBSERVE_CALLS, OPTIONS_OBSERVE_B = 4, 200
+OPTIONS_SEEDS, OPTIONS_LANES = 2, (1,)
+AUTO_CAP, OVERFLOW_CAP = -1, 1000
+LAZY_RTOL, LAZY_ATOL = 2e-4, 2e-5
+# Replay bar of the message table, card against CPU: a bf16 row holds
+# memory rows, embeddings (products in another summation order) and, under
+# mean, sums of them, so an entry may round to the next bf16 value where
+# its f32 value sits at a boundary: within two bf16 ulps of its size
+# (2^-6 relative) plus the memory bar.
+MESSAGE_REL = 2.0 ** -6
 
 
 def merge_work(rows: torch.Tensor, m: int, k: int):
@@ -678,18 +722,30 @@ def train_phase(card: str):
                peak_device_gib=peak_gib, card=card)
     print("train " + json.dumps(res), flush=True)
     replay_phase(card)
-    return train_end_index
+    return train_end_index, epochs[1]["seconds"]
+
+
+def _bitwise(a: Trainer, b: Trainer) -> bool:
+    """Whether two Trainers hold bit-equal params and memory tables."""
+    return all(torch.equal(x, y.to(x.device)) for x, y in zip(
+        list(a.params.parameters()) + list(a.mem),
+        list(b.params.parameters()) + list(b.mem)))
 
 
 def replay_phase(card: str, build=flagship_training, tag: str = "replay",
-                 n_events: int = TRAIN_REPLAY_EVENTS):
+                 n_events: int = TRAIN_REPLAY_EVENTS, twice: bool = False):
     """The first ``n_events`` events of ``build``'s configuration and
     stream at full width, dropout 0, through one ``train_epoch`` and
     ``validate()`` on the card and on the CPU; both Trainers draw the same
-    params (a CPU generator). The index (streaming) is held bit-equal."""
+    params (a CPU generator). The index (streaming), ``msg_count`` and
+    ``msg_ts`` are held bit-equal, the message table at MESSAGE_REL. With
+    ``twice`` a second card Trainer runs the same and is compared with the
+    first (printed, not held: under mean the card's accumulation order is
+    the sort-based ``index_put_``'s)."""
     cfg, splits, edge_feats = build(seed=0, n_events=n_events, dropout=0.0)
     gpu = Trainer(cfg, splits, edge_feats, device="cuda")
     cpu = Trainer(cfg, splits, edge_feats, device="cpu")
+    gpu2 = Trainer(cfg, splits, edge_feats, device="cuda") if twice else None
     for a, b in zip(gpu.params.parameters(), cpu.params.parameters()):
         assert torch.equal(a.cpu(), b)
     out = {}
@@ -704,15 +760,31 @@ def replay_phase(card: str, build=flagship_training, tag: str = "replay",
         diff = (gpu.mem.memory.cpu().float() - cpu.mem.memory.float()).abs()
         mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
         loss_err = float(np.abs(rg.per_batch[:, 0] - rc.per_batch[:, 0]).max())
+        got, want = gpu.mem.messages.cpu().float(), cpu.mem.messages.float()
+        msg_diff = (got - want).abs()
+        msg_excess = float((msg_diff - MESSAGE_REL * want.abs()).max())
+        for f in ("msg_count", "msg_ts", "last_update"):
+            assert torch.equal(getattr(gpu.mem, f).cpu(),
+                               getattr(cpu.mem, f)), (leg, f)
         out[leg] = dict(batches=int(rg.per_batch.shape[0]), waves=rg.waves,
                         index_bitwise_cuda_vs_cpu=index_bitwise,
                         memory_max_abs_err=mem_err,
                         memory_diff_share=mem_share,
+                        messages_max_abs_err=float(msg_diff.max()),
+                        messages_diff_share=float((msg_diff > 0).float()
+                                                  .mean()),
+                        msg_count_ts_bitwise=True,
                         batch_loss_max_abs_err=loss_err,
                         ap_cuda=rg.ap, ap_cpu=rc.ap)
+        if gpu2 is not None:
+            r2 = run(gpu2)
+            out[leg]["cuda_twice_bitwise"] = bool(
+                np.array_equal(rg.per_batch, r2.per_batch)
+                and _bitwise(gpu, gpu2))
         print(f"{tag} {leg}: " + json.dumps(out[leg]), flush=True)
         assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
             leg, mem_err, mem_share)
+        assert msg_excess <= MEMORY_ATOL, (leg, msg_excess)
         assert loss_err <= TRAIN_LOSS_ATOL, (leg, loss_err)
     print(f"{tag} " + json.dumps(dict(events=n_events, card=card, **out)),
           flush=True)
@@ -1543,6 +1615,268 @@ def towers_phase(card: str):
           "santa_merge and 0 santa_scan launches", flush=True)
 
 
+def _epochs(trainer: Trainer, tag: str, card: str, check_launches=True):
+    """A warm-up and a timed ``train_epoch``: one santa_merge launch per
+    wave and no santa_scan (``check_launches``). Returns each epoch's
+    seconds, train events/s, waves and metrics."""
+    n_train = trainer.splits.train.n_interactions
+    epochs = []
+    for e in (1, 2):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = merge.SANTA_MERGE.launches
+        if check_launches:
+            assert launches == r.waves and scan.SANTA_SCAN.launches == 0, (
+                tag, e, launches, r.waves, scan.SANTA_SCAN.launches)
+        assert np.isfinite(r.per_batch).all(), (tag, e)
+        print(f"{tag} epoch {e}{' (warm-up)' if e == 1 else ''}: {s:.3f} s, "
+              f"{n_train / s:.1f} train events/s, {r.waves} waves, "
+              f"{launches} santa_merge launches, overflow {r.overflow:g}, "
+              f"{_metrics(r)}  ({card})", flush=True)
+        epochs.append(dict(seconds=s, events_per_s=n_train / s,
+                           waves=r.waves, santa_merge_launches=launches,
+                           overflow=r.overflow, loss=r.loss, ap=r.ap))
+    return epochs
+
+
+def options_train(card: str):
+    """The options configuration at full width: two epochs, validate, test,
+    one batch's device time (the busy share), the message table's size.
+    Returns the Trainer and santa_merge's launches in those phases."""
+    cfg, splits, edge_feats = flagship_training(seed=0, **OPTIONS)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    table = trainer.mem.messages
+    table_bytes = table.numel() * table.element_size()
+    print(f"options: message table {tuple(table.shape)} {table.dtype}, "
+          f"{table_bytes} B; message {trainer.cfg.message_dim} wide, cell "
+          f"input {trainer.cfg.cell_input_dim}  ({card})", flush=True)
+    epochs = _epochs(trainer, "options train", card)
+    _reset_counts()
+    t0 = time.perf_counter()
+    val, nn_val = trainer.validate()
+    test, nn_test = trainer.test()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
+    launches = merge.SANTA_MERGE.launches
+    assert launches == sum(r.waves for r in phases.values())
+    assert scan.SANTA_SCAN.launches == 0
+    launches += sum(e["santa_merge_launches"] for e in epochs)
+    for name, r in phases.items():
+        assert np.isfinite(r.per_batch).all(), name
+        print(f"options {name:8s} {r.seconds:.3f} s, {_metrics(r)}  "
+              f"({card})", flush=True)
+    assert epochs[1]["ap"] > 0.5 and val.ap > 0.5 and test.ap > 0.5, (
+        epochs[1]["ap"], val.ap, test.ap)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batches = trainer._streams["train"].real_batches
+    # after the eval phases: each timed call is a train step
+    batch_ms = device_ms(train_batch(trainer, batches // 2), n=10,
+                         per_round=1)
+    busy_s = batches * batch_ms / 1e3
+    res = dict(options=OPTIONS, n_nodes=trainer.cfg.n_nodes,
+               message_dim=trainer.cfg.message_dim,
+               message_table_bytes=table_bytes, epochs=epochs,
+               device_ms_per_batch=batch_ms, device_busy_s=busy_s,
+               device_busy_share_of_epoch=busy_s / epochs[1]["seconds"],
+               eval_s=eval_s, phases={k: dict(seconds=r.seconds, ap=r.ap,
+                                              auc=r.auc, acc=r.acc)
+                                      for k, r in phases.items()},
+               peak_device_gib=peak, card=card)
+    print(f"options train: {batch_ms:.3f} ms of device time per batch, "
+          f"busy {100 * busy_s / epochs[1]['seconds']:.1f}% of the timed "
+          f"epoch; peak device memory {peak:.3f} GiB  ({card})", flush=True)
+    print("options train " + json.dumps(res), flush=True)
+    return trainer, launches
+
+
+def options_serve(trainer: Trainer, card: str) -> int:
+    """Serving the options Trainer on the card and on the CPU: observe
+    calls (one extracting santa_scan launch each), scores at each b.
+    Returns santa_scan's launches."""
+    te = trainer.splits.test
+    src, dst, ts, eidx = (te.sources, te.destinations,
+                          te.timestamps.astype(np.float32), te.edge_idxs)
+    gpu = LinkPredictor.from_trainer(trainer)
+    cpu = LinkPredictor(trainer.cfg, trainer.params,
+                        MemoryState(**trainer._memory_tables()),
+                        trainer.index_state, trainer.edge_feats,
+                        device="cpu")
+    _reset_counts()
+    scan.SANTA_SCAN.extracting = 0
+    observe_ms = []
+    for pred in (gpu, cpu):
+        for c in range(OPTIONS_OBSERVE_CALLS):
+            sl = slice(c * OPTIONS_OBSERVE_B, (c + 1) * OPTIONS_OBSERVE_B)
+            t0 = time.perf_counter()
+            pred.observe(src[sl], dst[sl], ts[sl], eidx[sl])
+            if pred is gpu:
+                torch.cuda.synchronize()
+                observe_ms.append(1e3 * (time.perf_counter() - t0))
+    assert (scan.SANTA_SCAN.launches == scan.SANTA_SCAN.extracting
+            == OPTIONS_OBSERVE_CALLS and merge.SANTA_MERGE.launches == 0), (
+        scan.SANTA_SCAN.launches, scan.SANTA_SCAN.extracting,
+        merge.SANTA_MERGE.launches)
+    lo = OPTIONS_OBSERVE_CALLS * OPTIONS_OBSERVE_B
+    score_ms, score_err = {}, 0.0
+    for b in SCORE_BS:
+        sl = slice(lo, lo + b)
+        g = gpu.score(src[sl], dst[sl], ts[sl])
+        c = cpu.score(src[sl], dst[sl], ts[sl])
+        assert g.shape == (b,) and np.isfinite(g).all(), b
+        score_err = max(score_err, float(np.abs(g - c).max()))
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            gpu.score(src[sl], dst[sl], ts[sl])
+            lat.append(time.perf_counter() - t0)
+        score_ms[b] = 1e3 * float(np.median(lat))
+    assert score_err <= SCORE_ATOL, score_err
+    assert torch.equal(gpu.index_state.data.cpu(), cpu.index_state.data)
+    diff = (gpu.mem.memory.cpu().float() - cpu.mem.memory.float()).abs()
+    mem_err, mem_share = float(diff.max()), float((diff > 0).float().mean())
+    assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, (
+        mem_err, mem_share)
+    for f in ("last_update", "msg_count", "msg_ts"):
+        assert torch.equal(getattr(gpu.mem, f).cpu(), getattr(cpu.mem, f)), f
+    print("options serve observe b=200: " + ", ".join(
+        f"{x:.3f}" for x in observe_ms) + f" ms/call, "
+        f"{scan.SANTA_SCAN.extracting} extracting santa_scan launches for "
+        f"{OPTIONS_OBSERVE_CALLS} calls  ({card})", flush=True)
+    for b in SCORE_BS:
+        print(f"options serve score b={b:5d}: {score_ms[b]:.3f} ms/call  "
+              f"({card})", flush=True)
+    print("options serve " + json.dumps(dict(
+        observe_ms=observe_ms, score_ms=score_ms,
+        santa_scan_launches=scan.SANTA_SCAN.launches,
+        extracting_launches=scan.SANTA_SCAN.extracting,
+        score_max_abs_err=score_err, memory_max_abs_err=mem_err,
+        memory_diff_share=mem_share, index_bitwise_cuda_vs_cpu=True,
+        card=card)), flush=True)
+    return scan.SANTA_SCAN.launches
+
+
+class _Records(logging.Handler):
+    """Keeps the messages of the records it handles."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def options_lazy(card: str, per_position_s: float):
+    """The compaction on the plain flagship: the auto cap's epochs beside
+    phase 7's per-position epoch, its replay against per-position at JAX's
+    bar, and an overflowing cap's rerun against a per-position epoch."""
+    cfg, splits, edge_feats = flagship_training(seed=0,
+                                                lazy_unique_cap=AUTO_CAP)
+    auto = Trainer(cfg, splits, edge_feats, device="cuda")
+    epochs = _epochs(auto, "lazy auto cap", card)
+    print(f"lazy auto cap: timed epoch {epochs[1]['seconds']:.3f} s against "
+          f"{per_position_s:.3f} s per position (phase 7)  ({card})",
+          flush=True)
+    del auto
+
+    f32 = dict(dropout=0.0, memory_dtype="float32", message_dtype="float32")
+    legs = {}
+    for cap in (AUTO_CAP, 0):
+        cfg, splits, edge_feats = flagship_training(
+            seed=0, n_events=TRAIN_REPLAY_EVENTS, lazy_unique_cap=cap, **f32)
+        t = Trainer(cfg, splits, edge_feats, device="cuda")
+        legs[cap] = (t.train_epoch(), t.validate()[0])
+    (ra, va), (ro, vo) = legs[AUTO_CAP], legs[0]
+    assert ra.overflow == 0.0
+    np.testing.assert_allclose(ra.per_batch[:, 0], ro.per_batch[:, 0],
+                               rtol=LAZY_RTOL, atol=LAZY_ATOL)
+    np.testing.assert_allclose([va.loss, va.ap], [vo.loss, vo.ap],
+                               rtol=LAZY_RTOL, atol=LAZY_ATOL)
+    replay_err = float(np.abs(ra.per_batch[:, 0] - ro.per_batch[:, 0]).max())
+
+    cfg, splits, edge_feats = flagship_training(seed=0)
+    records = _Records()
+    logger = logging.getLogger("zebra_tpu_torch")
+    logger.addHandler(records)
+    try:
+        over = Trainer(cfg.replace(lazy_unique_cap=OVERFLOW_CAP), splits,
+                       edge_feats, device="cuda")
+        t0 = time.perf_counter()
+        r_over = over.train_epoch()
+        torch.cuda.synchronize()
+        over_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(records)
+    assert over._lazy_fallback and any(
+        "rerunning the epoch on the per-position path" in m
+        for m in records.messages), records.messages
+    plain = Trainer(cfg, splits, edge_feats, device="cuda")
+    r_plain = plain.train_epoch()
+    bitwise = (np.array_equal(r_over.per_batch, r_plain.per_batch)
+               and _bitwise(over, plain)
+               and torch.equal(over.index_state.data, plain.index_state.data))
+    res = dict(auto_cap_epochs=epochs, per_position_epoch_s=per_position_s,
+               replay_events=TRAIN_REPLAY_EVENTS,
+               replay_batch_loss_max_abs_err=replay_err,
+               replay_val_ap=[va.ap, vo.ap],
+               overflow_cap=OVERFLOW_CAP, overflow_warning=records.messages,
+               overflow_epoch_with_rerun_s=over_s,
+               overflow_rerun_bitwise=bool(bitwise), card=card)
+    print(f"lazy overflow cap {OVERFLOW_CAP}: warning logged, epoch rerun "
+          f"per position ({over_s:.3f} s with the rerun), bit-equal to a "
+          f"per-position epoch: {bitwise}  ({card})", flush=True)
+    print("lazy " + json.dumps(res), flush=True)
+    assert bitwise
+
+
+def options_nans(card: str):
+    """``debug_nans`` with a NaN in the edge features of the first train
+    batch's last event, whose message wins the store of both its nodes."""
+    cfg, splits, edge_feats = flagship_training(
+        seed=0, n_events=TRAIN_REPLAY_EVENTS, debug_nans=True)
+    edge_feats = edge_feats.copy()
+    edge_feats[splits.train.edge_idxs[cfg.bs - 1], 0] = np.nan
+    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    try:
+        trainer.train_epoch()
+    except FloatingPointError as e:
+        print(f"debug_nans: FloatingPointError: {e}  ({card})", flush=True)
+        assert "train batch 0" in str(e), e
+        return
+    raise AssertionError("debug_nans let a NaN through")
+
+
+def options_phase(card: str, per_position_s: float):
+    """The model options (module docstring, phase 12). Returns the
+    launches of santa_merge (training) and santa_scan (serving) on the
+    options path."""
+    t0 = time.perf_counter()
+    trainer, merge_launches = options_train(card)
+    scan_launches = options_serve(trainer, card)
+    build = functools.partial(flagship_training, **OPTIONS)
+    steps = [("replay", lambda: replay_phase(
+                 card, build=build, tag="options replay", twice=True)),
+             ("seeds", lambda: seeds_replay(
+                 card, build=build, n_seeds=OPTIONS_SEEDS,
+                 lanes=OPTIONS_LANES, tag="options seeds replay")),
+             ("lazy", lambda: options_lazy(card, per_position_s)),
+             ("nans", lambda: options_nans(card))]
+    for name, step in steps:
+        t1 = time.perf_counter()
+        step()
+        print(f"options: {name} took {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    print(f"options: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return merge_launches, scan_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -1575,11 +1909,12 @@ def main() -> int:
     scan_launches, gpu, cols = serve_phase(card)
     wave_phase(gpu, cols, card)
     fill_phase(gpu.cfg, cols, card)
-    single_index = train_phase(card)
+    single_index, flagship_epoch_s = train_phase(card)
     merge_launches = fit_phase(card)
     seed_merges, seed_scans, seed_merge = seeds_phase(card, single_index)
     prune_phase(card)
     towers_phase(card)
+    option_merges, option_scans = options_phase(card, flagship_epoch_s)
 
     def entry(name, results, main, launches):
         return dict(
@@ -1592,13 +1927,15 @@ def main() -> int:
                                           "bound_by", "library_ms")})
 
     # each kernel at the shape its path gives it: a training wave for
-    # santa_merge (launches: the CLI's fit run and the seed-parallel
-    # Trainer's epochs and eval phases), a b = 200 observe for santa_scan
-    # (launches: the serve phase and the ensemble's observe calls)
+    # santa_merge (launches: the CLI's fit run, the seed-parallel Trainer's
+    # and the options Trainer's epochs and eval phases), a b = 200 observe
+    # for santa_scan (launches: the serve phase, the ensemble's observe
+    # calls and the options predictor's extracting ones)
     print(json.dumps({"kernels": [
         entry("santa_merge", merges + [seed_merge], merges[1],
-              merge_launches + seed_merges),
-        entry("santa_scan", scans, scans[0], scan_launches + seed_scans),
+              merge_launches + seed_merges + option_merges),
+        entry("santa_scan", scans, scans[0],
+              scan_launches + seed_scans + option_scans),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

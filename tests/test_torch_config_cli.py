@@ -118,7 +118,7 @@ OUTSIDE = [
     (["--parallel_lr", "1e-3", "1e-4"], "parallel_lr"),
     (["--embedding_module", "graph_attention", "--n_head", "3"], "n_head"),
     (["--memory_dim", "64"], "memory_dim"),
-    (["--aggregator", "mean"], "aggregator"),
+    (["--aggregator", "max"], "aggregator"),
     (["--message_function", "mlp"], "message_function"),
     (["--use_source_embedding_in_message"], "use_source_embedding_in_message"),
     (["--use_destination_embedding_in_message"],
@@ -138,10 +138,27 @@ OUTSIDE = [
 ]
 
 
+# options the port once refused and now runs: their cases check that the
+# flag is accepted and carries over with JAX's derived widths
+OPENED = ("message_function", "use_source_embedding_in_message",
+          "use_destination_embedding_in_message", "debug_nans",
+          "lazy_unique_cap")
+
+
 @pytest.mark.parametrize("argv,field", OUTSIDE,
                          ids=[f for _, f in OUTSIDE])
 def test_flags_outside_the_slice_raise(argv, field):
-    JaxConfig.from_args(argv)                   # a valid JAX command line
+    """A valid JAX command line outside the ported slice raises, naming the
+    field (``--aggregator max``: JAX takes any aggregator string, the port
+    only last and mean). The cases of OPENED are ported options: accepted,
+    with JAX's value and message and cell widths."""
+    jcfg = JaxConfig.from_args(argv)            # a valid JAX command line
+    if field in OPENED:
+        cfg = Config.from_args(argv)
+        assert getattr(cfg, field) == getattr(jcfg, field)
+        for width in ("message_dim", "msg_table_dim", "cell_input_dim"):
+            assert getattr(cfg, width) == getattr(jcfg, width), width
+        return
     with pytest.raises(ValueError, match=field):
         Config.from_args(argv)
 

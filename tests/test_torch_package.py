@@ -149,8 +149,21 @@ def test_ids_past_f32_width_raise(call):
     ("owner_aligned_waves", True),
 ])
 def test_config_refuses_values_outside_the_slice(field, value):
+    """A JAX config outside the ported slice raises, naming the field. The
+    single-device model options (aggregator, message function, message
+    sources, lazy compaction, debug_nans) are ported: accepted, with
+    JAX's message and cell widths."""
+    jcfg = JaxConfig(**{field: value})
+    if field in ("debug_nans", "aggregator", "message_function",
+                 "use_source_embedding_in_message",
+                 "use_destination_embedding_in_message", "lazy_unique_cap"):
+        cfg = Config.from_dict(dataclasses.asdict(jcfg))
+        assert getattr(cfg, field) == value
+        for width in ("message_dim", "msg_table_dim", "cell_input_dim"):
+            assert getattr(cfg, width) == getattr(jcfg, width), width
+        return
     with pytest.raises(ValueError, match=field):
-        Config.from_dict(dataclasses.asdict(JaxConfig(**{field: value})))
+        Config.from_dict(dataclasses.asdict(jcfg))
 
 
 @pytest.mark.parametrize("tower", ["graph_attention", "graph_sum",

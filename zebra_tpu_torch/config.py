@@ -20,6 +20,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the embedding modules of the JAX package, all ported
 TOWERS = ("diffusion", "graph_attention", "graph_sum", "identity", "time")
 RECURSIVE = ("graph_attention", "graph_sum")
+AGGREGATORS = ("last", "mean")
+MESSAGE_FUNCTIONS = ("identity", "mlp")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -157,12 +159,9 @@ class Config:
             "tppr_strategy": self.tppr_strategy not in ("streaming",
                                                         "pruning"),
             "embedding_module": self.embedding_module not in TOWERS,
-            "aggregator": self.aggregator != "last",
-            "message_function": self.message_function != "identity",
-            "use_source_embedding_in_message":
-                bool(self.use_source_embedding_in_message),
-            "use_destination_embedding_in_message":
-                bool(self.use_destination_embedding_in_message),
+            "aggregator": self.aggregator not in AGGREGATORS,
+            "message_function":
+                self.message_function not in MESSAGE_FUNCTIONS,
             "interleave_shards": int(self.interleave_shards or 0) > 1,
             "interleave_node_ids": bool(self.interleave_node_ids),
             "n_devices": int(self.n_devices) != 1,
@@ -174,8 +173,6 @@ class Config:
             "fused_dispatch": bool(self.fused_dispatch),
             "pallas_merge": not self.pallas_merge,
             "prng_impl": self.prng_impl != "rbg",
-            "debug_nans": bool(self.debug_nans),
-            "lazy_unique_cap": int(self.lazy_unique_cap) != 0,
             "memory_updater": self.memory_updater not in ("gru", "rnn"),
             "task": self.task not in ("link", "node"),
             "message_dtype": self.message_dtype not in _DTYPES,
@@ -187,9 +184,11 @@ class Config:
             raise ValueError(
                 "outside the ported slice (streaming and pruning "
                 "strategies, the diffusion, graph_attention, graph_sum, "
-                "identity and time towers, last aggregator, identity "
-                "messages, per-position lazy updates, the hand-written merge "
-                "kernel, one device in one process): " + ", ".join(bad)
+                "identity and time towers, last and mean aggregators, "
+                "identity and mlp message functions, memory- or "
+                "embedding-sourced messages, per-position or compacted lazy "
+                "updates, debug_nans, the hand-written merge kernel, one "
+                "device in one process): " + ", ".join(bad)
             )
         if self.node_dim != self.memory_dim:
             raise ValueError(
@@ -227,14 +226,33 @@ class Config:
 
     @property
     def message_dim(self) -> int:
-        """Raw-message width [src_part; dst_part; edge_feat; time_enc]."""
-        return 2 * self.memory_dim + self.edge_dim + self.time_dim
+        """Raw-message width [src_part; dst_part; edge_feat; time_enc]. Under
+        a use_*_embedding_in_message flag that part is the batch's
+        embedding, ``hidden_dim`` wide, instead of the memory row."""
+        src_part = (self.hidden_dim if self.use_source_embedding_in_message
+                    else self.memory_dim)
+        dst_part = (self.hidden_dim
+                    if self.use_destination_embedding_in_message
+                    else self.memory_dim)
+        return src_part + dst_part + self.edge_dim + self.time_dim
 
     @property
     def compact_messages(self) -> bool:
-        """Stored message rows omit the sender-memory part (always so in this
-        slice: only use_source_embedding_in_message turns it off)."""
+        """Whether stored message rows omit the sender-memory part: a node's
+        memory cannot change between a store and its commit, so every
+        consumer already holds that part (the updater cell's own gather of
+        the hidden state) and ``message_input`` re-attaches it. Off only
+        under use_source_embedding_in_message, whose sender part is the
+        batch's embedding, not the memory row."""
         return not self.use_source_embedding_in_message
+
+    @property
+    def need_emb(self) -> bool:
+        """Whether messages take the batch's embeddings (a message-source
+        flag): the eval and train protocols then read the forward's src
+        and dst rows, and serving's observe runs a forward first."""
+        return (self.use_source_embedding_in_message
+                or self.use_destination_embedding_in_message)
 
     @property
     def msg_table_dim(self) -> int:
@@ -245,8 +263,10 @@ class Config:
 
     @property
     def cell_input_dim(self) -> int:
-        """Updater-cell input width (identity message function)."""
-        return self.message_dim
+        """Updater-cell input width: the raw message, or the mlp message
+        function's output (memory_dim wide)."""
+        return (self.memory_dim if self.message_function == "mlp"
+                else self.message_dim)
 
     @property
     def mxu_dtype(self):

@@ -70,12 +70,14 @@ def scan_reference(data: torch.Tensor, params: TpprParams, src, dst, neg,
 class SantaScanKernel(Kernel):
     """ctypes binding of ``csrc/santa_scan.cu``: builds at first call,
     launches one block on the current stream, does not synchronise, counts
-    its launches."""
+    its launches (``launches``) and among them those that extract the
+    pre-edge rows (``extracting``)."""
 
     def __init__(self):
         p, i = ctypes.c_void_p, ctypes.c_int
         super().__init__("santa_scan", [p, p, p, p, p, p, p, p, p, p,
                                         ctypes.c_longlong, i, i, p])
+        self.extracting = 0
 
     def __call__(self, data, params: TpprParams, src, dst, neg, e_ts, e_idx,
                  valid, ext: Optional[torch.Tensor] = None
@@ -123,6 +125,7 @@ class SantaScanKernel(Kernel):
             None if ext is None else ext.data_ptr(), n, m, k,
             torch.cuda.current_stream(dev).cuda_stream,
         )
+        self.extracting += ext is not None
         return ext
 
 

@@ -5,22 +5,24 @@ in train mode.
 - diffusion tower: a neighbor MLP fc2(relu(fc1([mem_nbr; edge_feat;
   time_enc(Δt)]))) with a weight-normalized top-k sum per ensemble member,
   plus a source MLP on the query node's memory → [·, node_dim·(M+1)];
-- the GRU/RNN memory-updater cell on the raw message;
+- the GRU/RNN memory-updater cell on the raw message, or on the mlp
+  message function's output (raw → raw//2 → memory_dim);
 - the MergeLayer link head.
 
 Parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s with the JAX
-pytree's keys (``affinity_fc1/2``, ``cell``, and the diffusion tower's
-``fc1``, ``fc2``, ``fc1_src``, ``fc2_src``) and JAX's [in, out] weight
+pytree's keys (``affinity_fc1/2``, ``cell``, the mlp message function's
+``msg_fc1/2``, and the diffusion tower's ``fc1``, ``fc2``, ``fc1_src``,
+``fc2_src``) and JAX's [in, out] weight
 layout, so ``params["fc1"]["w"]`` reads like the JAX code. The tree is two
 levels deep: the other towers' per-layer lists are flattened to one name
 per layer (``attn_0``, ``sum_fc1_0``, ``sum_fc2_0`` …) and the attention
 layer's MergeLayer to leaves ``merge_fc1_w`` …; ``time_proj`` keeps its
 name. :mod:`zebra_tpu_torch.bridge` carries weights across to and from
 JAX's tree. Init follows the JAX distributions: Xavier-normal
-tower/head weights, U(±1/√in) biases, U(±1/√H) cell parameters, the
-attention and sum layers' and the time projection's laws of
-``zebra_tpu/models/tgn.py``; the numbers differ because the generators
-differ. Dropout masks are drawn from an
+tower/head weights, U(±1/√in) biases and message-function weights,
+U(±1/√H) cell parameters, the attention and sum layers' and the time
+projection's laws of ``zebra_tpu/models/tgn.py``; the numbers differ
+because the generators differ. Dropout masks are drawn from an
 explicit ``torch.Generator`` on the activations' device; they cannot equal
 JAX's ``rbg`` masks, so comparisons with JAX run with dropout 0.
 
@@ -107,6 +109,11 @@ def init_tgn_params(cfg: Config, generator: torch.Generator,
         affinity_fc2=_linear_init(generator, h, 1),
         cell=cell_init(generator, cfg.cell_input_dim, cfg.memory_dim))
     params.update(_tower_init(cfg, generator))
+    if cfg.message_function == "mlp":
+        raw = cfg.message_dim
+        params.update(
+            msg_fc1=_linear_init(generator, raw, raw // 2, False),
+            msg_fc2=_linear_init(generator, raw // 2, cfg.memory_dim, False))
     return nn.ModuleDict(params).to(dev).requires_grad_(False)
 
 
@@ -180,24 +187,35 @@ def cell_apply(cfg: Config, params, msgs, mem):
 def message_input(cfg: Config, params, mem, ids, self_rows=None):
     """The updater-cell input for the pending messages of ``ids`` (all rows
     when None) and the pending flags, from one message-row gather: the flag
-    is the last message column (``memory.py``). ``self_rows`` is the
-    caller's gather of ``memory[ids]`` (the sender part of the compact
-    layout), gathered here when not given."""
+    is the last message column (``memory.py``). The input is the stored
+    last message, or under the ``mean`` aggregator the accumulated sum over
+    ``max(msg_count, 1)`` in f32. ``self_rows`` is the caller's gather of
+    ``memory[ids]`` (the sender part of the compact layout), gathered here
+    when not given."""
     g = (lambda a: a) if ids is None else (lambda a: a[ids])
     rows = g(mem.messages)
+    raw = rows[..., :-1]
+    if cfg.aggregator == "mean":
+        raw = raw.float() / g(mem.msg_count).clamp(min=1.0)[..., None]
     if cfg.compact_messages and self_rows is None:
         self_rows = g(mem.memory)
-    cell_in = message_cell_input(cfg, params, rows[..., :-1], self_rows)
+    cell_in = message_cell_input(cfg, params, raw, self_rows)
     return cell_in, rows[..., -1] != 0
 
 
 def message_cell_input(cfg: Config, params, raw, self_rows):
     """Updater-cell input from a raw stored message: under the compact
     layout the sender-memory part is re-attached from ``self_rows`` (in the
-    promoted dtype of the two, as JAX does: bf16 when both are bf16)."""
+    promoted dtype of the two, as JAX does: bf16 when both are bf16), then
+    the mlp message function, relu(fc1(raw)) → fc2, runs in f32 (stacked
+    parameters: one batched product per layer over the lanes)."""
     if cfg.compact_messages:
         dt = torch.promote_types(self_rows.dtype, raw.dtype)
         raw = torch.cat([self_rows.to(dt), raw.to(dt)], dim=-1)
+    if cfg.message_function == "mlp":
+        p1, p2 = params["msg_fc1"], params["msg_fc2"]
+        hidden = torch.relu(add_bias(matmul(raw.float(), p1["w"]), p1["b"]))
+        raw = add_bias(matmul(hidden, p2["w"]), p2["b"])
     return raw
 
 

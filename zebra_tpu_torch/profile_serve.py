@@ -1,14 +1,21 @@
 """Where ``LinkPredictor.observe``'s time goes on the card.
 
-    python3 -m zebra_tpu_torch.profile_serve
+    python3 -m zebra_tpu_torch.profile_serve [--aggregator mean]
+        [--message_function mlp] [--use_source_embedding_in_message]
+        [--use_destination_embedding_in_message] [--lazy_unique_cap C]
 
 Builds the flagship serving configuration at full width (the one
-``chip_smoke.py`` serves), warms it with 2,000 observed events, then splits
+``chip_smoke.py`` serves), with the model options given (the training
+command line's flags), warms it with 2,000 observed events, then splits
 one b = 200 observe into its two parts, timed apart with the host clock
 around synchronized calls:
-- the index scan (``fill_scan``: one ``santa_scan`` launch), and the host
-  cost of one scan-wrapper call (``SANTA_SCAN``, no synchronisation);
-- the memory protocol (``eval_store_commit``);
+- the index scan (one ``santa_scan`` launch: ``fill_scan``, or
+  ``streaming_scan`` with extraction under a message-source flag), and the
+  host cost of one scan-wrapper call (``SANTA_SCAN``, no
+  synchronisation);
+- the memory protocol (``LinkPredictor._updated_mem``: under a
+  message-source flag the eval forward first, then the fused store and
+  commit under ``last``, store then commit under ``mean``);
 and traces one more observe with ``torch.profiler`` for the device-busy
 share and the kernels that take the device time. ``paced_by`` names the
 larger of the two parts (host clock); ``device_share_of_observe`` is the
@@ -18,6 +25,7 @@ CUDA device."""
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -27,11 +35,16 @@ import torch
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import scan as index_scan
-from zebra_tpu_torch.index.streaming import fill_scan, init_tppr_state
-from zebra_tpu_torch.models.memory import init_memory
+from zebra_tpu_torch.index.streaming import (
+    TpprQueries,
+    fill_scan,
+    init_tppr_state,
+    streaming_scan,
+)
+from zebra_tpu_torch.models.memory import MemoryState, init_memory
 from zebra_tpu_torch.models.tgn import init_tgn_params
 from zebra_tpu_torch.serve import LinkPredictor
-from zebra_tpu_torch.train.step import eval_store_commit
+from zebra_tpu_torch.utils.profiling import add_option_args, option_overrides
 
 B, WARM = 200, 2000
 
@@ -63,19 +76,20 @@ def device_ops(prof) -> dict:
     return out
 
 
-def flagship(seed: int = 0):
+def flagship(seed: int = 0, **overrides):
     """The flagship serving configuration at full width (``bench.py:93-104``,
     ``scripts/serve_bench.py:54-59``) on the bench stream of 120,000 events:
     returns (cfg, params, mem, index, edge_feats, cols), all on the CPU:
     params drawn from ``seed``, bf16 memory tables and an index that are
-    empty, and cols the (src, dst, ts f32, eidx) numpy columns."""
+    empty, and cols the (src, dst, ts f32, eidx) numpy columns.
+    ``overrides`` replace config fields (the model options, say)."""
     data, edge_feats = synthetic_stream(120_000, 20_000, 20_000,
                                         edge_dim=172, seed=seed)
     cfg = Config(
         node_dim=100, time_dim=100, memory_dim=100, topk=20,
         alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95),
         n_nodes=int(max(data.sources.max(), data.destinations.max())) + 1,
-        n_edges=int(data.edge_idxs.max()) + 1, edge_dim=172,
+        n_edges=int(data.edge_idxs.max()) + 1, edge_dim=172, **overrides,
     )
     params = init_tgn_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     mem = init_memory(cfg.n_nodes, cfg.memory_dim, cfg.msg_table_dim,
@@ -87,7 +101,10 @@ def flagship(seed: int = 0):
 
 
 def main() -> None:
-    cfg, params, mem, index, edge_feats, cols = flagship()
+    ap = argparse.ArgumentParser("zebra_tpu_torch.profile_serve")
+    add_option_args(ap)
+    options = option_overrides(ap.parse_args())
+    cfg, params, mem, index, edge_feats, cols = flagship(**options)
     pred = LinkPredictor(cfg, params, mem, index, edge_feats, device="cuda")
     for lo in range(0, WARM, B):
         pred.observe(*(c[lo: lo + B] for c in cols))
@@ -101,14 +118,22 @@ def main() -> None:
     # the parts are timed on throw-away copies of the state
     def scan():
         state = pred.index_state._replace(data=pred.index_state.data.clone())
-        fill_scan(state, pred._tppr, src, dst, t, eidx, valid)
+        if not cfg.need_emb:
+            fill_scan(state, pred._tppr, src, dst, t, eidx, valid)
+            return None
+        _, q = streaming_scan(state, pred._tppr, src, dst, dst, t, eidx,
+                              valid)
+        return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(
+            cfg.n_tppr, -1, cfg.topk) for x in q))
+
+    q = scan()
 
     def protocol():
-        mem = pred.mem._replace(**{f: getattr(pred.mem, f).clone()
-                                   for f in pred.mem._fields})
+        live = pred.mem
+        pred.mem = MemoryState(*(x.clone() for x in live))
         with torch.no_grad():
-            eval_store_commit(cfg, pred.params, mem, pred.edge_feats, src,
-                              dst, t, eidx, valid)
+            pred._updated_mem(q, src, dst, t, eidx, valid)
+        pred.mem = live
 
     def clone_only():
         pred.index_state.data.clone()
@@ -130,7 +155,9 @@ def main() -> None:
 
     observe = lambda: pred.observe(*(c[sl] for c in cols))
     res = dict(
-        b=B,
+        b=B, **options,
+        message_table_bytes=pred.mem.messages.numel()
+        * pred.mem.messages.element_size(),
         observe_ms=_median_s(observe) * 1e3,
         scan_ms=_median_s(scan) * 1e3,
         protocol_ms=_median_s(protocol) * 1e3,

@@ -3,6 +3,9 @@
     python3 -m zebra_tpu_torch.profile_train [--parallel_runs S]
         [--tppr_strategy pruning [--n_degree W] [--n_layer D]]
         [--embedding_module graph_attention|graph_sum|identity|time]
+        [--aggregator mean] [--message_function mlp]
+        [--use_source_embedding_in_message]
+        [--use_destination_embedding_in_message] [--lazy_unique_cap C]
 
 Builds the flagship training configuration at full width on the bench
 stream (the one ``chip_smoke.py`` trains), or with ``--tppr_strategy
@@ -11,7 +14,8 @@ pruning`` the MOOC pruning run on its MOOC-shaped stream
 or with ``--embedding_module`` the Wikipedia TGN run of that tower on its
 Wikipedia-shaped stream (:func:`wikipedia_attention`, neighbors per hop
 ``--n_degree``, hops ``--n_layer``), with S seeds in one pass when
-``--parallel_runs`` is given, runs a warm-up epoch, then:
+``--parallel_runs`` is given, and the model options given (the training
+command line's flags), runs a warm-up epoch, then:
 - one epoch with CUDA events between its parts, read after the epoch: the
   device timeline split into the index wave loop ("index", streaming
   diffusion) or the batches' BFS calls ("query", pruning diffusion), the
@@ -39,6 +43,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from zebra_tpu_torch.config import Config
@@ -46,6 +51,8 @@ from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge
 from zebra_tpu_torch.index.neighbor_finder import most_recent_neighbors
+from zebra_tpu_torch.index.streaming import TpprState
+from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
 from zebra_tpu_torch.profile_serve import device_ops
 from zebra_tpu_torch.train.loop import Trainer
 from zebra_tpu_torch.train.phase import (
@@ -54,7 +61,12 @@ from zebra_tpu_torch.train.phase import (
     pruned_queries,
     run_phase,
 )
-from zebra_tpu_torch.utils.profiling import count_ops, device_ms
+from zebra_tpu_torch.utils.profiling import (
+    add_option_args,
+    count_ops,
+    device_ms,
+    option_overrides,
+)
 
 # MOOC (BASELINE.md:66): 7,144 nodes, 411,749 events, 4 edge features
 MOOC_USERS, MOOC_ITEMS = 7047, 97
@@ -150,16 +162,29 @@ def tower_lookups(trainer: Trainer, i: int = 0):
 
 def train_batch(trainer: Trainer, i: int = 0):
     """A call that runs train batch ``i`` through ``run_phase`` on the
-    trainer's state (an Adam step and the memory protocol included)."""
-    b = trainer.cfg.bs
+    trainer's state (an Adam step and the memory protocol included), with
+    its T-PPR queries: under the streaming strategy the extraction rows of
+    a wave scan of the batch's superchunk on a copy of the trainer's index
+    (made here, once), under pruning the BFS over the train graph."""
+    cfg, b = trainer.cfg, trainer.cfg.bs
     ps = trainer._streams["train"]
-    negs = trainer._draw_train_negs(0)
-    negs = torch.from_numpy(negs.T.copy() if negs.ndim == 2 else negs)
-    stream = ps.stream._replace(neg=negs.to(trainer.device))
+    negs = np.ascontiguousarray(trainer._draw_train_negs(0).T)
+    stream = ps.stream._replace(neg=torch.from_numpy(negs).to(trainer.device))
     s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+    queries = trainer.train_nbr_index if cfg.uses_tppr else None
+    if cfg.keeps_tppr_index:
+        chunk = len(ps.host["src"]) // ps.n_chunks
+        sl = slice(i * b // chunk * chunk, (i * b // chunk + 1) * chunk)
+        plan = plan_waves(ps.host["src"][sl], ps.host["dst"][sl], negs[sl],
+                          ps.host["valid"][sl], cfg.n_nodes, cfg.wave_cap,
+                          trainer.device)
+        index = TpprState(trainer.index_state.data.clone())
+        _, rows = wave_scan_chunk(index, trainer._tppr,
+                                  *(x[sl] for x in stream), plan)
+        queries = rows[i * b - sl.start: i * b - sl.start + b]
     return lambda: run_phase(
-        trainer.cfg, True, trainer.params, trainer.optimizer, trainer.mem,
-        trainer.edge_feats, s, None, [b], trainer._dropout, None,
+        cfg, True, trainer.params, trainer.optimizer, trainer.mem,
+        trainer.edge_feats, s, queries, [b], trainer._dropout, None,
         trainer._offs, None, trainer.train_nbr_index)
 
 
@@ -194,7 +219,9 @@ def main() -> None:
     ap.add_argument("--embedding_module", default="diffusion",
                     choices=["diffusion", "graph_attention", "graph_sum",
                              "identity", "time"])
+    add_option_args(ap)
     args = ap.parse_args()
+    options = option_overrides(args)
     tower = args.embedding_module != "diffusion"
     pruning = args.tppr_strategy == "pruning" and not tower
     if tower:
@@ -202,14 +229,14 @@ def main() -> None:
             parallel_runs=args.parallel_runs,
             embedding_module=args.embedding_module,
             tppr_strategy=args.tppr_strategy, n_degree=args.n_degree,
-            n_layer=args.n_layer)
+            n_layer=args.n_layer, **options)
     elif pruning:
         cfg, splits, edge_feats = mooc_pruning(
             parallel_runs=args.parallel_runs, n_degree=args.n_degree,
-            n_layer=args.n_layer)
+            n_layer=args.n_layer, **options)
     else:
         cfg, splits, edge_feats = flagship_training(
-            parallel_runs=args.parallel_runs)
+            parallel_runs=args.parallel_runs, **options)
     trainer = Trainer(cfg, splits, edge_feats, device="cuda")
     n_train = splits.train.n_interactions * cfg.n_seeds
     trainer.train_epoch()                               # warm-up
@@ -279,7 +306,7 @@ def main() -> None:
     print(json.dumps(dict(
         embedding_module=cfg.embedding_module,
         tppr_strategy=cfg.tppr_strategy, n_degree=cfg.n_degree,
-        n_layer=cfg.n_layer, parallel_runs=cfg.n_seeds,
+        n_layer=cfg.n_layer, parallel_runs=cfg.n_seeds, **options,
         train_events=n_train, batches=batches,
         waves=plain.waves, santa_merge_launches=launches,
         epoch_s=epoch_s, train_events_per_s=n_train / epoch_s,
@@ -291,6 +318,8 @@ def main() -> None:
         device_busy_share_traced=busy_s / traced_s,
         device_busy_share_of_epoch=busy_s / epoch_s,
         santa_merge_device_s=merge_s, **extra,
+        message_table_bytes=trainer.mem.messages.numel()
+        * trainer.mem.messages.element_size(),
         device_kernels=sum(n for n, _ in per_kernel.values()),
         device_kernels_per_batch=sum(
             n for n, _ in per_kernel.values()) / batches,

@@ -13,7 +13,11 @@ The predictor runs on CUDA unless ``device="cpu"`` is passed. ``observe``
 streams the events through the T-PPR index (``fill_scan``: one
 ``santa_scan`` kernel launch per call on the card), then applies the
 eval-mode memory protocol; ``score`` is read-only. Both refuse node ids
-outside [0, N) on the host, before anything reaches the device.
+outside [0, N) on the host, before anything reaches the device. Under a
+message-source flag the messages take the events' embeddings: ``observe``
+then runs an eval forward at [src; dst; dst] first, whose diffusion
+queries are the pre-edge rows the scan extracts (``streaming_scan``, still
+one ``santa_scan`` launch) or, under pruning, one BFS.
 
 Under the pruning strategy the predictor holds no T-PPR state but an
 adjacency index (``nbr_index``) and the event stream it was built from
@@ -53,12 +57,13 @@ from zebra_tpu_torch.index.streaming import (
     check_id_width,
     fill_scan,
     read_topk,
+    streaming_scan,
 )
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import affinity_score, params_from_state_dict
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
-from zebra_tpu_torch.train.step import _forward, eval_store_commit
+from zebra_tpu_torch.train.step import _forward, eval_protocol
 
 logger = logging.getLogger("zebra_tpu_torch")
 
@@ -311,8 +316,12 @@ class LinkPredictor:
         """Ingest observed interactions: fold them into the adjacency index
         (pruning and the recursive towers; see ``rebuild_every``) or stream
         them through the T-PPR index (streaming diffusion, updated in place;
-        edge ids must stay below 2^24, ``fill_scan`` checks), then
-        store-and-commit their messages into memory (the eval protocol)."""
+        edge ids must stay below 2^24, the scan checks), then store and
+        commit their messages into memory (the eval protocol). Under a
+        message-source flag the messages carry the embeddings of an eval
+        forward at [src; dst; dst], after the fold (an event's recursive
+        query sees the earlier events of the call) and on the pre-edge
+        T-PPR queries."""
         with torch.no_grad():
             cols = self._request(src, dst, t)
             self._append_events(src, dst, t, eidx)
@@ -320,18 +329,41 @@ class LinkPredictor:
             eidx = torch.as_tensor(np.asarray(eidx, np.int32)).to(self.device)
             valid = torch.ones(src.shape[0], dtype=torch.bool,
                                device=self.device)
-            # no pre-edge queries: they would feed embedding-sourced
-            # messages, which this slice's Config refuses
+            q = None
             if self.index_state is not None:
-                self.index_state = fill_scan(self.index_state, self._tppr,
-                                             src, dst, t, eidx, valid)
-            self.mem = self._updated_mem(src, dst, t, eidx, valid)
+                if self.cfg.need_emb:
+                    # the scan's extraction is pre-edge: the queries an eval
+                    # forward at these events reads
+                    self.index_state, q = streaming_scan(
+                        self.index_state, self._tppr, src, dst, dst, t, eidx,
+                        valid)
+                    m, k = self.cfg.n_tppr, self.cfg.topk
+                    q = TpprQueries(*(x.permute(1, 2, 0, 3).reshape(m, -1, k)
+                                      for x in q))
+                else:
+                    self.index_state = fill_scan(self.index_state,
+                                                 self._tppr, src, dst, t,
+                                                 eidx, valid)
+            elif self.cfg.need_emb:
+                q = self._queries(src, dst, t)
+            self.mem = self._updated_mem(q, src, dst, t, eidx, valid)
 
-    def _updated_mem(self, src, dst, t, eidx, valid) -> MemoryState:
-        """Eval-protocol memory update for observe()."""
-        return eval_store_commit(self.cfg, self.params, self.mem,
-                                 self.edge_feats, src, dst, t, eidx, valid,
-                                 self._offs)
+    def _updated_mem(self, q: Optional[TpprQueries], src, dst, t, eidx,
+                     valid) -> MemoryState:
+        """Eval-protocol memory update for observe(), every member of an
+        ensemble at once; under a message-source flag with the embeddings
+        of an eval forward over the queries ``q`` (src‖dst‖dst blocks)."""
+        src_emb = dst_emb = None
+        if self.cfg.need_emb:
+            b = src.shape[0]
+            emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
+                           torch.cat([src, dst, dst]), q, offs=self._offs,
+                           times=torch.cat([t, t, t]),
+                           nbr_index=self.nbr_index)
+            src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
+        return eval_protocol(self.cfg, self.params, self.mem, self.edge_feats,
+                             src, dst, t, eidx, valid, self._offs, src_emb,
+                             dst_emb)
 
 
 class EnsemblePredictor(LinkPredictor):

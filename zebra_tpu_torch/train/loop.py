@@ -51,6 +51,7 @@ per-seed values."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import os
@@ -81,7 +82,9 @@ from zebra_tpu_torch.train.phase import Stream, _mark, run_phase
 from zebra_tpu_torch.train.step import (
     flush_pending,
     flush_pending_seeds,
+    lazy_position_count,
     make_optimizer,
+    resolve_lazy_cap,
 )
 from zebra_tpu_torch.utils.profiling import PhaseTimers, trace_context
 
@@ -104,6 +107,9 @@ class PhaseResult:
                                  # (the device runs them behind the host)
     waves: int = 0               # index waves run: one santa_merge launch
                                  # each on the card
+    overflow: float = 0.0        # >0: a train batch overflowed the lazy
+                                 # compaction's cap (its rows were wrong;
+                                 # train_epoch reruns the epoch)
     per_batch: Optional[np.ndarray] = field(  # [real batches, 4]: loss,
         default=None, repr=False)             # ap, auc, acc per batch
                                               # ([real batches, S, 4])
@@ -231,6 +237,9 @@ class Trainer:
         self._fit_state: Optional[Dict] = None
         # index waves run so far: one santa_merge launch each on the card
         self.index_waves = 0
+        # set once a batch overflowed the lazy compaction's cap: training
+        # then runs per position for the rest of the run
+        self._lazy_fallback = False
         # one record per epoch of fit: seconds, rates, AP, state-file write
         self.epoch_log: List[Dict[str, float]] = []
 
@@ -357,6 +366,9 @@ class Trainer:
         was requested. The metrics cover the superchunks that ran."""
         t0 = time.perf_counter()
         cfg = self.cfg
+        # after a compaction overflow training runs per position (sticky)
+        run_cfg = (cfg.replace(lazy_unique_cap=0)
+                   if train and self._lazy_fallback else cfg)
         wave_scan = cfg.keeps_tppr_index
         ps = self._streams[name]
         stream = ps.stream
@@ -386,7 +398,7 @@ class Trainer:
         chunk = stream.src.shape[0] // ps.n_chunks
         per_chunk = chunk // cfg.bs
         n_valid = ps.n_valid()
-        metrics, waves, bfs_s = [], 0, []
+        metrics, waves, bfs_s, overflow = [], 0, [], []
         nbr_index = self.train_nbr_index if train else self.full_nbr_index
         _mark(marks, "start")
         for ci in chunks:
@@ -406,11 +418,11 @@ class Trainer:
                 # the BFS's index, or none for a tower without T-PPR
                 queries = nbr_index if cfg.uses_tppr else None
             metrics.append(run_phase(
-                cfg, train, self.params, self.optimizer, self.mem,
+                run_cfg, train, self.params, self.optimizer, self.mem,
                 self.edge_feats, cs, queries,
                 n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist(),
                 self._dropout if train else None, marks, self._offs, bfs_s,
-                nbr_index))
+                nbr_index, overflow, name))
             if train:
                 self._chunk_cursor = ci + 1
                 if self._stop_requested and wave_scan:
@@ -422,6 +434,8 @@ class Trainer:
         real = max(1, min(len(per_batch),
                           ps.real_batches - start_chunk * per_chunk))
         per_batch = per_batch[:real]
+        overflowed = (float(torch.stack(overflow[:real]).max())
+                      if overflow else 0.0)
         # [4], or [S, 4] seed-parallel
         mean = per_batch.mean(axis=0)
         if self._n_seeds == 1:
@@ -432,7 +446,7 @@ class Trainer:
             loss=mean[0], ap=mean[1], auc=mean[2], acc=mean[3],
             seconds=time.perf_counter() - t0,
             index_seconds=t_index + sum(bfs_s), waves=waves,
-            per_batch=per_batch)
+            overflow=overflowed, per_batch=per_batch)
 
     # ---------------------------------------------------------------- epochs
 
@@ -448,16 +462,75 @@ class Trainer:
         ran. ``marks``, a list (CUDA only), collects (part, CUDA event)
         pairs that time the epoch's parts on the device: "start", then
         "index" after each superchunk's wave scan, then ``run_phase``'s
-        per-batch parts."""
+        per-batch parts.
+
+        Under the lazy compaction (``lazy_unique_cap`` ≠ 0) a whole epoch
+        starts from a snapshot of the params, Adam's state and the dropout
+        generators (the negatives are drawn again from the epoch id). If a
+        batch overflowed the cap, the epoch is rerun per position from the
+        snapshot, and training stays per position; a windowed epoch cannot
+        be rerun and logs an error instead."""
+        snapshot = None
+        if (start_chunk == 0 and max_chunks is None
+                and not self._lazy_fallback
+                and self._lazy_compaction_active()):
+            snapshot = self._snapshot()
         if start_chunk == 0:
             self.mem, self.index_state = self._fresh_state()
         self.index_state, result = self._phase(
             "train", True, self.index_state, marks, start_chunk, max_chunks)
+        if result.overflow > 0 and not self._lazy_fallback:
+            self._lazy_fallback = True
+            if snapshot is not None:
+                logger.warning(
+                    "lazy-update compaction cap overflowed (epoch %d); "
+                    "rerunning the epoch on the per-position path and "
+                    "switching to it for the rest of the run "
+                    "(set --lazy_unique_cap to resize)", self._epoch_id)
+                self._restore_snapshot(snapshot)
+                self.mem, self.index_state = self._fresh_state()
+                self.index_state, result = self._phase(
+                    "train", True, self.index_state, marks)
+            else:
+                logger.error(
+                    "lazy-update compaction cap overflowed during a windowed "
+                    "epoch run; this epoch's updates used the compacted path "
+                    "(set --lazy_unique_cap 0 or restart from the last "
+                    "checkpoint for exact results)")
         if self._chunk_cursor >= self._streams["train"].n_chunks:
             # epoch complete: the cursor expires
             self._chunk_cursor = 0
             self._epoch_id += 1
         return result
+
+    def _lazy_compaction_active(self) -> bool:
+        """Whether the train forward runs the compacted lazy updates (the
+        diffusion tower with a cap that shrinks the positions): only then
+        can a batch overflow."""
+        cfg = self.cfg
+        return cfg.uses_tppr and resolve_lazy_cap(
+            cfg, lazy_position_count(cfg)) > 0
+
+    def _generators(self) -> list:
+        return (list(self._dropout) if isinstance(self._dropout, list)
+                else [self._dropout])
+
+    def _snapshot(self):
+        """Copies of what a train epoch changes besides memory and index:
+        params, Adam's state and the dropout generators' states."""
+        return ({k: v.detach().clone()
+                 for k, v in self.params.state_dict().items()},
+                copy.deepcopy(self.optimizer.state_dict()),
+                [g.get_state() for g in self._generators()])
+
+    def _restore_snapshot(self, snapshot) -> None:
+        params, opt, gens = snapshot
+        # in place, so the optimizer keeps referring to the live tensors
+        self.params.load_state_dict(params)
+        self.optimizer.load_state_dict(opt)
+        for g, state in zip(self._generators(), gens):
+            g.set_state(state)
+        self._chunk_cursor = 0
 
     def validate(self) -> Tuple[PhaseResult, PhaseResult]:
         """Transductive and inductive validation with the backup/restore

@@ -9,7 +9,9 @@
    per wave on the card); under the pruning strategy each batch's src‖dst
    roots take one BFS over an adjacency index. The towers other than
    diffusion read no T-PPR query: the recursive ones search the adjacency
-   index at the events' times.
+   index at the events' times. Each batch's memory protocol stores then
+   commits, as JAX's replay does, with the batch's src and dst embeddings
+   in the messages under a message-source flag.
 2. :class:`NodeDecoder`: the reference head dim → 80 → 10 → 1 with dropout.
 3. :func:`train_node_classifier` (Adam and BCE) and
    :func:`eval_node_classification` (pairwise ROC-AUC).
@@ -35,7 +37,7 @@ from zebra_tpu_torch.train.phase import (
     ensemble_tensors,
     pruned_queries,
 )
-from zebra_tpu_torch.train.step import _forward, eval_store_commit
+from zebra_tpu_torch.train.step import _forward, eval_store_then_commit
 
 DECODER_DROPOUT = 0.3
 
@@ -86,8 +88,11 @@ def collect_source_embeddings(cfg: Config, params, mem: MemoryState,
                            torch.cat([s.src, s.dst]), q, times=times,
                            nbr_index=nbr_index)
             nv = n_valid[(lo + j * b) // b]
-            eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                              s.eidx, None if nv == b else s.valid)
+            src_emb, dst_emb = ((emb[:b], emb[b:]) if cfg.need_emb
+                                else (None, None))
+            eval_store_then_commit(cfg, params, mem, edge_feats, s.src, s.dst,
+                                   s.t, s.eidx, None if nv == b else s.valid,
+                                   None, src_emb, dst_emb)
             # the identity tower's eval rows keep the table's dtype
             out.append(emb[:b].float())
     return mem, index_state, torch.cat(out), waves

@@ -38,13 +38,15 @@ from zebra_tpu_torch.index.pruning import pruned_topk
 from zebra_tpu_torch.index.streaming import TpprQueries, unpack_queries
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.ops.metrics import masked_ap, masked_auc, masked_rank_acc
+from zebra_tpu_torch.models.embedding import lane_ids
 from zebra_tpu_torch.train.step import (
     _commit_pending,
     _forward,
     _masked_mean,
     _scores,
     _store_messages,
-    eval_store_commit,
+    eval_protocol,
+    train_plan,
 )
 
 METRICS = ("loss", "ap", "auc", "acc")
@@ -119,13 +121,33 @@ def _mark(marks: Optional[list], name: str) -> None:
         marks.append((name, event))
 
 
+def check_finite(phase: str, batch: int, **parts) -> None:
+    """``--debug_nans``: one host read of whether every tensor of ``parts``
+    (name → tensor, or list of tensors) is finite; raises
+    ``FloatingPointError`` naming the phase, the batch and the parts that
+    are not."""
+    names, flags = [], []
+    for name, ts in parts.items():
+        for x in ts if isinstance(ts, (list, tuple)) else [ts]:
+            names.append(name)
+            flags.append(torch.isfinite(x).all())
+    ok = torch.stack(flags).tolist()
+    bad = sorted({n for n, good in zip(names, ok) if not good})
+    if bad:
+        raise FloatingPointError(
+            f"non-finite values in {phase} batch {batch}: {', '.join(bad)} "
+            "(--debug_nans)")
+
+
 def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
               edge_feats: torch.Tensor, stream: Stream,
               queries: Union[torch.Tensor, NeighborIndex, None],
               n_valid: Sequence[int], generator=None,
               marks: Optional[List] = None, offs=None,
               bfs_s: Optional[List[float]] = None,
-              nbr_index: Optional[NeighborIndex] = None) -> torch.Tensor:
+              nbr_index: Optional[NeighborIndex] = None,
+              overflow: Optional[List] = None,
+              phase: str = "train") -> torch.Tensor:
     """One pass over the batches of ``stream`` with their T-PPR queries:
     ``queries`` holds the extraction rows [E, 3, F] (streaming), or is the
     adjacency index the batches' BFS calls search (pruning; ``bfs_s``, a
@@ -145,10 +167,22 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     lane, train negatives [E, S] with rows [E, 2+S, F]; the metrics are
     [n_batches, S, 4].
 
-    ``marks``, a list, receives a (part, CUDA event) pair after each part
-    of each batch: "query" (the BFS, pruning only), "forward" (queries,
-    towers, loss), "backward", "adam" (train only), "protocol" (the memory
-    protocol), "metrics"."""
+    Under a message-source flag the batch's src and dst embeddings feed
+    its messages: in training those of the train forward, detached
+    (dropout included), in eval those of the eval forward. Eval batches
+    take the fused protocol under ``last`` and store then commit under
+    ``mean``.
+
+    ``overflow``, a list, receives each train batch's lazy-compaction
+    overflow flag (a device scalar, ``make_lazy_plan``), read by the
+    caller with the metrics. ``marks``, a list, receives a (part, CUDA
+    event) pair after each part of each batch: "query" (the BFS, pruning
+    only), "forward" (queries, towers, loss), "backward", "adam" (train
+    only), "protocol" (the memory protocol), "metrics". Under
+    ``cfg.debug_nans`` each batch ends with a host read of whether its
+    loss, logits, updated parameters and written memory rows are finite
+    (:func:`check_finite`, naming ``phase``); without it nothing is
+    added."""
     b = cfg.bs
     per_lane = offs is not None and stream.neg.dim() == 2
     index = queries if isinstance(queries, NeighborIndex) else None
@@ -188,11 +222,15 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                                dim=1)
         else:
             nodes3 = torch.cat([s.src, s.dst, s.neg])
+        src_emb = dst_emb = None
         if train:
+            plan = train_plan(cfg, q, nodes3, offs)
+            if overflow is not None and plan is not None:
+                overflow.append(plan.overflow)
             optimizer.zero_grad(set_to_none=True)
             emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
                            train=True, generator=generator, offs=offs,
-                           times=times3, nbr_index=nbr_index)
+                           times=times3, nbr_index=nbr_index, plan=plan)
             pos_logit, neg_logit = _scores(cfg, params, emb, b)
             bce = F.binary_cross_entropy_with_logits
             loss = (
@@ -207,13 +245,16 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
             _mark(marks, "backward")
             optimizer.step()
             _mark(marks, "adam")
+            if cfg.need_emb:
+                emb = emb.detach()
+                src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
             # commit earlier batches' messages with the updated parameters,
             # then store this batch's (one-batch staleness)
             _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
                             None if valid is None else torch.cat([valid, valid]),
                             offs)
             _store_messages(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                            s.eidx, valid, offs)
+                            s.eidx, valid, offs, src_emb, dst_emb)
             loss = loss.detach()
         else:
             with torch.no_grad():
@@ -221,10 +262,18 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                                offs=offs, times=times3, nbr_index=nbr_index)
                 pos_logit, neg_logit = _scores(cfg, params, emb, b)
             _mark(marks, "forward")
-            eval_store_commit(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                              s.eidx, valid, offs)
+            if cfg.need_emb:
+                src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
+            eval_protocol(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
+                          s.eidx, valid, offs, src_emb, dst_emb)
             loss = torch.zeros(pos_logit.shape[:-1], device=emb.device)
         _mark(marks, "protocol")
+        if cfg.debug_nans:
+            rows = lane_ids(torch.cat([s.src, s.dst]).to(torch.int64), offs)
+            check_finite(phase, i, loss=loss,
+                         logits=[pos_logit.detach(), neg_logit.detach()],
+                         params=list(params.parameters()) if train else [],
+                         memory=[mem.memory[rows], mem.messages[rows]])
         with torch.no_grad():
             pos_p, neg_p = torch.sigmoid(pos_logit), torch.sigmoid(neg_logit)
             out.append(torch.stack([

@@ -1,7 +1,7 @@
 """Building blocks of the train and eval step (counterpart of
-``zebra_tpu/train/step.py``) for the ported slice: every tower (diffusion
-here, the others in ``models/embedding.py``), the ``last`` aggregator and
-per-position lazy updates.
+``zebra_tpu/train/step.py``): every tower (diffusion here, the others in
+``models/embedding.py``), both aggregators, memory- or embedding-sourced
+messages, and per-position or compacted lazy updates.
 
 TRAIN batch (one-batch message staleness):
   1. differentiable forward with lazy memory: a selected neighbor row with a
@@ -11,11 +11,25 @@ TRAIN batch (one-batch message staleness):
   2. BCE(pos, 1) + BCE(neg, 0) as masked means, backward, Adam step;
   3. no grad: commit the pending messages of the batch's positives with the
      updated parameters, then store this batch's messages (both
-     directions, the last per sender wins) from the post-commit memory.
+     directions) from the post-commit memory: the last per sender wins
+     (``last``), or every message adds into its sender's row (``mean``,
+     whose commit divides by the count). Under a message-source flag the
+     sender or receiver part of a message is the batch's (detached)
+     embedding instead of the memory row.
 
 EVAL batch: raw memory everywhere; the batch's messages are stored and
-committed at once (:func:`eval_store_commit`). A flush of every pending
-message (:func:`flush_pending`) runs at the train→eval transition.
+committed at once: fused under ``last`` (:func:`eval_store_commit`), store
+then commit under ``mean``. A flush of every pending message
+(:func:`flush_pending`) runs at the train→eval transition.
+
+LAZY COMPACTION (``cfg.lazy_unique_cap`` ≠ 0, the diffusion tower): the
+updater cell runs once per distinct selected node of a batch, at most a
+static cap of them, instead of once per position (:func:`make_lazy_plan`).
+The plan sorts, ranks by a cumsum and bounds the segments by a binary
+search, so every batch has the same shapes and nothing is read back; a
+batch with more distinct nodes than the cap raises the plan's
+``overflow`` flag on the device, and the Trainer reruns the epoch per
+position.
 
 SEED-PARALLEL (``cfg.parallel_runs`` = S > 1; the counterpart of the JAX
 package's ``*_flat`` helpers, ``zebra_tpu/train/step.py:544-718``): the
@@ -37,7 +51,7 @@ a stream)."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -141,30 +155,181 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ forward
 
-def make_lazy_plan(cfg: Config, q: TpprQueries, nodes3) -> torch.Tensor:
-    """Per-position lazy-update plan: whether each query node [3b] is among
-    the selected neighbors (the membership that gates its lazy update), by
-    a sort of the M·3b·k selected ids and a binary search."""
-    flat = torch.sort(q.nbr.reshape(-1)).values
-    j = torch.searchsorted(flat, nodes3).clamp(max=flat.numel() - 1)
-    return flat[j] == nodes3
+class LazyPlan(NamedTuple):
+    """Id bookkeeping of the train forward's lazy updates
+    (``zebra_tpu/train/step.py:LazyPlan``), made outside the differentiated
+    part. Fields carry a leading lane axis for seed-parallel ids; ``uniq``
+    and the fields after it are None in per-position mode."""
+
+    in_sel: torch.Tensor          # bool [3b]: query node among the selected
+    overflow: torch.Tensor        # f32 []: 1.0 when a lane's distinct count
+                                  # passed the cap (its rows are then wrong)
+    uniq: Optional[torch.Tensor] = None        # i64 [cap] sorted distinct
+                                               # ids, padded with BIG
+    gather_ids: Optional[torch.Tensor] = None  # i64 [cap] uniq, pad → 0
+    jn: Optional[torch.Tensor] = None          # i64 [M, 3b, k] position →
+                                               # slot
+    j3: Optional[torch.Tensor] = None          # i64 [3b] query → slot
+    perm: Optional[torch.Tensor] = None        # i64 [P] id-sorted positions
+    start_pos: Optional[torch.Tensor] = None   # i64 [cap] segment starts
+    end_pos: Optional[torch.Tensor] = None     # i64 [cap] segment ends
+
+
+def lazy_position_count(cfg: Config) -> int:
+    """Selected-neighbor positions of one train batch's lazy update (per
+    lane): the [M, 3b, k] layout of ``q.nbr`` that :func:`make_lazy_plan`
+    reads. The Trainer's snapshot gate derives its decision from the same
+    count; :func:`make_lazy_plan` checks that the two agree."""
+    return cfg.n_tppr * 3 * cfg.bs * cfg.topk
+
+
+def resolve_lazy_cap(cfg: Config, n_positions: int) -> int:
+    """The static distinct-row budget: ``cfg.lazy_unique_cap``, -1 meaning
+    auto (2/5 of the position count, at least 256); 0 when the cap would
+    not shrink anything."""
+    cap = cfg.lazy_unique_cap
+    if cap < 0:
+        cap = max(256, (2 * n_positions) // 5)
+    if cap >= n_positions:
+        return 0
+    return cap
+
+
+def make_lazy_plan(cfg: Config, q: TpprQueries, nodes3) -> LazyPlan:
+    """The lazy-update plan of a train batch. Per position (cap 0): whether
+    each query node [3b] is among the selected neighbors (the membership
+    that gates its lazy update), by a sort of the selected ids and a binary
+    search. Compacted (``resolve_lazy_cap`` > 0): the selected ids of each
+    lane sorted, their ranks from a cumsum over the new-id mask, the
+    position → slot map by inverting the sort's permutation, the segment
+    bounds by a binary search of the ranks, and the sorted distinct ids
+    padded to the static cap. Seed-parallel ids ([S, M, 3b, k], [S, 3b])
+    plan each lane alone, as a single-seed batch would."""
+    n_pos = q.nbr.shape[-3:].numel()
+    if n_pos != lazy_position_count(cfg):
+        raise ValueError(
+            "query layout desynced from lazy_position_count "
+            f"({n_pos} positions vs {lazy_position_count(cfg)}): the "
+            "Trainer's overflow-snapshot gate keys off that count")
+    cap = resolve_lazy_cap(cfg, n_pos)
+    if not cap:
+        flat = torch.sort(q.nbr.reshape(-1)).values
+        j = torch.searchsorted(flat, nodes3).clamp(max=flat.numel() - 1)
+        return LazyPlan(in_sel=flat[j] == nodes3,
+                        overflow=torch.zeros((), device=flat.device))
+
+    lead = q.nbr.shape[:-3]
+    ids = q.nbr.reshape(-1, n_pos).to(torch.int64)           # [L, P]
+    n_lanes, dev = ids.shape[0], ids.device
+    flat, perm = torch.sort(ids, dim=-1, stable=True)
+    is_new = torch.ones_like(flat, dtype=torch.bool)
+    is_new[:, 1:] = flat[:, 1:] != flat[:, :-1]
+    rank = torch.cumsum(is_new, dim=-1) - 1                  # [L, P]
+    n_unique = rank[:, -1] + 1                               # [L]
+    jn = torch.empty_like(rank).scatter_(-1, perm, rank)     # undo the sort
+    r = torch.arange(cap, device=dev).expand(n_lanes, cap).contiguous()
+    end_pos = torch.searchsorted(rank, r, right=True)        # [L, cap]
+    start_pos = torch.zeros_like(end_pos)
+    start_pos[:, 1:] = end_pos[:, :-1]
+    live = r < n_unique[:, None]
+    big = torch.iinfo(torch.int64).max
+    uniq = torch.where(live, flat.gather(-1, start_pos.clamp(max=n_pos - 1)),
+                       big)
+    nodes = nodes3.reshape(n_lanes, -1).to(torch.int64)
+    j3 = torch.searchsorted(uniq, nodes).clamp(max=cap - 1)
+    in_sel = uniq.gather(-1, j3) == nodes
+    out = dict(uniq=uniq, gather_ids=torch.where(live, uniq, 0),
+               j3=j3, perm=perm, start_pos=start_pos, end_pos=end_pos)
+    return LazyPlan(
+        in_sel=in_sel.reshape(nodes3.shape),
+        overflow=(n_unique > cap).any().float(),
+        jn=jn.clamp(max=cap - 1).reshape(q.nbr.shape),
+        **{k: v.reshape(lead + v.shape[1:]) for k, v in out.items()})
+
+
+def _lane_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rows[idx]`` per lane: rows [*lead, n, D], idx [*lead, ...] →
+    [*lead, ..., D] (lead () or (S,))."""
+    if rows.dim() == 2:
+        return rows[idx]
+    lanes = torch.arange(rows.shape[0], device=rows.device)
+    return rows[lanes.view((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
+class DedupGather(torch.autograd.Function):
+    """``rows_u[jn]`` (per lane) whose backward is JAX's sorted-segment sum
+    (``zebra_tpu/train/step.py:_dedup_gather``): the cotangents in id order,
+    a cumsum, then differences at the segment bounds, in place of the
+    scatter-add of the gather's own backward. The backward works on the
+    cotangents transposed to [lanes, D, positions], so the cumsum runs
+    along the innermost axis: along an outer axis of [1, 24,000, 100] the
+    card's scan took 4.2 ms per batch."""
+
+    @staticmethod
+    def forward(ctx, rows_u, jn, perm, start_pos, end_pos):
+        ctx.save_for_backward(perm, start_pos, end_pos)
+        ctx.shape = rows_u.shape
+        return _lane_gather(rows_u, jn)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, start_pos, end_pos = ctx.saved_tensors
+        d = g.shape[-1]
+        n_lanes = perm.numel() // perm.shape[-1]
+        g = g.reshape(n_lanes, -1, d).transpose(1, 2)         # [L, D, P]
+        pick = lambda x, i: x.gather(
+            2, i.reshape(n_lanes, 1, -1).expand(-1, d, -1))
+        c = torch.cumsum(pick(g, perm), dim=-1)
+        cpad = torch.cat([torch.zeros_like(c[..., :1]), c], dim=-1)
+        d_rows = pick(cpad, end_pos) - pick(cpad, start_pos)  # [L, D, cap]
+        return (d_rows.transpose(1, 2).reshape(ctx.shape), None, None, None,
+                None)
 
 
 def _train_lazy_rows(cfg: Config, params, mem: MemoryState, nodes3,
-                     q: TpprQueries, in_sel):
+                     q: TpprQueries, plan: LazyPlan):
     """The lazily updated rows of the train forward: the 3b query rows
-    (updated when ``in_sel``) and the [M, 3b, k] selected-neighbor rows
-    (always updated)."""
-    src_rows = lazy_rows(cfg, params, mem, nodes3, in_sel)
-    nbr_rows = lazy_rows(cfg, params, mem, q.nbr,
-                         torch.ones_like(q.nbr, dtype=torch.bool))
+    (updated when ``plan.in_sel``) and the [M, 3b, k] selected-neighbor
+    rows (always updated). With a compaction plan the cell runs once per
+    distinct selected node (``plan.gather_ids``) and the positions gather
+    their node's row; a query row in the selected set takes its slot's."""
+    if plan.uniq is None:
+        src_rows = lazy_rows(cfg, params, mem, nodes3, plan.in_sel)
+        nbr_rows = lazy_rows(cfg, params, mem, q.nbr,
+                             torch.ones_like(q.nbr, dtype=torch.bool))
+        return src_rows, nbr_rows
+    rows_u = lazy_rows(cfg, params, mem, plan.gather_ids,
+                       torch.ones_like(plan.gather_ids, dtype=torch.bool))
+    nbr_rows = DedupGather.apply(rows_u, plan.jn, plan.perm, plan.start_pos,
+                                 plan.end_pos)
+    src_rows = torch.where(plan.in_sel[..., None],
+                           _lane_gather(rows_u, plan.j3), mem.memory[nodes3])
     return src_rows, nbr_rows
+
+
+def _lane_moved(q: TpprQueries, nodes, offs):
+    """The diffusion tower's query and row ids moved into each lane's rows
+    (unchanged for one seed, ``offs`` None)."""
+    if offs is None:
+        return q, nodes
+    return (q._replace(nbr=lane_ids(q.nbr, offs, shared=q.nbr.dim() == 3)),
+            lane_ids(nodes, offs, shared=nodes.dim() == 1))
+
+
+def train_plan(cfg: Config, q: Optional[TpprQueries], nodes,
+               offs=None) -> Optional[LazyPlan]:
+    """The lazy-update plan of a train batch of the diffusion tower (None
+    for the other towers), for :func:`_forward`'s ``plan``."""
+    if not cfg.uses_tppr:
+        return None
+    return make_lazy_plan(cfg, *_lane_moved(q, nodes, offs))
 
 
 def _forward(cfg: Config, params, mem: MemoryState, edge_feats: torch.Tensor,
              nodes: torch.Tensor, q: Optional[TpprQueries], train: bool = False,
              generator=None, offs=None, times: Optional[torch.Tensor] = None,
-             nbr_index: Optional[NeighborIndex] = None) -> torch.Tensor:
+             nbr_index: Optional[NeighborIndex] = None,
+             plan: Optional[LazyPlan] = None) -> torch.Tensor:
     """Embeddings of the query rows ``nodes`` [Q] → [Q, H], by the tower of
     ``cfg.embedding_module``. Diffusion reads the rows' T-PPR queries ``q``
     (fields [M, Q, k]); the other towers read the query ``times`` [Q] and,
@@ -176,16 +341,17 @@ def _forward(cfg: Config, params, mem: MemoryState, edge_feats: torch.Tensor,
     and ``q`` shared by the lanes ([Q], [M, Q, k]) or per lane ([S, Q],
     [S, M, Q, k]) → [S, Q, H]; ``generator`` is one generator per lane.
     The diffusion tower's lazy plan then sorts all lanes' row ids in one
-    sort."""
+    sort. A train-mode caller may pass the ``plan``
+    (:func:`make_lazy_plan` of the lane-moved ids) it made itself."""
     if not cfg.uses_tppr:
         return tower_embed(cfg, params, mem, edge_feats, nbr_index, nodes,
                            times, train, offs)
-    if offs is not None:
-        nodes = lane_ids(nodes, offs, shared=nodes.dim() == 1)
-        q = q._replace(nbr=lane_ids(q.nbr, offs, shared=q.nbr.dim() == 3))
+    q, nodes = _lane_moved(q, nodes, offs)
     if train:
-        src_rows, nbr_rows = _train_lazy_rows(
-            cfg, params, mem, nodes, q, make_lazy_plan(cfg, q, nodes))
+        if plan is None:
+            plan = make_lazy_plan(cfg, q, nodes)
+        src_rows, nbr_rows = _train_lazy_rows(cfg, params, mem, nodes, q,
+                                              plan)
     else:
         src_rows, nbr_rows = mem.memory[nodes], mem.memory[q.nbr]
     nbr_static = diffusion_static_input(cfg, edge_feats, q.eidx, q.dt)
@@ -238,13 +404,17 @@ def _commit_pending(cfg: Config, params, mem: MemoryState, positives,
 
 
 def _build_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
-                    eidx, valid, offs=None):
-    """This batch's raw messages in the stored (compact) layout, both
-    directions → (snd, t2, valid2, win, msg [2b, msg_table_dim] f32).
-    ``win`` [2b] is the batch position of the last valid message of each
-    position's sender (the winner; -1 where the sender sent none). With
-    ``offs``, snd [S, 2b] holds each lane's rows and msg is [S, 2b, ·]; t2,
-    valid2 and win are the lanes' shared ones."""
+                    eidx, valid, offs=None, src_emb=None, dst_emb=None):
+    """This batch's raw messages in the stored layout, both directions →
+    (snd, t2, valid2, win, msg [2b, msg_table_dim] f32). The compact layout
+    omits the sender part; under use_source_embedding_in_message it is the
+    sender's embedding, and under use_destination_embedding_in_message the
+    receiver part is the receiver's embedding instead of its memory row
+    (``src_emb``/``dst_emb`` [b, H]: the batch's src and dst embeddings,
+    [S, b, H] per lane). ``win`` [2b] is the batch position of the last
+    valid message of each position's sender (the winner; -1 where the
+    sender sent none). With ``offs``, snd [S, 2b] holds each lane's rows
+    and msg is [S, 2b, ·]; t2, valid2 and win are the lanes' shared ones."""
     n = mem.memory.shape[0] // (1 if offs is None else offs.shape[0])
     snd = torch.cat([src, dst]).to(torch.int64)
     rcv = torch.cat([dst, src]).to(torch.int64)
@@ -261,12 +431,19 @@ def _build_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
 
     win = winner[snd]
     snd, rcv = lane_ids(snd, offs), lane_ids(rcv, offs)
+    both = lambda a, b: torch.cat([a, b], dim=-2).float()
+    parts = []
+    if cfg.use_source_embedding_in_message:
+        parts.append(both(src_emb, dst_emb))
+    if cfg.use_destination_embedding_in_message:
+        parts.append(both(dst_emb, src_emb))
+    else:
+        parts.append(mem.memory[rcv].float())
     basis = time_basis(cfg.time_dim, edge_feats.device)
     # fresh edge ids past the feature table read the zero row 0
     e_safe = torch.where(e2 < edge_feats.shape[0], e2, 0)
     feats = edge_feats[e_safe]
-    msg = torch.cat([
-        mem.memory[rcv].float(),
+    msg = torch.cat(parts + [
         feats.expand(snd.shape + feats.shape[-1:]),
         time_encode(t2 - mem.last_update[snd], basis),
     ], dim=-1)
@@ -286,14 +463,33 @@ def _winner_writes(snd, valid2, win):
 
 @torch.no_grad()
 def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
-                    dst, t, eidx, valid=None, offs=None) -> MemoryState:
-    """Store this batch's messages, both directions, the chronologically
-    last per sender, over the pending rows (flag column 1), in place."""
-    snd, t2, valid2, win, msg = _build_messages(cfg, mem, edge_feats, src,
-                                                dst, t, eidx, valid, offs)
+                    dst, t, eidx, valid=None, offs=None, src_emb=None,
+                    dst_emb=None) -> MemoryState:
+    """Store this batch's messages, both directions, in place, with the
+    pending flag (last column) set. ``last``: the chronologically last per
+    sender overwrites its row. ``mean``: every valid message adds into its
+    sender's row in the table's dtype (the flag column counts too),
+    ``msg_count`` adds one per message and ``msg_ts`` keeps the newest
+    time; the additions of one row run in batch order, on the CPU and (the
+    sort-based ``index_put_``) on the card."""
+    snd, t2, valid2, win, msg = _build_messages(
+        cfg, mem, edge_feats, src, dst, t, eidx, valid, offs, src_emb,
+        dst_emb)
     one = torch.ones(msg.shape[:-1] + (1,), dtype=msg.dtype,
                      device=msg.device)
     msg = torch.cat([msg, one], dim=-1).to(mem.messages.dtype)
+    if cfg.aggregator == "mean":
+        sel = _selected(valid2)
+        if sel is not None:
+            snd, msg, t2 = snd[..., sel], msg[..., sel, :], t2[sel]
+        rows = snd.reshape(-1)
+        ones = torch.ones(rows.shape, device=rows.device)
+        mem.messages.index_put_((rows,), msg.reshape(-1, msg.shape[-1]),
+                                accumulate=True)
+        mem.msg_count.index_put_((rows,), ones, accumulate=True)
+        mem.msg_ts.scatter_reduce_(0, rows, t2.expand(snd.shape).reshape(-1),
+                                   "amax", include_self=True)
+        return mem
     rows, take = _winner_writes(snd, valid2, win)
     mem.messages[rows] = msg[..., take, :]
     mem.msg_ts[rows] = t2[take]
@@ -303,15 +499,23 @@ def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
 
 @torch.no_grad()
 def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
-                      src, dst, t, eidx, valid=None, offs=None) -> MemoryState:
+                      src, dst, t, eidx, valid=None, offs=None, src_emb=None,
+                      dst_emb=None) -> MemoryState:
     """Fused eval-batch store+commit for the ``last`` aggregator: every
     committed positive is a sender of this batch, so its cell input is this
     batch's winner message, rounded through ``messages.dtype`` as the
     two-step path's table round trip would. Winners write memory,
     last_update and msg_ts; every valid sender's message row and count are
-    cleared. Updates ``mem`` in place and returns it."""
+    cleared. Updates ``mem`` in place and returns it. ``mean`` accumulates
+    over the rows pending before the batch, so it takes
+    :func:`eval_store_then_commit`."""
+    if cfg.aggregator != "last":
+        raise ValueError(
+            f"eval_store_commit fuses the last-aggregator protocol; "
+            f"aggregator={cfg.aggregator!r} stores then commits")
     snd, t2, valid2, win, msg = _build_messages(
-        cfg, mem, edge_feats, src, dst, t, eidx, valid, offs)
+        cfg, mem, edge_feats, src, dst, t, eidx, valid, offs, src_emb,
+        dst_emb)
     rows = mem.memory[snd]
     raw = msg.to(mem.messages.dtype)
     cell_in = message_cell_input(cfg, params, raw, rows)
@@ -326,6 +530,30 @@ def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
     mem.messages[snd_v] = 0.0
     mem.msg_count[snd_v] = 0.0
     return mem
+
+
+def eval_store_then_commit(cfg: Config, params, mem: MemoryState, edge_feats,
+                           src, dst, t, eidx, valid=None, offs=None,
+                           src_emb=None, dst_emb=None) -> MemoryState:
+    """The eval protocol of a batch, unfused: store its messages, then
+    commit its positives' pending rows (JAX's path under ``mean``, and of
+    the node-classification replay)."""
+    _store_messages(cfg, params, mem, edge_feats, src, dst, t, eidx, valid,
+                    offs, src_emb, dst_emb)
+    valid2 = None if valid is None else torch.cat([valid, valid])
+    return _commit_pending(cfg, params, mem, torch.cat([src, dst]), valid2,
+                           offs)
+
+
+def eval_protocol(cfg: Config, params, mem: MemoryState, edge_feats, src, dst,
+                  t, eidx, valid=None, offs=None, src_emb=None,
+                  dst_emb=None) -> MemoryState:
+    """The eval protocol of a batch: fused under ``last``
+    (:func:`eval_store_commit`), store then commit under ``mean``."""
+    fn = (eval_store_commit if cfg.aggregator == "last"
+          else eval_store_then_commit)
+    return fn(cfg, params, mem, edge_feats, src, dst, t, eidx, valid, offs,
+              src_emb, dst_emb)
 
 
 @torch.no_grad()

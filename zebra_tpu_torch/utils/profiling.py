@@ -8,7 +8,9 @@
   activity where a card is present, exported as a Chrome trace into a
   directory (``with trace_context("/tmp/trace"): ...``).
 - ``device_ms``: a call's median device time on the card (CUDA events).
-- ``count_ops``: the aten operations a call enqueues."""
+- ``count_ops``: the aten operations a call enqueues;
+- ``add_option_args``/``option_overrides``: the model options' flags of
+  the profilers (``profile_train``, ``profile_serve``)."""
 
 from __future__ import annotations
 
@@ -17,6 +19,16 @@ import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, Optional
+
+# the single-device model options a profiler run may turn on, under the
+# training command line's names and defaults
+OPTION_FLAGS = {
+    "aggregator": dict(default="last", choices=["last", "mean"]),
+    "message_function": dict(default="identity", choices=["identity", "mlp"]),
+    "use_source_embedding_in_message": dict(action="store_true"),
+    "use_destination_embedding_in_message": dict(action="store_true"),
+    "lazy_unique_cap": dict(type=int, default=0),
+}
 
 
 class PhaseTimers:
@@ -120,3 +132,15 @@ def count_ops(fn: Callable[[], object]) -> int:
     with Count():
         fn()
     return Count.n
+
+
+def add_option_args(parser) -> None:
+    """Add the model options' flags (``OPTION_FLAGS``) to an argparse
+    parser."""
+    for name, kw in OPTION_FLAGS.items():
+        parser.add_argument(f"--{name}", **kw)
+
+
+def option_overrides(ns) -> Dict[str, object]:
+    """The options of parsed arguments ``ns`` as Config overrides."""
+    return {name: getattr(ns, name) for name in OPTION_FLAGS}
