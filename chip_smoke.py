@@ -114,14 +114,41 @@ Phases, in order; any failure exits non-zero:
       bit-equal to a per-position epoch from the same start;
     - ``debug_nans``: a NaN planted in an edge-feature row of the first
       train batch raises ``FloatingPointError`` in that batch;
-13. one ``{"kernels": [...]}`` line;
-14. last line ``{"ok": true, "device": {...}}``.
+13. seed sharding and host backup: the seed axis over two ranks that
+    share the one card (``--device cuda:0``; no scaling figure), S = 4:
+    - santa_merge at a rank's wave shape (64, 4, 2, 20), bit for bit;
+    - (a) two ranks started by the CLI's launcher
+      (``zebra_tpu_torch.parallel.launch``), the flagship, against a
+      one-process ``parallel_runs=4`` Trainer on the card: the first 3,000
+      events (an epoch and ``validate()``) with every lane's losses,
+      params, bf16 memory and val metrics within phase 9's lane bars; then
+      the bench stream, a warm-up and a timed epoch, ``validate()`` and
+      ``test()``: the index bit-equal on both ranks and to the one
+      process, each rank's epoch seconds and santa_merge launches (one per
+      wave of its own scan), and how far the lanes drift from the one
+      process's over the epochs (a product's summation order depends on
+      the lane grouping; Adam carries it on);
+    - (b) the CLI's form on two ranks: a 2-epoch ``fit`` with
+      ``--state_every 1``, and a 1-epoch run resumed from its state file to
+      2 epochs, bit-equal; the ``_par_4`` state file served as an
+      ``EnsemblePredictor`` and lane 3 as a ``LinkPredictor``, against the
+      predictors of a one-process Trainer restored from it, at the serve
+      phase's bar;
+    - (c) host backup: ``validate()`` + ``test()`` of the flagship at S = 5
+      from one train-end state under both protocols, bit-equal, with each
+      one's peak device bytes (the host protocol's lower), the host copies'
+      seconds and the table copies the guard counts;
+    - (d) the guard's decision at Wiki-Talk's 1,140,096 nodes for S = 1, 2,
+      … from this card's free memory;
+14. one ``{"kernels": [...]}`` line;
+15. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import logging
 import os
@@ -135,10 +162,11 @@ import numpy as np
 import torch
 
 from zebra_tpu_torch import build, cli
-from zebra_tpu_torch.config import torch_dtype
-from zebra_tpu_torch.data.dataset import load_feat
+from zebra_tpu_torch.config import Config, torch_dtype
+from zebra_tpu_torch.data.dataset import get_data, load_feat, split_data
 from zebra_tpu_torch.data.preprocess import write_ml
 from zebra_tpu_torch.data.synthetic import synthetic_stream
+from zebra_tpu_torch.device import resolve_device
 from zebra_tpu_torch.index import merge, pruning, scan
 from zebra_tpu_torch.index.neighbor_finder import (
     build_neighbor_index,
@@ -156,7 +184,8 @@ from zebra_tpu_torch.index.streaming import (
 )
 from zebra_tpu_torch.models.embedding import recursive_embed
 from zebra_tpu_torch.models.memory import MemoryState
-from zebra_tpu_torch.models.tgn import init_tgn_params
+from zebra_tpu_torch.models.tgn import init_tgn_params, lane_params
+from zebra_tpu_torch.parallel.launch import launch
 from zebra_tpu_torch.profile_serve import flagship
 from zebra_tpu_torch.profile_train import (
     bench_stream,
@@ -167,9 +196,11 @@ from zebra_tpu_torch.profile_train import (
     wikipedia_attention,
 )
 from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
+from zebra_tpu_torch.train import memory_budget as mb
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.loop import Trainer
 from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
+from zebra_tpu_torch.train.step import flush_pending_
 from zebra_tpu_torch.utils.profiling import device_ms
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
@@ -283,6 +314,23 @@ LAZY_RTOL, LAZY_ATOL = 2e-4, 2e-5
 # its f32 value sits at a boundary: within two bf16 ulps of its size
 # (2^-6 relative) plus the memory bar.
 MESSAGE_REL = 2.0 ** -6
+# Phase 13: the seed axis over two ranks that share one card (the machine
+# has one): S = 4 seeds, two whole seeds per rank, so a rank's training wave
+# merges rows [W, 2 + 2, F]; the CLI's flags for the flagship with them; the
+# host-backup leg's seeds (phase 9's five); the guard's node count, that of
+# Wiki-Talk (SNAP wiki-Talk, 1,140,096 once padded to a multiple of 128;
+# no edge features, so edge_dim 1). The lanes keep phase 9's bars against
+# the one-process run; the served scores the serve phase's.
+SHARD_SEEDS, SHARD_RANKS = 4, 2
+SHARD_MERGE = ("seed-sharded training wave (a rank's two lanes)", 64,
+               2 + SHARD_SEEDS // SHARD_RANKS, 2, 20)
+SHARD_FLAGS = ["--bs", "200", "--topk", "20", "--alpha_list", "0.1", "0.1",
+               "--beta_list", "0.05", "0.95", "--node_dim", "100",
+               "--time_dim", "100", "--memory_dim", "100", "--patience", "5",
+               "--state_every", "1", "--parallel_runs", str(SHARD_SEEDS)]
+BACKUP_SEEDS = SEEDS
+GUARD_SEEDS = (2, BACKUP_SEEDS)
+WIKI_TALK_NODES = 1_140_096
 
 
 def merge_work(rows: torch.Tensor, m: int, k: int):
@@ -388,11 +436,11 @@ def _equal(got, want, what):
     return err
 
 
-def seed_merge_phase(card: str):
+def seed_merge_phase(card: str, shape=SEED_MERGE):
     """santa_merge on the rows of a seed-parallel training wave: src, dst
     and one negative per seed, [W, 2 + S, F] with row stride (2 + S)·F;
     the kernel reads rows 0-1."""
-    what, w, r, m, k = SEED_MERGE
+    what, w, r, m, k = shape
     params, data, (src, dst, neg, ts, eidx) = warm_stream(m, k, w + r, w)
     extra = np.random.RandomState(w + r).randint(1, 301, (w, r - 3))
     sdn = np.concatenate([np.stack([src, dst, neg], 1), extra], 1)
@@ -1877,6 +1925,512 @@ def options_phase(card: str, per_position_s: float):
     return merge_launches, scan_launches
 
 
+# ------------------------------------------------------------- phase 13
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _lanes_err(got, want) -> tuple:
+    """(max abs err, share of entries that differ) of two tables."""
+    diff = (got.float() - want.float()).abs()
+    return float(diff.max()), float((diff > 0).float().mean())
+
+
+def shard_rank(out: str, device: str, n_events: int) -> None:
+    """(a), one rank of the group: the flagship with SHARD_SEEDS seeds over
+    SHARD_RANKS ranks, first the lane replay (TRAIN_REPLAY_EVENTS events:
+    an epoch and validate()), then on ``n_events``: a warm-up and a timed
+    epoch, validate() and test(); what the parent compares goes to
+    ``out/rank<r>.pt``."""
+    res = {}
+    for leg, n in (("replay", TRAIN_REPLAY_EVENTS), ("full", n_events)):
+        cfg, splits, edge_feats = flagship_training(
+            seed=0, n_events=n, parallel_runs=SHARD_SEEDS,
+            n_devices=SHARD_RANKS)
+        trainer = Trainer(cfg.replace(checkpoint_dir=out), splits,
+                          edge_feats, device=device)
+        res[leg] = (_shard_replay if leg == "replay" else _shard_run)(
+            trainer)
+    res.update(rank=trainer.mesh.rank, lanes=list(trainer._lanes),
+               device=str(trainer.device))
+    torch.save(res, os.path.join(out, f"rank{trainer.mesh.rank}.pt"))
+
+
+def _shard_replay(trainer: Trainer) -> dict:
+    """One epoch and validate() (seeds_replay's legs): per-batch losses,
+    this rank's params and memory, the val metrics."""
+    r, v = trainer.train_epoch(), trainer.validate()[0]
+    return dict(per_batch=r.per_batch, steps=int(r.per_batch.shape[0]),
+                params={k: x.detach().cpu().clone()
+                        for k, x in trainer.params.state_dict().items()},
+                memory=trainer._memory_tables()["memory"].cpu().clone(),
+                val=np.stack([v.ap, v.auc, v.acc]),
+                santa_merge_launches=merge.SANTA_MERGE.launches)
+
+
+def _shard_run(trainer: Trainer) -> dict:
+    """Two epochs, validate() and test() of a seed-parallel Trainer, with
+    santa_merge's launches counted from 0."""
+    dev = trainer.device
+    _reset_counts()
+    epochs, mem1 = [], None
+    for e in (1, 2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        _sync(dev)
+        epochs.append(dict(seconds=time.perf_counter() - t0, waves=r.waves,
+                           index_host_s=r.index_seconds,
+                           gather_ms=1e3 * r.gather_seconds,
+                           per_batch=r.per_batch))
+        if e == 1:
+            mem1 = trainer._memory_tables()["memory"].cpu().clone()
+    train_index = trainer.index_state.data.cpu().clone()
+    t0 = time.perf_counter()
+    phases = dict(zip(("val", "nn_val", "test", "nn_test"),
+                      (*trainer.validate(), *trainer.test())))
+    _sync(dev)
+    return dict(
+        epochs=epochs, mem1=mem1, train_index=train_index,
+        eval_s=time.perf_counter() - t0,
+        index_end=trainer.index_state.data.cpu().clone(),
+        phases={k: dict(per_batch=r.per_batch, waves=r.waves,
+                        gather_ms=1e3 * r.gather_seconds)
+                for k, r in phases.items()},
+        santa_merge_launches=merge.SANTA_MERGE.launches,
+        santa_scan_launches=scan.SANTA_SCAN.launches)
+
+
+def _replay_errs(ranks, one, lr: float) -> dict:
+    """The ranks' lane replay against the one-process run's, at phase 9's
+    lane bars."""
+    loss = max(float(np.abs(r["replay"]["per_batch"][..., 0]
+                            - one["per_batch"][..., 0]).max()) for r in ranks)
+    params = max(float((torch.cat([r["replay"]["params"][k] for r in ranks])
+                        - v).abs().max()) for k, v in one["params"].items())
+    mem_err, mem_share = _lanes_err(
+        torch.cat([r["replay"]["memory"] for r in ranks]), one["memory"])
+    metric = max(float(np.abs(r["replay"]["val"] - one["val"]).max())
+                 for r in ranks)
+    res = dict(events=TRAIN_REPLAY_EVENTS, steps=one["steps"],
+               batch_loss_max_abs_err=loss, params_max_abs_err=params,
+               memory_max_abs_err=mem_err, memory_diff_share=mem_share,
+               val_metric_max_abs_err=metric)
+    assert loss <= LANE_LOSS_ATOL, res
+    assert params <= 2 * lr * one["steps"], res
+    assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, res
+    assert metric <= LANE_METRIC_ATOL, res
+    return res
+
+
+def _divergence(got: np.ndarray, want: np.ndarray) -> dict:
+    """Per-batch loss error of a lane grouping against another over an
+    epoch: where it first passes each bar, and its largest."""
+    err = np.abs(got[..., 0] - want[..., 0]).max(axis=-1)
+    first = lambda bar: int(np.argmax(err > bar)) if (err > bar).any() else None
+    return dict(batches=len(err), first_batch_err=float(err[0]),
+                max_err=float(err.max()),
+                first_batch_past={f"{b:g}": first(b)
+                                  for b in (1e-7, 1e-6, 1e-5, 1e-4, 1e-3)})
+
+
+def shard_train(card: str, device: str = "cuda:0",
+                n_events: int = 120_000) -> int:
+    """(a): two ranks sharing one card against one process on it. Returns
+    santa_merge's launches of both's full runs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch(shard_rank, SHARD_RANKS, (tmp, device, n_events),
+               threads=max(1, (os.cpu_count() or 2) // SHARD_RANKS))
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(SHARD_RANKS)]
+    runs = {}
+    for leg, n in (("replay", TRAIN_REPLAY_EVENTS), ("full", n_events)):
+        cfg, splits, edge_feats = flagship_training(
+            seed=0, n_events=n, parallel_runs=SHARD_SEEDS)
+        trainer = Trainer(cfg, splits, edge_feats, device=device)
+        runs[leg] = (_shard_replay if leg == "replay" else _shard_run)(
+            trainer)
+    one = runs["full"]
+    per = SHARD_SEEDS // SHARD_RANKS
+    assert [r["lanes"] for r in ranks] == [
+        list(range(i * per, (i + 1) * per)) for i in range(SHARD_RANKS)]
+    replay = _replay_errs(ranks, runs["replay"], cfg.lr)
+    index_bitwise = all(
+        torch.equal(r["full"]["train_index"], one["train_index"])
+        and torch.equal(r["full"]["index_end"], one["index_end"])
+        for r in ranks)
+    assert index_bitwise, "a rank's index differs from the one-process run"
+    launches = one["santa_merge_launches"]
+    cuda = torch.device(device).type == "cuda"
+    for r in ranks:
+        full = r["full"]
+        waves = sum(e["waves"] for e in full["epochs"]) + sum(
+            p["waves"] for p in full["phases"].values())
+        assert full["santa_merge_launches"] == (waves if cuda else 0), (
+            r["rank"], full["santa_merge_launches"], waves)
+        assert full["santa_scan_launches"] == 0
+        launches += full["santa_merge_launches"]
+        for e, ep in enumerate(full["epochs"], 1):
+            print(f"shard rank {r['rank']} of {SHARD_RANKS} on {r['device']} "
+                  f"(lanes {r['lanes']}) epoch {e}"
+                  f"{' (warm-up)' if e == 1 else ''}: {ep['seconds']:.3f} s, "
+                  f"{ep['waves']} waves, metrics gather "
+                  f"{ep['gather_ms']:.3f} ms; the ranks share one card, so "
+                  f"this is no scaling figure  ({card})", flush=True)
+        print(f"shard rank {r['rank']}: {full['santa_merge_launches']} "
+              f"santa_merge launches, validate + test "
+              f"{full['eval_s']:.3f} s", flush=True)
+        aps = [full["phases"][k]["per_batch"][..., 1].mean(0)
+               for k in ("val", "test")]
+        assert all(np.isfinite(ep["per_batch"]).all()
+                   for ep in full["epochs"]) and min(
+                       float(a.min()) for a in aps) > 0.5, aps
+    print(f"one process, {SHARD_SEEDS} seeds on {device}: epochs "
+          f"{one['epochs'][0]['seconds']:.3f} s (warm-up), "
+          f"{one['epochs'][1]['seconds']:.3f} s  ({card})", flush=True)
+    # the full run, held to nothing but its index: over 322 Adam steps a
+    # summation order that depends on the lane grouping drifts the lanes
+    # apart (reported, with where the drift passes each bar)
+    full0 = ranks[0]["full"]
+    mem_err, mem_share = _lanes_err(
+        torch.cat([r["full"]["mem1"] for r in ranks]), one["mem1"])
+    res = dict(seeds=SHARD_SEEDS, ranks=SHARD_RANKS, device=device,
+               events=n_events, group_s=group_s,
+               rank_epoch_s=[[e["seconds"] for e in r["full"]["epochs"]]
+                             for r in ranks],
+               one_process_epoch_s=[e["seconds"] for e in one["epochs"]],
+               rank_santa_merge_launches=[r["full"]["santa_merge_launches"]
+                                          for r in ranks],
+               index_bitwise=index_bitwise, lane_replay=replay,
+               full_epoch1=_divergence(full0["epochs"][0]["per_batch"],
+                                       one["epochs"][0]["per_batch"]),
+               full_epoch2=_divergence(full0["epochs"][1]["per_batch"],
+                                       one["epochs"][1]["per_batch"]),
+               full_epoch1_memory_max_abs_err=mem_err,
+               full_epoch1_memory_diff_share=mem_share,
+               full_eval_metric_max_abs_err=max(
+                   float(np.abs(full0["phases"][k]["per_batch"][..., 1:]
+                                .mean(0) - one["phases"][k]["per_batch"]
+                                [..., 1:].mean(0)).max())
+                   for k in one["phases"]),
+               card=card)
+    print("shard train " + json.dumps(res), flush=True)
+    return launches
+
+
+def cli_rank(argv, out: str) -> None:
+    """(b), one rank of the CLI's run: the CLI's own rank entry, then its
+    results and santa_merge's launches to ``out/<rank>.json``."""
+    from zebra_tpu_torch.parallel.distributed import rank
+
+    _reset_counts()
+    ns = Config.arg_parser().parse_args(argv)
+    (trainer, results), = cli._main_rank(Config.from_dict(vars(ns)),
+                                         resolve_device(ns.device))
+    with open(os.path.join(out, f"{rank()}.json"), "w") as f:
+        json.dump(dict(results=results, device=str(trainer.device),
+                       santa_merge_launches=merge.SANTA_MERGE.launches,
+                       index_waves=trainer.index_waves,
+                       epochs=[dict(train_s=e["train_s"], val_s=e["val_s"],
+                                    waves=e["waves"], state_s=e["state_s"])
+                               for e in trainer.epoch_log]), f)
+
+
+def _cli_ranks(argv, root: Path, tag: str):
+    out = root / f"out_{tag}"
+    out.mkdir()
+    t0 = time.perf_counter()
+    launch(cli_rank, SHARD_RANKS, (argv, str(out)),
+           threads=max(1, (os.cpu_count() or 2) // SHARD_RANKS))
+    s = time.perf_counter() - t0
+    ranks = [json.loads((out / f"{r}.json").read_text())
+             for r in range(SHARD_RANKS)]
+    assert all(r["results"] == ranks[0]["results"] for r in ranks), tag
+    cuda = ranks[0]["device"].startswith("cuda")
+    for r in ranks:
+        assert r["santa_merge_launches"] == (
+            r["index_waves"] if cuda else 0), (tag, r)
+    return ranks, s
+
+
+def _state_bitwise(a: str, b: str) -> bool:
+    """Whether two state files hold the same tensors."""
+    leaves = lambda t: (
+        list(t["params"].values()) + list(t["mem"].values())
+        + t["optimizer"]["exp_avg"] + t["optimizer"]["exp_avg_sq"]
+        + [t["index_state"], t["dropout"]])
+    return all(torch.equal(x, y) for x, y in zip(
+        leaves(load_checkpoint(a)), leaves(load_checkpoint(b))))
+
+
+def shard_cli(card: str, device: str = "cuda:0",
+              n_events: int = 120_000) -> int:
+    """(b): the CLI's form on two ranks, its resume and its state file
+    served, against one process. Returns santa_merge's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_bench_dataset(root, n_events)
+        base = ["-d", "bench", "--data_dir", str(root), *SHARD_FLAGS,
+                "--device", device]
+        run = lambda tag, *extra: [*base, "--checkpoint_dir",
+                                   str(root / tag), "--log_dir",
+                                   str(root / f"log_{tag}"), *extra]
+        sharded = ["--n_devices", str(SHARD_RANKS)]
+        a, a_s = _cli_ranks(run("a", "--n_epoch", "2", *sharded), root, "a")
+        b1, _ = _cli_ranks(run("b1", "--n_epoch", "1", *sharded), root, "b1")
+        states = lambda tag: sorted((root / tag).glob("*.state.ckpt"))
+        b1_state, = states("b1")
+        b2, b2_s = _cli_ranks(run("b2", "--n_epoch", "2", *sharded,
+                                  "--resume_state", str(b1_state)),
+                              root, "b2")
+        a_state, = states("a")
+        b2_state, = states("b2")
+        assert a_state.name == b2_state.name and a_state.name.endswith(
+            f"_par_{SHARD_SEEDS}.state.ckpt"), (a_state, b2_state)
+        logs = list((root / "log_a" / "bench").iterdir())
+        assert len(logs) == 1 and "Test statistics" in logs[0].read_text()
+        resume_bitwise = (_state_bitwise(str(a_state), str(b2_state))
+                          and a[0]["results"] == b2[0]["results"])
+        assert resume_bitwise, (a[0]["results"], b2[0]["results"])
+        # the one-process run of that state: a Trainer of S seeds on the
+        # card restored from the ranks' file, and its predictors
+        _, edge_feats = load_feat("bench", str(root))
+        ns = Config.arg_parser().parse_args(run("c", "--n_epoch", "2"))
+        one = Trainer(Config.from_dict(vars(ns)), get_data("bench",
+                                                           str(root)),
+                      edge_feats, device=device)
+        one.restore_state(str(a_state))
+        state_bytes = a_state.stat().st_size
+        live = EnsemblePredictor.from_trainer(one)
+        te = one.splits.test
+        q = (te.sources[:ENSEMBLE_SCORE_B], te.destinations[:ENSEMBLE_SCORE_B],
+             te.timestamps[:ENSEMBLE_SCORE_B])
+        serve = lambda **kw: LinkPredictor.from_checkpoint(
+            str(a_state), edge_feats=edge_feats, device=device, **kw)
+        ens = serve(ensemble=True)
+        assert isinstance(ens, EnsemblePredictor) and ens.n_models == SHARD_SEEDS
+        lane = SHARD_SEEDS - 1     # a lane of the last rank
+        got, want = ens.score(*q), live.score(*q)
+        ens_err = float(np.abs(got - want).max())
+        lane_err = float(np.abs(serve(run_index=lane).score(*q)
+                                - live.member_scores(*q)[lane]).max())
+        assert np.isfinite(got).all() and got.shape == (len(q[0]),)
+    launches = 0
+    for tag, ranks in (("a", a), ("b1", b1), ("b2", b2)):
+        launches += sum(r["santa_merge_launches"] for r in ranks)
+    res = dict(seeds=SHARD_SEEDS, ranks=SHARD_RANKS, device=device,
+               uninterrupted_s=a_s, resumed_s=b2_s,
+               rank_epochs=[r["epochs"] for r in a],
+               rank_santa_merge_launches={tag: [r["santa_merge_launches"]
+                                                for r in ranks]
+                                          for tag, ranks in (("a", a),
+                                                             ("b1", b1),
+                                                             ("b2", b2))},
+               state_file=a_state.name,
+               state_file_bytes=state_bytes,
+               resume_bitwise=resume_bitwise,
+               ensemble_vs_one_process_max_abs_err=ens_err,
+               lane_vs_one_process_member_max_abs_err=lane_err,
+               per_seed=a[0]["results"]["per_seed"], card=card)
+    print("shard cli " + json.dumps(res), flush=True)
+    assert ens_err <= SCORE_ATOL and lane_err <= SCORE_ATOL, (ens_err,
+                                                              lane_err)
+    return launches
+
+
+def _eval_peak(trainer: Trainer) -> dict:
+    """validate() + test() with the device's allocation peak."""
+    dev = trainer.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    phases = (*trainer.validate(), *trainer.test())
+    _sync(dev)
+    return dict(
+        seconds=time.perf_counter() - t0, host_copy_s=trainer.host_copy_seconds,
+        base_bytes=base,
+        peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else 0,
+        peak_reserved_bytes=torch.cuda.max_memory_reserved(dev) if cuda else 0,
+        per_batch=[r.per_batch for r in phases],
+        mem={k: v.cpu().clone() for k, v in trainer._memory_tables().items()},
+        index=trainer.index_state.data.cpu().clone())
+
+
+def host_backup_phase(card: str, device: str = "cuda",
+                      n_events: int = 120_000) -> int:
+    """(c): validate() + test() of the flagship at S = BACKUP_SEEDS from
+    one train-end state under the device protocol, then under host backups
+    (a Trainer restored from that state). Returns santa_merge's launches."""
+    cfg, splits, edge_feats = flagship_training(
+        seed=0, n_events=n_events, parallel_runs=BACKUP_SEEDS)
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_end.state.ckpt")
+        dev_t = Trainer(cfg.replace(host_backup=False), splits, edge_feats,
+                        device=device)
+        dev_t.train_epoch()
+        dev_t.save_state(path)
+        on_dev = _eval_peak(dev_t)
+        tables = mb.budget(dev_t.cfg, BACKUP_SEEDS, 0).tables
+        index = mb.index_bytes(dev_t.cfg)
+        del dev_t
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        host_t = Trainer(cfg.replace(host_backup=True), splits, edge_feats,
+                         device=device)
+        host_t.restore_state(path)
+        on_host = _eval_peak(host_t)
+        del host_t
+        gc.collect()
+    bitwise = (all(np.array_equal(x, y) for x, y in zip(
+        on_dev["per_batch"], on_host["per_batch"]))
+        and all(torch.equal(on_dev["mem"][k], on_host["mem"][k])
+                for k in on_dev["mem"])
+        and torch.equal(on_dev["index"], on_host["index"]))
+    assert bitwise, "host backups changed a result"
+    guard = guard_constants(cfg, splits, edge_feats, device)
+    res = dict(seeds=BACKUP_SEEDS, table_bytes=tables, index_bytes=index,
+               bitwise=bitwise, **{
+                   name: dict(seconds=m["seconds"],
+                              host_copy_s=m["host_copy_s"],
+                              base_bytes=m["base_bytes"],
+                              peak_bytes=m["peak_bytes"],
+                              peak_above_base=m["peak_bytes"]
+                              - m["base_bytes"],
+                              peak_reserved_bytes=m["peak_reserved_bytes"])
+                   for name, m in (("device", on_dev), ("host", on_host))},
+               guard=guard, card=card)
+    print("host backup " + json.dumps(res), flush=True)
+    if torch.device(device).type == "cuda":
+        assert on_host["peak_bytes"] < on_dev["peak_bytes"], (
+            on_host["peak_bytes"], on_dev["peak_bytes"])
+    return merge.SANTA_MERGE.launches
+
+
+def guard_constants(cfg, splits, edge_feats, device) -> dict:
+    """The guard's constants measured (beside the ones it holds): the peak
+    of validate() + test() above the bytes allocated before them, for each
+    protocol at S = 2 and 5 on two streams of N1 and N2 node rows
+    (untrained Trainers: the peak depends on shapes alone). Its growth per
+    seed is b + (copies - 1)·N·row: a seed's batch activations and its
+    extra table copies, solved from the two N. Then one seed's flush, in
+    place, alone: its bytes per node row; and allocated over reserved bytes
+    at the host protocol's peak."""
+    if torch.device(device).type != "cuda":
+        return {}
+    small, small_ef = synthetic_stream(120_000, 5_000, 5_000, edge_dim=172,
+                                       seed=0)
+    streams = {"bench": (splits, edge_feats),
+               "small": (split_data(small.sources, small.destinations,
+                                    small.timestamps, small.edge_idxs,
+                                    small.labels), small_ef)}
+    extra, rows, share, flush_row = {}, {}, None, None
+    for name, (sp, ef) in streams.items():
+        for host in (False, True):
+            for s in GUARD_SEEDS:
+                t = Trainer(cfg.replace(parallel_runs=s, host_backup=host),
+                            sp, ef, device=device)
+                rows[name] = t.cfg.n_nodes
+                m = _eval_peak(t)
+                extra[name, host, s] = m["peak_bytes"] - m["base_bytes"]
+                if name == "bench" and host and s == GUARD_SEEDS[-1]:
+                    share = m["peak_bytes"] / m["peak_reserved_bytes"]
+                    torch.cuda.synchronize(device)
+                    torch.cuda.reset_peak_memory_stats(device)
+                    before = torch.cuda.memory_allocated(device)
+                    n = t.cfg.n_nodes
+                    flush_pending_(t.cfg, lane_params(t.params, 0),
+                                   MemoryState(*(x[:n] for x in t.mem)))
+                    torch.cuda.synchronize(device)
+                    flush_row = (torch.cuda.max_memory_allocated(device)
+                                 - before) / n
+                del t
+                gc.collect()
+                torch.cuda.empty_cache()
+    lo, hi = GUARD_SEEDS
+    row = mb.row_bytes(cfg)
+    out = dict(seeds=list(GUARD_SEEDS), node_rows=rows,
+               flush_row_bytes=flush_row, allocated_over_reserved=share,
+               peak_above_base={f"{n} {'host' if h else 'device'} S={s}": v
+                                for (n, h, s), v in extra.items()})
+    for host in (False, True):
+        per_seed = {n: (extra[n, host, hi] - extra[n, host, lo]) / (hi - lo)
+                    for n in streams}
+        c = (per_seed["bench"] - per_seed["small"]) / (
+            (rows["bench"] - rows["small"]) * row)
+        key = "host" if host else "device"
+        out[f"{key}_copies"] = 1 + c
+        out[f"{key}_lane_batch_bytes"] = per_seed["bench"] - c * rows[
+            "bench"] * row
+    out["held"] = dict(device_copies=mb.DEVICE_COPIES,
+                       host_copies=mb.HOST_COPIES,
+                       lane_batch_bytes=mb.LANE_BATCH_BYTES,
+                       flush_row_bytes=mb.FLUSH_ROW_BYTES,
+                       usable_share=mb.USABLE_SHARE)
+    return out
+
+
+def guard_phase(card: str, device: str = "cuda") -> None:
+    """(d): the guard's decision at Wiki-Talk's node count for S = 1, 2, …
+    on this card's free memory, until both protocols are refused."""
+    free, total = torch.cuda.mem_get_info(device)
+    cfg, _, _ = flagship_training(seed=0, n_events=10)
+    cfg = cfg.replace(n_nodes=WIKI_TALK_NODES, edge_dim=1)
+    rows = []
+    for s in range(1, 1000):
+        b = mb.budget(cfg, s, free)
+        rows.append(dict(seeds=s, auto=b.decide(None),
+                         device_protocol=b.decide(False),
+                         host_backup=b.decide(True),
+                         device_gib=b.device / 2**30,
+                         host_gib=b.host / 2**30))
+        if rows[-1]["host_backup"] == "refused":
+            break
+    # one line per run of equal decisions
+    runs = []
+    for r in rows:
+        key = (r["auto"], r["device_protocol"], r["host_backup"])
+        if runs and runs[-1][0] == key:
+            runs[-1][2] = r
+        else:
+            runs.append([key, r, r])
+    for (auto, forced_dev, forced_host), lo, hi in runs:
+        print(f"guard at {WIKI_TALK_NODES} nodes, S = {lo['seeds']}-"
+              f"{hi['seeds']}: auto {auto}, --no_host_backup {forced_dev}, "
+              f"--host_backup {forced_host} (device protocol "
+              f"{lo['device_gib']:.2f}-{hi['device_gib']:.2f} GiB, host "
+              f"{lo['host_gib']:.2f}-{hi['host_gib']:.2f} GiB of "
+              f"{mb.USABLE_SHARE * free / 2**30:.2f} usable)  ({card})",
+              flush=True)
+    print("guard " + json.dumps(dict(
+        n_nodes=WIKI_TALK_NODES, row_bytes=mb.row_bytes(cfg),
+        index_bytes=mb.index_bytes(cfg), free_bytes=free, total_bytes=total,
+        largest_device=max([r["seeds"] for r in rows
+                            if r["device_protocol"] != "refused"] or [0]),
+        largest_host=max([r["seeds"] for r in rows
+                          if r["host_backup"] != "refused"] or [0]),
+        card=card)), flush=True)
+
+
+def shard_phase(card: str):
+    """Phase 13 (module docstring). Returns santa_merge's launches of its
+    main path and the merge's result at a rank's wave shape."""
+    merged = seed_merge_phase(card, SHARD_MERGE)
+    launches = shard_train(card)
+    launches += shard_cli(card)
+    launches += host_backup_phase(card)
+    guard_phase(card)
+    return launches, merged
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -1915,6 +2469,7 @@ def main() -> int:
     prune_phase(card)
     towers_phase(card)
     option_merges, option_scans = options_phase(card, flagship_epoch_s)
+    shard_merges, shard_merge = shard_phase(card)
 
     def entry(name, results, main, launches):
         return dict(
@@ -1928,12 +2483,13 @@ def main() -> int:
 
     # each kernel at the shape its path gives it: a training wave for
     # santa_merge (launches: the CLI's fit run, the seed-parallel Trainer's
-    # and the options Trainer's epochs and eval phases), a b = 200 observe
+    # and the options Trainer's epochs and eval phases, and phase 13's
+    # ranks, one-process runs and host-backup leg), a b = 200 observe
     # for santa_scan (launches: the serve phase, the ensemble's observe
     # calls and the options predictor's extracting ones)
     print(json.dumps({"kernels": [
-        entry("santa_merge", merges + [seed_merge], merges[1],
-              merge_launches + seed_merges + option_merges),
+        entry("santa_merge", merges + [seed_merge, shard_merge], merges[1],
+              merge_launches + seed_merges + option_merges + shard_merges),
         entry("santa_scan", scans, scans[0],
               scan_launches + seed_scans + option_scans),
     ]}), flush=True)

@@ -142,7 +142,7 @@ OUTSIDE = [
 # flag is accepted and carries over with JAX's derived widths
 OPENED = ("message_function", "use_source_embedding_in_message",
           "use_destination_embedding_in_message", "debug_nans",
-          "lazy_unique_cap")
+          "lazy_unique_cap", "host_backup")
 
 
 @pytest.mark.parametrize("argv,field", OUTSIDE,
@@ -178,16 +178,36 @@ def test_seed_axis_command_line_carries_over():
 SEED_AXIS_REFUSALS = {
     "parallel_lr_length": (["--parallel_runs", "3", "--parallel_lr", "1e-3",
                             "1e-4"], "one value per parallel run: got 2 for 3"),
-    "n_devices": (["--parallel_runs", "2", "--n_devices", "2"], "n_devices"),
+    "n_devices": (["--parallel_runs", "3", "--n_devices", "2"],
+                  "parallel_runs \\(3\\) must be a multiple of the mesh "
+                  "size \\(2\\)"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SEED_AXIS_REFUSALS))
 def test_seed_axis_refusals_that_stand(name):
     """A JAX command line of the seed axis the port still refuses: a
-    parallel_lr of the wrong length (the JAX Trainer's check and wording),
-    and seeds sharded over devices."""
+    parallel_lr of the wrong length and seeds that do not divide over the
+    devices (the JAX Trainer's checks and wording)."""
     argv, match = SEED_AXIS_REFUSALS[name]
     JaxConfig.from_args(argv)
     with pytest.raises(ValueError, match=match):
         Config.from_args(argv)
+
+
+def test_seed_sharding_command_line_carries_over():
+    """The flags of the seed axis over devices, now accepted with S a
+    multiple of the device count: every field as JAX parses it; the port's
+    ``--device`` takes a named card."""
+    argv = ["--parallel_runs", "4", "--n_devices", "2", "--dist_coordinator",
+            "host0:8476", "--dist_num_processes", "2", "--dist_process_id",
+            "1", "--host_backup"]
+    jcfg, cfg = JaxConfig.from_args(argv), Config.from_args(argv)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert Config.from_args(["--no_host_backup"]).host_backup is False
+    assert Config.arg_parser().parse_args(
+        ["--device", "cuda:0"]).device == "cuda:0"
+    one = cfg.single_seed()
+    assert (one.n_seeds, one.n_devices, one.dist_coordinator,
+            one.dist_num_processes, one.dist_process_id) == (1, 1, None, 1, 0)

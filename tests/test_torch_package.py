@@ -52,6 +52,25 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
 
 
+def test_parallel_package_imports_no_jax():
+    """``zebra_tpu_torch.parallel`` alone, in a fresh interpreter, pulls in
+    neither jax nor zebra_tpu (it keeps its own copy of the ZEBRA_*
+    handling of zebra_tpu/parallel/distributed.py)."""
+    code = (
+        "import sys\n"
+        "import zebra_tpu_torch.parallel as p\n"
+        "from zebra_tpu_torch.parallel import launch, sharding\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'zebra_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(p.local_lanes(4, 2, 1))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["range(2,", "4)"]
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_source_has_no_jax_import(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
@@ -151,12 +170,14 @@ def test_ids_past_f32_width_raise(call):
 def test_config_refuses_values_outside_the_slice(field, value):
     """A JAX config outside the ported slice raises, naming the field. The
     single-device model options (aggregator, message function, message
-    sources, lazy compaction, debug_nans) are ported: accepted, with
-    JAX's message and cell widths."""
+    sources, lazy compaction, debug_nans) and the host-backup protocol are
+    ported: accepted, with JAX's message and cell widths. ``n_devices=2``
+    for one seed is the row-sharded layout, still refused."""
     jcfg = JaxConfig(**{field: value})
     if field in ("debug_nans", "aggregator", "message_function",
                  "use_source_embedding_in_message",
-                 "use_destination_embedding_in_message", "lazy_unique_cap"):
+                 "use_destination_embedding_in_message", "lazy_unique_cap",
+                 "host_backup"):
         cfg = Config.from_dict(dataclasses.asdict(jcfg))
         assert getattr(cfg, field) == value
         for width in ("message_dim", "msg_table_dim", "cell_input_dim"):

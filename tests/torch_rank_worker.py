@@ -1,0 +1,202 @@
+"""The rank side of the port's seed-sharded tests: scenarios that one rank
+of a spawned group runs (``run_group``), each saving what the tests check
+to ``<out>/<scenario>_rank<r>.pt``. The ranks import the port alone (never
+JAX), at the sizes of test_torch_seed_trainer.py: 1,200 events, 40 + 40
+nodes, bs 50, index_chunk 200 (four superchunks), dims 16, top-5, the
+flagship (α, β) ensemble, S = 4 seeds over D = 2 ranks."""
+
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from zebra_tpu_torch import bridge
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.data import split_data, synthetic_stream
+from zebra_tpu_torch.parallel.distributed import broadcast_one_to_all, rank
+from zebra_tpu_torch.parallel.launch import launch
+from zebra_tpu_torch.train.loop import Trainer
+
+S, D = 4, 2
+SMALL = dict(bs=50, index_chunk=200, node_dim=16, time_dim=16, memory_dim=16,
+             topk=5, alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95), lr=1e-3)
+F32 = dict(memory_dtype="float32", message_dtype="float32")
+PHASES = ("train", "val", "nn_val", "test", "nn_test")
+# test_seed_sharded.py's fit comparison: JAX's _seed_trainer config
+FIT = dict(data="synthetic", bs=50, index_chunk=200, node_dim=16,
+           time_dim=16, memory_dim=16, topk=5, alpha_list=(0.1,),
+           beta_list=(0.9,), n_degree=5, n_layer=2, lr=3e-3, n_epoch=2,
+           patience=5, memory_dtype="float32", save_best=True)
+
+
+def splits(n_events: int = 1200):
+    data, ef = synthetic_stream(n_events=n_events, n_users=40, n_items=40,
+                                edge_dim=4, seed=0)
+    return split_data(data.sources, data.destinations, data.timestamps,
+                      data.edge_idxs, data.labels), ef
+
+
+def trainer(ckpt: str, n_events: int = 1200, base=SMALL, **kw) -> Trainer:
+    sp, ef = splits(n_events)
+    cfg = Config(**{**base, "checkpoint_dir": ckpt, **kw})
+    return Trainer(cfg, sp, ef, device="cpu")
+
+
+def run_phases(t: Trainer) -> dict:
+    """train_epoch, validate, test: each phase's per-batch metrics, the
+    train-end and test-end index, and the tables at the end."""
+    tr = t.train_epoch()
+    train_index = t.index_state.data.clone()
+    val, nn_val = t.validate()
+    test, nn_test = t.test()
+    return dict(
+        per_batch={p: r.per_batch for p, r in
+                   zip(PHASES, (tr, val, nn_val, test, nn_test))},
+        train_index=train_index, index=t.index_state.data.clone(),
+        mem={k: v.clone() for k, v in t._memory_tables().items()},
+        params={k: v.clone() for k, v in t.params.state_dict().items()},
+        lanes=list(t._lanes), neg_base=np.asarray(t._neg_base))
+
+
+def lane_tree(tree, lanes):
+    """Lanes ``lanes`` of a stacked numpy params tree."""
+    if isinstance(tree, dict):
+        return {k: lane_tree(v, lanes) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [lane_tree(v, lanes) for v in tree]
+    return np.asarray(tree)[lanes.start: lanes.stop]
+
+
+# ------------------------------------------------------------- scenarios
+
+def sc_lanes(tmp: str) -> dict:
+    """2 ranks × S = 4 from JAX's stacked params (``<tmp>/params.pkl``),
+    dropout 0, f32 tables."""
+    t = trainer(os.path.join(tmp, "lanes"), parallel_runs=S, n_devices=D,
+                dropout=0.0, **F32)
+    with open(os.path.join(tmp, "params.pkl"), "rb") as f:
+        bridge.load_trainer_params(t, lane_tree(pickle.load(f), t._lanes))
+    return dict(run_phases(t), negs=t._draw_train_negs(0))
+
+
+def sc_fit(tmp: str) -> dict:
+    """``fit`` of S = 4 over 2 ranks (dropout 0.1), against sequential
+    single-seed fits."""
+    t = trainer(os.path.join(tmp, "fit"), 600, FIT, parallel_runs=S,
+                n_devices=D)
+    return dict(results=t.fit())
+
+
+def sc_resume(tmp: str) -> dict:
+    """An uninterrupted 3-epoch fit, and a 2-epoch fit resumed from its
+    epoch-2 state file, both over 2 ranks with ``parallel_lr``."""
+    kw = dict(n_epoch=3, patience=5, state_every=2, parallel_runs=S,
+              n_devices=D, parallel_lr=(3e-3, 8e-4, 1e-3, 2e-3))
+    full = trainer(os.path.join(tmp, "a"), **kw)
+    ref = full.fit()
+    half = trainer(os.path.join(tmp, "b"), **kw)
+    half.fit(n_epoch=2)
+    state = os.path.join(half.cfg.checkpoint_dir,
+                         half.cfg.run_name() + ".state.ckpt")
+    resumed = trainer(os.path.join(tmp, "b"), **kw)
+    out = resumed.fit(resume_from=state)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    return dict(ref=ref, out=out, state=state,
+                params_equal=same(full.params.parameters(),
+                                  resumed.params.parameters()),
+                mem_equal=same(full.mem, resumed.mem),
+                index_equal=torch.equal(full.index_state.data,
+                                        resumed.index_state.data))
+
+
+def sc_serve(tmp: str) -> dict:
+    """One epoch over 2 ranks, then its state file (the tests serve it)."""
+    t = trainer(os.path.join(tmp, "serve"), parallel_runs=S, n_devices=D)
+    t.train_epoch()
+    t.validate()
+    path = os.path.join(tmp, "serve", "sharded.state.ckpt")
+    t.save_state(path)
+    return dict(path=path, mem={k: v.clone() for k, v in
+                                t._memory_tables().items()},
+                index=t.index_state.data.clone())
+
+
+def sc_stop(tmp: str) -> dict:
+    """``request_stop`` on rank 1 alone, before the first superchunk."""
+    t = trainer(os.path.join(tmp, "stop"), parallel_runs=S, n_devices=D)
+    if rank() == 1:
+        t.request_stop()
+    out = t.fit(n_epoch=2)
+    return dict(out=out, cursor=t._chunk_cursor)
+
+
+def sc_branches(tmp: str) -> dict:
+    """The pruning strategy and the time tower (S = 2 over 2 ranks), one
+    epoch and validate each."""
+    res = {}
+    for name, kw in (("pruning", dict(tppr_strategy="pruning",
+                                      beta_list=(0.5, 0.95), n_degree=4,
+                                      n_layer=2)),
+                     ("time", dict(embedding_module="time"))):
+        t = trainer(os.path.join(tmp, name), parallel_runs=2, n_devices=D,
+                    **F32, **kw)
+        tr = t.train_epoch()
+        val, nn_val = t.validate()
+        res[name] = dict(train=tr.ap, val=val.ap, nn_val=nn_val.ap)
+    return res
+
+
+def sc_fit_one_lane(tmp: str) -> dict:
+    """``fit`` of S = 2 over 2 ranks: one lane per rank."""
+    t = trainer(os.path.join(tmp, "one_lane"), parallel_runs=2, n_devices=D,
+                n_epoch=1, **F32)
+    return dict(results=t.fit(), lanes=list(t._lanes))
+
+
+def sc_host_backup(tmp: str) -> dict:
+    """S = 4 over 2 ranks, validate and test under each protocol."""
+    res = {}
+    for host in (False, True):
+        t = trainer(os.path.join(tmp, f"hb{int(host)}"), parallel_runs=S,
+                    n_devices=D, host_backup=host, **F32)
+        assert t.host_backup is host
+        res[host] = run_phases(t)
+    return res
+
+
+def sc_random_bases(tmp: str) -> dict:
+    """``enable_random`` from a global numpy state seeded 100 + rank: the
+    negative bases each rank holds, and a broadcast of each rank's own
+    draw."""
+    np.random.seed(100 + rank())
+    own = np.random.randint(0, 2**31 - 1, S)
+    np.random.seed(100 + rank())
+    t = trainer(os.path.join(tmp, "random"), parallel_runs=S, n_devices=D,
+                enable_random=True)
+    return dict(neg_base=np.asarray(t._neg_base), lanes=list(t._lanes),
+                own=own, broadcast=broadcast_one_to_all(own))
+
+
+def fail_on_rank_one() -> None:
+    """Rank 1 raises while rank 0 waits for it in a collective."""
+    if rank() == 1:
+        raise RuntimeError("rank 1 fails")
+    torch.distributed.barrier()
+
+
+def _rank(scenarios, tmp: str) -> None:
+    for name in scenarios:
+        out = globals()[f"sc_{name}"](tmp)
+        torch.save(out, os.path.join(tmp, f"{name}_rank{rank()}.pt"))
+
+
+def run_group(scenarios, tmp: str) -> dict:
+    """Run ``scenarios`` in order on D spawned CPU ranks (one torch thread
+    each); returns each scenario's list of the ranks' results."""
+    launch(_rank, D, (tuple(scenarios), str(tmp)), threads=1)
+    return {name: [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"),
+                              weights_only=False) for r in range(D)]
+            for name in scenarios}

@@ -14,7 +14,8 @@ plain PyTorch version runs.
 
 Ported so far, for the streaming and pruning strategies, every tower
 (diffusion, graph_attention, graph_sum, identity, time), the GRU/RNN
-updater and the ``last`` aggregator, S seeds on one device: the training
+updater and both aggregators, S seeds on one device or sharded whole over
+D processes (:mod:`.parallel`), with the host-backup protocol: the training
 run (``python -m zebra_tpu_torch.train``, :mod:`.cli`;
 ``train.loop.Trainer``: ``fit`` with early stopping and state files,
 ``train_epoch``, ``validate``, ``test``; ``train.node_classification``),

@@ -24,6 +24,16 @@ AGGREGATORS = ("last", "mean")
 MESSAGE_FUNCTIONS = ("identity", "mlp")
 
 
+def _device_name(name: str) -> str:
+    """``--device``'s value: ``cpu``, ``cuda`` or ``cuda:<index>``."""
+    kind, _, index = name.partition(":")
+    if kind == "cpu" and not index or kind == "cuda" and (
+            not index or index.isdigit()):
+        return name
+    raise argparse.ArgumentTypeError(
+        f"{name!r}: expected cpu, cuda or cuda:<index>")
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """Config dtype name ('float32' | 'bfloat16') → torch dtype."""
     return _DTYPES[name]
@@ -109,7 +119,8 @@ class Config:
     owner_aligned_waves: Optional[bool] = None
     interleave_node_ids: Optional[bool] = None
     interleave_shards: int = 0
-    host_backup: Optional[bool] = None
+    host_backup: Optional[bool] = None   # val/test table backups in host
+                                     # memory (None: when only they fit)
     pallas_merge: bool = True        # the hand-written merge kernel (on the
                                      # card: csrc/santa_merge.cu)
     lazy_unique_cap: int = 0
@@ -164,12 +175,15 @@ class Config:
                 self.message_function not in MESSAGE_FUNCTIONS,
             "interleave_shards": int(self.interleave_shards or 0) > 1,
             "interleave_node_ids": bool(self.interleave_node_ids),
-            "n_devices": int(self.n_devices) != 1,
-            "dist_coordinator": self.dist_coordinator is not None,
-            "dist_num_processes": int(self.dist_num_processes) != 1,
-            "dist_process_id": int(self.dist_process_id) != 0,
+            # more than one device (or process) for one seed is the
+            # row-sharded layout; whole seeds per device are ported
+            "n_devices": int(self.n_devices) != 1 and n_seeds == 1,
+            "dist_coordinator": (self.dist_coordinator is not None
+                                 and n_seeds == 1),
+            "dist_num_processes": (int(self.dist_num_processes) != 1
+                                   and n_seeds == 1),
+            "dist_process_id": int(self.dist_process_id) != 0 and n_seeds == 1,
             "owner_aligned_waves": bool(self.owner_aligned_waves),
-            "host_backup": bool(self.host_backup),
             "fused_dispatch": bool(self.fused_dispatch),
             "pallas_merge": not self.pallas_merge,
             "prng_impl": self.prng_impl != "rbg",
@@ -188,8 +202,22 @@ class Config:
                 "identity and mlp message functions, memory- or "
                 "embedding-sourced messages, per-position or compacted lazy "
                 "updates, debug_nans, the hand-written merge kernel, one "
-                "device in one process): " + ", ".join(bad)
+                "device per process, whole seeds per device; the "
+                "row-sharded single seed, owner-aligned waves and the id "
+                "interleave are the next slice): " + ", ".join(bad)
             )
+        n_dev = int(self.n_devices)
+        if n_dev > 1 and n_seeds % n_dev:
+            raise ValueError(
+                f"parallel_runs ({n_seeds}) must be a multiple of the mesh "
+                f"size ({n_dev}): the seed axis shards whole seeds per "
+                "device")
+        n_proc = int(self.dist_num_processes)
+        if n_proc > 1 and n_dev not in (0, n_proc):
+            raise ValueError(
+                f"--n_devices {n_dev} with --dist_num_processes {n_proc}: "
+                "one process per device, so the mesh has as many devices as "
+                "processes (--n_devices 0 takes them all)")
         if self.node_dim != self.memory_dim:
             raise ValueError(
                 f"node_dim={self.node_dim} must equal memory_dim="
@@ -211,6 +239,13 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def single_seed(self) -> "Config":
+        """This config for one seed on one device: what serves one seed of
+        a seed-parallel (or seed-sharded) run."""
+        return self.replace(parallel_runs=1, parallel_lr=None, n_devices=1,
+                            dist_coordinator=None, dist_num_processes=1,
+                            dist_process_id=0)
 
     @property
     def n_tppr(self) -> int:
@@ -364,7 +399,9 @@ class Config:
     @staticmethod
     def arg_parser() -> argparse.ArgumentParser:
         """The JAX package's parser (every flag under its name and default),
-        plus ``--device`` (``cuda`` unless ``cpu`` is asked for)."""
+        plus ``--device``: ``cuda`` (rank r of a seed-sharded run on
+        ``cuda:r``), a named card such as ``cuda:0`` (every rank on it), or
+        ``cpu``."""
         p = argparse.ArgumentParser("zebra_tpu_torch training")
         p.add_argument("-d", "--data", type=str, default="wikipedia")
         p.add_argument("--data_dir", type=str, default="data")
@@ -444,8 +481,7 @@ class Config:
         p.add_argument("--state_every", type=int, default=0)
         p.add_argument("--resume_state", type=str, default=None)
         p.add_argument("--seed", type=int, default=0)
-        p.add_argument("--device", type=str, default="cuda",
-                       choices=["cuda", "cpu"])
+        p.add_argument("--device", type=_device_name, default="cuda")
         return p
 
     @classmethod

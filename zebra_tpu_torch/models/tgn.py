@@ -34,6 +34,8 @@ shapes of a single-seed forward."""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 from torch import nn
 
@@ -117,14 +119,17 @@ def init_tgn_params(cfg: Config, generator: torch.Generator,
     return nn.ModuleDict(params).to(dev).requires_grad_(False)
 
 
-def init_seed_params(cfg: Config, device=None) -> nn.ModuleDict:
+def init_seed_params(cfg: Config, device=None,
+                     lanes: Optional[Sequence[int]] = None) -> nn.ModuleDict:
     """Seed-parallel parameters: ``init_tgn_params``'s structure with a
-    leading [S] axis (S = ``cfg.n_seeds``) on every leaf, lane s drawn as a
-    single-seed Trainer with seed ``cfg.seed + s`` draws its own."""
+    leading axis over the global seed lanes ``lanes`` (all S =
+    ``cfg.n_seeds`` by default) on every leaf, lane g drawn as a
+    single-seed Trainer with seed ``cfg.seed + g`` draws its own."""
+    lanes = range(cfg.n_seeds) if lanes is None else lanes
     return stack_params([
-        init_tgn_params(cfg.replace(seed=cfg.seed + s),
-                        torch.Generator().manual_seed(cfg.seed + s), "cpu")
-        for s in range(cfg.n_seeds)]).to(resolve_device(device))
+        init_tgn_params(cfg.replace(seed=cfg.seed + g),
+                        torch.Generator().manual_seed(cfg.seed + g), "cpu")
+        for g in lanes]).to(resolve_device(device))
 
 
 def stack_params(lanes) -> nn.ModuleDict:

@@ -1,6 +1,7 @@
 """Where a training epoch's time goes on the card.
 
     python3 -m zebra_tpu_torch.profile_train [--parallel_runs S]
+        [--n_devices D] [--device cuda|cuda:0] [--host_backup]
         [--tppr_strategy pruning [--n_degree W] [--n_layer D]]
         [--embedding_module graph_attention|graph_sum|identity|time]
         [--aggregator mean] [--message_function mlp]
@@ -34,13 +35,26 @@ command line's flags), runs a warm-up epoch, then:
   train batch's neighbor lookups (one per hop) alone: their host time,
   their device time and their aten operations; for any tower but
   diffusion, the aten operations of one whole train batch.
+- ``validate()`` + ``test()`` after a ``torch.cuda.reset_peak_memory_stats``:
+  their seconds, the peak device bytes (``max_memory_allocated``) and the
+  bytes allocated before them, the host copies' seconds under
+  ``--host_backup``; then a ``save_state``'s seconds and bytes.
 Prints one JSON line; train events/s count every seed's events. Needs a
-CUDA device."""
+CUDA device.
+
+With ``--n_devices D`` the S seeds are sharded over D local ranks (rank r
+on ``cuda:r``, every rank on one card under ``--device cuda:0``), and each
+rank prints one JSON line of its own: a warm-up and a timed epoch's
+seconds, the metrics gather's host ms per phase, validate() + test() as
+above, and the state file's gather and write (``save_state``'s seconds:
+rank 0 gathers and writes, the others send and wait)."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +67,7 @@ from zebra_tpu_torch.index import merge
 from zebra_tpu_torch.index.neighbor_finder import most_recent_neighbors
 from zebra_tpu_torch.index.streaming import TpprState
 from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
+from zebra_tpu_torch.parallel.launch import launch
 from zebra_tpu_torch.profile_serve import device_ops
 from zebra_tpu_torch.train.loop import Trainer
 from zebra_tpu_torch.train.phase import (
@@ -209,9 +224,84 @@ def split_marks(marks) -> dict:
     return out
 
 
+def eval_and_state(trainer: Trainer, path: str) -> dict:
+    """validate() + test() from the trainer's train-end state, then a
+    ``save_state`` to ``path``: seconds, device bytes and the gathers."""
+    dev = trainer.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    trainer.host_copy_seconds = 0.0
+    t0 = time.perf_counter()
+    phases = (*trainer.validate(), *trainer.test())
+    torch.cuda.synchronize(dev)
+    eval_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    trainer.save_state(path)
+    state_s = time.perf_counter() - t0
+    return dict(
+        eval_s=eval_s, eval_peak_bytes=peak, eval_base_bytes=base,
+        eval_peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+        host_backup=trainer.host_backup,
+        host_copy_s=trainer.host_copy_seconds,
+        gather_ms={name: 1e3 * r.gather_seconds for name, r in zip(
+            ("val", "nn_val", "test", "nn_test"), phases)},
+        state_s=state_s,
+        state_bytes=os.path.getsize(path) if trainer.mesh.lead else None)
+
+
+def build(args) -> tuple:
+    """(cfg, splits, edge_feats) of the run the flags choose."""
+    options = option_overrides(args)
+    common = dict(parallel_runs=args.parallel_runs, n_devices=args.n_devices,
+                  host_backup=args.host_backup, **options)
+    if args.embedding_module != "diffusion":
+        return wikipedia_attention(
+            embedding_module=args.embedding_module,
+            tppr_strategy=args.tppr_strategy, n_degree=args.n_degree,
+            n_layer=args.n_layer, **common)
+    if args.tppr_strategy == "pruning":
+        return mooc_pruning(n_degree=args.n_degree, n_layer=args.n_layer,
+                            **common)
+    return flagship_training(**common)
+
+
+def sharded_rank(args) -> None:
+    """One rank of ``--n_devices D``: prints its JSON line."""
+    cfg, splits, edge_feats = build(args)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg.replace(checkpoint_dir=tmp), splits,
+                          edge_feats, device=args.device)
+        epochs = []
+        for _ in range(2):                     # a warm-up, a timed epoch
+            merge.SANTA_MERGE.launches = 0
+            torch.cuda.synchronize(trainer.device)
+            t0 = time.perf_counter()
+            r = trainer.train_epoch()
+            torch.cuda.synchronize(trainer.device)
+            epochs.append(dict(seconds=time.perf_counter() - t0,
+                               waves=r.waves,
+                               santa_merge_launches=merge.SANTA_MERGE
+                               .launches,
+                               gather_ms=1e3 * r.gather_seconds,
+                               ap=[float(x) for x in r.ap]))
+        out = eval_and_state(trainer, os.path.join(tmp, "state.ckpt"))
+    print(json.dumps(dict(
+        rank=trainer.mesh.rank, ranks=trainer.mesh.size,
+        device=str(trainer.device), lanes=list(trainer._lanes),
+        parallel_runs=cfg.n_seeds, epochs=epochs,
+        train_events_per_s_rank=len(trainer._lanes)
+        * splits.train.n_interactions / epochs[1]["seconds"], **out,
+        card=torch.cuda.get_device_name(trainer.device))), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser("zebra_tpu_torch.profile_train")
     ap.add_argument("--parallel_runs", type=int, default=1)
+    ap.add_argument("--n_devices", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--host_backup", action="store_true", default=None)
     ap.add_argument("--tppr_strategy", default="streaming",
                     choices=["streaming", "pruning"])
     ap.add_argument("--n_degree", type=int, default=10)
@@ -221,23 +311,14 @@ def main() -> None:
                              "identity", "time"])
     add_option_args(ap)
     args = ap.parse_args()
+    if args.n_devices > 1:
+        launch(sharded_rank, args.n_devices, (args,))
+        return
     options = option_overrides(args)
     tower = args.embedding_module != "diffusion"
     pruning = args.tppr_strategy == "pruning" and not tower
-    if tower:
-        cfg, splits, edge_feats = wikipedia_attention(
-            parallel_runs=args.parallel_runs,
-            embedding_module=args.embedding_module,
-            tppr_strategy=args.tppr_strategy, n_degree=args.n_degree,
-            n_layer=args.n_layer, **options)
-    elif pruning:
-        cfg, splits, edge_feats = mooc_pruning(
-            parallel_runs=args.parallel_runs, n_degree=args.n_degree,
-            n_layer=args.n_layer, **options)
-    else:
-        cfg, splits, edge_feats = flagship_training(
-            parallel_runs=args.parallel_runs, **options)
-    trainer = Trainer(cfg, splits, edge_feats, device="cuda")
+    cfg, splits, edge_feats = build(args)
+    trainer = Trainer(cfg, splits, edge_feats, device=args.device)
     n_train = splits.train.n_interactions * cfg.n_seeds
     trainer.train_epoch()                               # warm-up
     torch.cuda.synchronize()
@@ -303,6 +384,9 @@ def main() -> None:
         extra["ops_per_train_batch"] = count_ops(
             train_batch(trainer, batches // 2))
     mean = lambda x: float(torch.as_tensor(x, dtype=torch.float64).mean())
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as tmp:
+        extra.update(eval_and_state(trainer, os.path.join(tmp, "s.ckpt")))
     print(json.dumps(dict(
         embedding_module=cfg.embedding_module,
         tppr_strategy=cfg.tppr_strategy, n_degree=cfg.n_degree,
@@ -327,7 +411,7 @@ def main() -> None:
                         for name, (n, us) in top],
         loss=mean(plain.loss), ap=mean(plain.ap),
         marked_loss=mean(marked.loss),
-        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_device_gib=peak_gib,
         card=torch.cuda.get_device_name(0),
     )))
 

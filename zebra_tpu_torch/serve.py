@@ -160,7 +160,7 @@ class LinkPredictor:
             if run_index:
                 raise ValueError("pass run_index OR ensemble=True, not both")
             cls = EnsemblePredictor
-            cfg = cfg.replace(parallel_runs=1, parallel_lr=None)
+            cfg = cfg.single_seed()
         elif cfg.parallel_runs > 1:
             if not 0 <= run_index < cfg.parallel_runs:
                 raise ValueError(
@@ -168,7 +168,7 @@ class LinkPredictor:
                     f"{cfg.parallel_runs}-seed checkpoint")
             params = {k: v[run_index] for k, v in params.items()}
             mem = {k: v[run_index] for k, v in mem.items()}
-            cfg = cfg.replace(parallel_runs=1, parallel_lr=None)
+            cfg = cfg.single_seed()
         elif run_index:
             raise ValueError(
                 f"run_index {run_index} given, but this checkpoint is "
@@ -215,7 +215,12 @@ class LinkPredictor:
         if n_seeds == 1 and cls._stacked:
             raise ValueError("EnsemblePredictor needs a seed-parallel Trainer "
                              "(--parallel_runs > 1)")
-        cfg = trainer.cfg.replace(parallel_runs=1, parallel_lr=None)
+        if trainer.mesh.size > 1:
+            raise ValueError(
+                "this Trainer is one rank of a seed-sharded run and holds "
+                "some of the seeds: serve its state file with "
+                "from_checkpoint (ensemble=True or run_index=...)")
+        cfg = trainer.cfg.single_seed()
         fu = trainer.splits.full
         return cls(cfg, trainer.params,
                    MemoryState(**trainer._memory_tables()),

@@ -1,6 +1,6 @@
-"""The trainer for one seed on one device (counterpart of
-``zebra_tpu/train/loop.py``): ``Trainer(cfg, splits, edge_feats)``, then
-``fit()``, or ``train_epoch()``, ``validate()`` and ``test()`` by hand.
+"""The trainer (counterpart of ``zebra_tpu/train/loop.py``):
+``Trainer(cfg, splits, edge_feats)``, then ``fit()``, or ``train_epoch()``,
+``validate()`` and ``test()`` by hand.
 
 Per epoch: zeroed memory and an empty index, then the train stream in
 superchunks. For each superchunk the host schedules the waves of the index
@@ -22,7 +22,10 @@ validate: flush pending messages (the train→eval transition), run the
 transductive val stream from (train-end memory, train-end index), keep that
 val-end state, run the inductive val stream from the unflushed train-end
 state, then restore the val-end state. test: the transductive and the
-inductive test streams, each from the val-end state.
+inductive test streams, each from the val-end state. Under ``host_backup``
+(chosen by the device-memory guard, ``train/memory_budget.py``, where only
+it fits) the backups wait in host memory and the device holds one set of
+tables.
 
 fit: epochs of train_epoch then validate, early stopping on the
 transductive val AP, the best epoch's (params, memory) in
@@ -47,7 +50,17 @@ seed makes). The index scan is shared: negatives are only read for
 extraction, so one scan per superchunk, scheduled against every seed's
 negatives, serves all seeds. Phase results hold [S] arrays; ``fit`` keeps a
 stopper and a best snapshot per seed and returns the mean, σ and the
-per-seed values."""
+per-seed values.
+
+Seed-sharded (``cfg.n_devices`` = D > 1, ``zebra_tpu_torch/parallel/``):
+one process per device, and rank r holds the global lanes [r·S/D,
+(r+1)·S/D) alone (seeds, lrs, generators and negative bases keyed by the
+global lane); every rank scans the index from the same stream, scheduled
+against its own lanes' negatives (a merge of rows [W, 2 + S/D, F]), so the
+index is bit-equal on every rank. A phase gathers its per-batch metrics of
+every lane onto every rank once, at its end; a stop request and a
+compaction overflow are agreed by every rank; rank 0 gathers the lanes of
+a state file and writes it in the one-process layout."""
 
 from __future__ import annotations
 
@@ -65,7 +78,16 @@ import torch
 from zebra_tpu_torch.config import Config, torch_dtype
 from zebra_tpu_torch.data.dataset import Data, DatasetSplits
 from zebra_tpu_torch.data.sampler import RandEdgeSampler
-from zebra_tpu_torch.device import resolve_device
+from zebra_tpu_torch.parallel.distributed import broadcast_one_to_all
+from zebra_tpu_torch.parallel.mesh import make_mesh
+from zebra_tpu_torch.parallel.sharding import (
+    agree_max,
+    all_gather_lanes,
+    barrier,
+    gather_lanes,
+    local_lanes,
+    take_lanes,
+)
 from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
@@ -75,13 +97,16 @@ from zebra_tpu_torch.index.streaming import (
 )
 from zebra_tpu_torch.index.waves import WavePlan, plan_waves, wave_scan_chunk
 from zebra_tpu_torch.models.memory import MemoryState, init_memory
+from zebra_tpu_torch.train.memory_budget import check_memory_budget
 from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
 from zebra_tpu_torch.train.phase import Stream, _mark, run_phase
 from zebra_tpu_torch.train.step import (
     flush_pending,
+    flush_pending_,
     flush_pending_seeds,
+    lane_lrs,
     lazy_position_count,
     make_optimizer,
     resolve_lazy_cap,
@@ -107,6 +132,8 @@ class PhaseResult:
                                  # (the device runs them behind the host)
     waves: int = 0               # index waves run: one santa_merge launch
                                  # each on the card
+    gather_seconds: float = 0.0  # host clock in the gather of every
+                                 # rank's lanes of the metrics (sharded)
     overflow: float = 0.0        # >0: a train batch overflowed the lazy
                                  # compaction's cap (its rows were wrong;
                                  # train_epoch reruns the epoch)
@@ -134,7 +161,10 @@ class Trainer:
     def __init__(self, cfg: Config, splits: DatasetSplits,
                  edge_feats: Optional[np.ndarray] = None,
                  node_feats: Optional[np.ndarray] = None, device=None):
-        self.device = dev = resolve_device(device)
+        # one device per process: a rank of a seed-sharded run holds its
+        # own seeds (cfg.n_devices ranks; one, this process, by default)
+        self.mesh = mesh = make_mesh(cfg.n_devices, device)
+        self.device = dev = mesh.device
         # ids are 1-based with 0 as padding; N rounds up to a multiple of 128
         # (the JAX package's row-sharding alignment, kept so both packages
         # hold tables of one shape)
@@ -193,37 +223,53 @@ class Trainer:
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list,
                                        cfg.topk)
 
+        # the seed lanes this rank holds (global ids; all S on one device)
+        # and whether the state is stacked on a seed axis (S > 1)
+        self._stacked = cfg.n_seeds > 1
+        self._lanes = lanes = local_lanes(cfg.n_seeds, mesh.size, mesh.rank)
+        self._n_seeds = n_seeds = len(lanes)
+
         # the base of the per-epoch train negatives: the first draw of a
         # RandomState seeded with cfg.seed (random under enable_random); per
-        # seed, the base a single-seed Trainer with seed cfg.seed + s draws
-        self._n_seeds = n_seeds = cfg.n_seeds
-        if n_seeds == 1:
+        # seed, the base a single-seed Trainer with seed cfg.seed + g draws
+        if not self._stacked:
             draw = np.random if cfg.enable_random else np.random.RandomState(
                 cfg.seed)
             self._neg_base = int(draw.randint(0, 2**31 - 1))
-        elif cfg.enable_random:
-            self._neg_base = np.random.randint(0, 2**31 - 1,
-                                               n_seeds).astype(np.int64)
         else:
-            self._neg_base = np.asarray(
-                [np.random.RandomState(cfg.seed + s).randint(0, 2**31 - 1)
-                 for s in range(n_seeds)], np.int64)
+            if cfg.enable_random:
+                bases = np.random.randint(0, 2**31 - 1,
+                                          cfg.n_seeds).astype(np.int64)
+                if mesh.size > 1:
+                    # every rank draws; rank 0's draw holds for all
+                    bases = broadcast_one_to_all(bases)
+            else:
+                bases = np.asarray(
+                    [np.random.RandomState(cfg.seed + g).randint(0, 2**31 - 1)
+                     for g in range(cfg.n_seeds)], np.int64)
+            self._neg_base = take_lanes(bases, lanes)
         self._epoch_id = 0
 
-        # seed lane s owns rows [s·N, (s+1)·N) of the flat memory tables
+        # local lane s owns rows [s·N, (s+1)·N) of the flat memory tables
         self._offs = None
-        if n_seeds == 1:
+        if not self._stacked:
             self.set_params(init_tgn_params(
                 cfg, torch.Generator().manual_seed(cfg.seed), dev))
         else:
             self._offs = torch.arange(n_seeds, dtype=torch.int64,
                                       device=dev) * cfg.n_nodes
-            self.set_params(init_seed_params(cfg, dev))
+            self.set_params(init_seed_params(cfg, dev, lanes))
         # dropout masks, one generator per seed; JAX's rbg masks cannot be
         # reproduced
-        gens = [torch.Generator(dev).manual_seed(cfg.seed + s)
-                for s in range(n_seeds)]
-        self._dropout = gens[0] if n_seeds == 1 else gens
+        gens = [torch.Generator(dev).manual_seed(cfg.seed + g)
+                for g in lanes]
+        self._dropout = gens if self._stacked else gens[0]
+        # validate/test's table backups in host memory, or on the device
+        # (host_backup None: the guard decides); the host buffers are
+        # pinned on a card, made at the first validate and reused
+        self.host_backup = check_memory_budget(cfg, n_seeds, dev)
+        self._host_tables: Dict[str, MemoryState] = {}
+        self.host_copy_seconds = 0.0
         self.mem, self.index_state = self._fresh_state()
 
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
@@ -246,8 +292,18 @@ class Trainer:
     def request_stop(self) -> None:
         """Ask the running ``fit`` to stop after the current superchunk and
         write a resumable state file. Only sets a flag, so a signal handler
-        may call it."""
+        may call it. In a seed-sharded run a request on any rank stops every
+        rank at the same superchunk."""
         self._stop_requested = True
+
+    def _agree_stop(self) -> bool:
+        """Whether a stop was requested, on any rank of the mesh: read at
+        superchunk boundaries, where every rank asks (a rank that stopped
+        alone would leave the others waiting in its next collective)."""
+        if self.mesh.size > 1:
+            self._stop_requested = agree_max(self.mesh,
+                                             self._stop_requested) > 0
+        return self._stop_requested
 
     @staticmethod
     def _stopper_state(stopper: EarlyStopMonitor) -> Dict:
@@ -264,7 +320,7 @@ class Trainer:
         """Train ``params`` (an ``nn.ModuleDict`` on this Trainer's device)
         from here on, with a fresh Adam state."""
         self.params = params.to(self.device).requires_grad_(True)
-        self.optimizer = make_optimizer(self.cfg, self.params)
+        self.optimizer = make_optimizer(self.cfg, self.params, self._lanes)
 
     # ---------------------------------------------------------------- helpers
 
@@ -317,8 +373,8 @@ class Trainer:
     def _draw_train_negs(self, epoch_id: int) -> np.ndarray:
         """This epoch's train negatives, padded to the stream's length: a
         draw from a RandomState seeded with (base, epoch). Seed-parallel:
-        [S, E], row s the draw of a single-seed Trainer with seed
-        cfg.seed + s."""
+        [S, E] (this rank's S lanes), row s the draw of a single-seed
+        Trainer with the lane's seed cfg.seed + g."""
         n = self.splits.train.n_interactions
         pad = len(self._streams["train"].host["src"]) - n
 
@@ -329,7 +385,7 @@ class Trainer:
             return np.concatenate([negs, np.zeros(pad, negs.dtype)]).astype(
                 np.int32)
 
-        if self._n_seeds == 1:
+        if not self._stacked:
             return draw(self._neg_base)
         return np.stack([draw(b) for b in self._neg_base])
 
@@ -425,20 +481,24 @@ class Trainer:
                 nbr_index, overflow, name))
             if train:
                 self._chunk_cursor = ci + 1
-                if self._stop_requested and wave_scan:
+                if wave_scan and self._agree_stop():
                     break
         self.index_waves += waves
+        # [n_batches, 4], or [n_batches, S, 4]: every lane's, on every rank
         per_batch = torch.cat(metrics).cpu().numpy()
+        t_gather = time.perf_counter()
+        per_batch = all_gather_lanes(self.mesh, per_batch)
+        t_gather = time.perf_counter() - t_gather
         # a window that starts at chunk c holds the real batches from
         # c·per_chunk on
         real = max(1, min(len(per_batch),
                           ps.real_batches - start_chunk * per_chunk))
         per_batch = per_batch[:real]
-        overflowed = (float(torch.stack(overflow[:real]).max())
-                      if overflow else 0.0)
+        overflowed = agree_max(self.mesh, float(
+            torch.stack(overflow[:real]).max()) if overflow else 0.0)
         # [4], or [S, 4] seed-parallel
         mean = per_batch.mean(axis=0)
-        if self._n_seeds == 1:
+        if not self._stacked:
             mean = [float(x) for x in mean]
         else:
             mean = list(mean.T)
@@ -446,7 +506,8 @@ class Trainer:
             loss=mean[0], ap=mean[1], auc=mean[2], acc=mean[3],
             seconds=time.perf_counter() - t0,
             index_seconds=t_index + sum(bfs_s), waves=waves,
-            overflow=overflowed, per_batch=per_batch)
+            gather_seconds=t_gather, overflow=overflowed,
+            per_batch=per_batch)
 
     # ---------------------------------------------------------------- epochs
 
@@ -532,14 +593,62 @@ class Trainer:
             g.set_state(state)
         self._chunk_cursor = 0
 
+    def _flush(self, in_place: bool) -> MemoryState:
+        """The train→eval flush of ``self.mem``: new tables, or in place."""
+        cfg, mem = self.cfg, self.mem
+        if self._stacked:
+            return flush_pending_seeds(cfg, self.params, mem, in_place)
+        return (flush_pending_ if in_place else flush_pending)(
+            cfg, self.params, mem)
+
+    def _to_host(self, key: str) -> MemoryState:
+        """Copy the device tables into the host buffers ``key`` (pinned on
+        a card; made at the first call and reused)."""
+        t0 = time.perf_counter()
+        buf = self._host_tables.get(key)
+        if buf is None:
+            pin = self.device.type == "cuda"
+            buf = MemoryState(*(torch.empty(x.shape, dtype=x.dtype,
+                                            pin_memory=pin)
+                                for x in self.mem))
+            self._host_tables[key] = buf
+        for b, x in zip(buf, self.mem):
+            b.copy_(x)
+        self.host_copy_seconds += time.perf_counter() - t0
+        return buf
+
+    def _from_host(self, buf: MemoryState) -> None:
+        """Copy host buffers back into the device tables."""
+        t0 = time.perf_counter()
+        for x, b in zip(self.mem, buf):
+            x.copy_(b)
+        self.host_copy_seconds += time.perf_counter() - t0
+
     def validate(self) -> Tuple[PhaseResult, PhaseResult]:
         """Transductive and inductive validation with the backup/restore
         protocol; leaves (mem, index) at the val-end state, where test()
-        starts."""
-        train_mem, train_idx = self.mem, self.index_state
+        starts.
+
+        Under ``host_backup`` the device holds one set of tables: the
+        train-end tables are copied to the host, flushed in place and run
+        through the val stream; the val-end tables go to the host while the
+        train-end ones come back for the inductive leg, then return. The
+        same operations on the same values: bit-equal to the device
+        protocol."""
+        train_idx = self.index_state
+        if self.host_backup:
+            train_h = self._to_host("train")
+            self._flush(in_place=True)
+            val_idx, trans = self._phase("val", False, _copy_index(train_idx))
+            val_h = self._to_host("val")
+            self._from_host(train_h)
+            _, induct = self._phase("nn_val", False, train_idx)
+            self._from_host(val_h)
+            self.index_state = val_idx
+            return trans, induct
+        train_mem = self.mem
         # the flush makes new tables: train_mem stays the unflushed backup
-        flush = flush_pending if self._n_seeds == 1 else flush_pending_seeds
-        self.mem = flush(self.cfg, self.params, train_mem)
+        self.mem = self._flush(in_place=False)
         val_idx, trans = self._phase("val", False, _copy_index(train_idx))
         val_mem = self.mem
         # the inductive leg consumes the train-end state; nothing reads it
@@ -552,8 +661,17 @@ class Trainer:
     def test(self) -> Tuple[PhaseResult, PhaseResult]:
         """Transductive and inductive test, each from the val-end state.
         Leaves the test-end index and the inductive leg's memory, as the
-        JAX Trainer does."""
-        val_mem, val_idx = self.mem, self.index_state
+        JAX Trainer does. Under ``host_backup`` the val-end tables wait in
+        host memory during the transductive leg."""
+        val_idx = self.index_state
+        if self.host_backup:
+            val_h = self._to_host("val")
+            self.index_state, trans = self._phase("test", False,
+                                                  _copy_index(val_idx))
+            self._from_host(val_h)
+            _, induct = self._phase("nn_test", False, val_idx)
+            return trans, induct
+        val_mem = self.mem
         self.mem = MemoryState(*(x.clone() for x in val_mem))
         self.index_state, trans = self._phase("test", False,
                                               _copy_index(val_idx))
@@ -565,20 +683,34 @@ class Trainer:
 
     def _memory_from(self, tables: Dict[str, torch.Tensor]) -> MemoryState:
         """Memory tables as a state file holds them ([S, N, ...] for S
-        seeds) → this Trainer's (flat) tables on its device."""
+        seeds, of which this rank takes its lanes) → this Trainer's (flat)
+        tables on its device."""
         n = self._n_seeds * self.cfg.n_nodes
+        if self._stacked:
+            tables = {k: take_lanes(v, self._lanes) for k, v in tables.items()}
         return MemoryState(**{k: v.to(self.device).reshape((n,) + v.shape[
-            1 + (self._n_seeds > 1):]) for k, v in tables.items()})
+            1 + self._stacked:]) for k, v in tables.items()})
 
     def _memory_tables(self, mem: Optional[MemoryState] = None
                        ) -> Dict[str, torch.Tensor]:
         """The memory tables as a state file holds them: [S, N, ...] for S
-        seeds (views of the flat tables), [N, ...] for one."""
+        seeds (views of the flat tables; this rank's lanes), [N, ...] for
+        one."""
         mem = self.mem if mem is None else mem
-        if self._n_seeds == 1:
+        if not self._stacked:
             return mem._asdict()
         return {k: v.view((self._n_seeds, -1) + v.shape[1:])
                 for k, v in mem._asdict().items()}
+
+    def _gather(self, lanes: Dict) -> Optional[Dict]:
+        """Per-lane tensors (each value, or each value of a dict value,
+        holds this rank's lanes on its leading axis) → every lane's, at rank
+        0 (None elsewhere), for a file in the one-process layout."""
+        gather = lambda t: gather_lanes(self.mesh, t)
+        out = {k: ({n: gather(v) for n, v in d.items()}
+                   if isinstance(d, dict) else gather(d))
+               for k, d in lanes.items()}
+        return out if self.mesh.lead else None
 
     def save_state(self, path: str, epoch: int = 0,
                    chunk: Optional[int] = None) -> None:
@@ -589,38 +721,59 @@ class Trainer:
         default), and fit's early-stop fields.
         Seed-parallel: params and Adam's moments with their [S] axis,
         memory [S, N, ...], the shared index, the dropout states [S, ·] and
-        the negative bases [S].
+        the negative bases [S]. A seed-sharded run writes the same file:
+        rank 0 gathers every rank's lanes and writes it, as a one-process
+        run of S seeds would, and the ranks wait for the write.
 
         A mid-epoch cursor needs nothing more: this epoch's negatives are
         drawn again from (negative base, epoch id), and the dropout
         generator's state is the one the next superchunk starts from."""
         if chunk is None:
             chunk = self._chunk_cursor
-        if self._n_seeds == 1:
-            dropout, neg_base = self._dropout.get_state(), self._neg_base
-        else:
-            dropout = torch.stack([g.get_state() for g in self._dropout])
-            neg_base = [int(b) for b in self._neg_base]
-        save_checkpoint(path, {
+        tree = {
             "cfg": dataclasses.asdict(self.cfg),
-            "params": self.params.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "mem": self._memory_tables(),
             "index_state": (None if self.index_state is None
                             else self.index_state.data),
-            "dropout": dropout,
             "epoch": int(epoch),
             "chunk": int(chunk),
             "epoch_id": self._epoch_id,
-            "neg_base": neg_base,
             "fit": self._fit_state,
+        }
+        if not self._stacked:
+            save_checkpoint(path, dict(
+                tree, params=self.params.state_dict(),
+                optimizer=self.optimizer.state_dict(),
+                mem=self._memory_tables(),
+                dropout=self._dropout.get_state(), neg_base=self._neg_base))
+            return
+        opt = self.optimizer.state_dict()
+        lanes = self._gather({
+            "params": self.params.state_dict(),
+            "mem": self._memory_tables(),
+            "exp_avg": dict(enumerate(opt["exp_avg"])),
+            "exp_avg_sq": dict(enumerate(opt["exp_avg_sq"])),
+            "dropout": torch.stack([g.get_state() for g in self._dropout]),
+            "neg_base": torch.from_numpy(np.asarray(self._neg_base,
+                                                    np.int64)),
         })
+        if lanes is not None:
+            tree.update(
+                params=lanes["params"], mem=lanes["mem"],
+                optimizer=dict(opt, lrs=list(lane_lrs(self.cfg)),
+                               exp_avg=list(lanes["exp_avg"].values()),
+                               exp_avg_sq=list(lanes["exp_avg_sq"].values())),
+                dropout=lanes["dropout"],
+                neg_base=[int(b) for b in lanes["neg_base"]])
+            save_checkpoint(path, tree)
+        # the ranks go on once the file is whole
+        barrier(self.mesh)
 
     def restore_state(self, path: str) -> Tuple[int, int]:
         """Restore a ``save_state`` file; returns (epoch, chunk). Pass
         ``chunk`` to ``train_epoch(start_chunk=...)`` to finish a partly
         trained epoch. Refuses a file whose state-shaping fields differ
-        from this Trainer's (``Config.STATE_FIELDS``)."""
+        from this Trainer's (``Config.STATE_FIELDS``). A seed-sharded rank
+        takes its lanes of the file, whatever number of ranks wrote it."""
         ckpt = load_checkpoint(path)
         diffs = Config.state_compat_diff(Config.from_dict(ckpt["cfg"]),
                                          self.cfg)
@@ -635,18 +788,28 @@ class Trainer:
                 "state:\n  " + "\n  ".join(diffs) + hint)
         # in place, so the optimizer's state keeps referring to the live
         # tensors
-        self.params.load_state_dict(ckpt["params"])
-        self.optimizer.load_state_dict(ckpt["optimizer"])
-        self.mem = self._memory_from(ckpt["mem"])
-        self.index_state = (None if ckpt["index_state"] is None else
-                            TpprState(ckpt["index_state"].to(self.device)))
-        if self._n_seeds == 1:
+        if not self._stacked:
+            self.params.load_state_dict(ckpt["params"])
+            self.optimizer.load_state_dict(ckpt["optimizer"])
             self._dropout.set_state(ckpt["dropout"])
             self._neg_base = ckpt["neg_base"]
         else:
-            for g, state in zip(self._dropout, ckpt["dropout"]):
+            lanes = self._lanes
+            take = lambda t: take_lanes(t, lanes)
+            opt = ckpt["optimizer"]
+            self.params.load_state_dict(
+                {k: take(v) for k, v in ckpt["params"].items()})
+            self.optimizer.load_state_dict(dict(
+                opt, lrs=take_lanes(list(opt["lrs"]), lanes),
+                exp_avg=[take(x) for x in opt["exp_avg"]],
+                exp_avg_sq=[take(x) for x in opt["exp_avg_sq"]]))
+            for g, state in zip(self._dropout, take(ckpt["dropout"])):
                 g.set_state(state.clone())
-            self._neg_base = np.asarray(ckpt["neg_base"], np.int64)
+            self._neg_base = take_lanes(
+                np.asarray(ckpt["neg_base"], np.int64), lanes)
+        self.mem = self._memory_from(ckpt["mem"])
+        self.index_state = (None if ckpt["index_state"] is None else
+                            TpprState(ckpt["index_state"].to(self.device)))
         self._chunk_cursor = ckpt["chunk"]
         self._epoch_id = ckpt["epoch_id"]
         self._fit_state = ckpt["fit"]
@@ -663,7 +826,7 @@ class Trainer:
         request) and continues from it: the early-stop monitor, and a
         mid-epoch cursor if one was saved. A seed-parallel Trainer runs
         :meth:`_fit_seeds`."""
-        if self._n_seeds > 1:
+        if self._stacked:
             return self._fit_seeds(n_epoch, resume_from)
         cfg = self.cfg
         n_epoch = n_epoch or cfg.n_epoch
@@ -780,7 +943,7 @@ class Trainer:
             for s, st in enumerate(stoppers)]}
 
     def _lane_snapshot(self, s: int):
-        """Copies of seed ``s``'s (params, memory tables)."""
+        """Copies of local lane ``s``'s (params, memory tables)."""
         n = self.cfg.n_nodes
         rows = slice(s * n, (s + 1) * n)
         return ({k: v[s].detach().clone()
@@ -805,14 +968,21 @@ class Trainer:
         so the run lasts as long as its latest-stopping seed. Test runs
         every seed in one pass: stopped seeds from their best snapshot,
         the others from their final state. Returns the mean and σ per
-        metric and the per-seed values with each seed's lr."""
+        metric and the per-seed values with each seed's lr.
+
+        Seed-sharded, every rank runs all S stoppers on the gathered
+        metrics, so every rank decides alike at the same epoch; a rank
+        keeps the snapshots of its own lanes, and the best checkpoint
+        gathers them."""
         cfg = self.cfg
-        s_n = self._n_seeds
+        s_n = cfg.n_seeds
+        lanes = self._lanes
         n_epoch = n_epoch or cfg.n_epoch
         stoppers = [EarlyStopMonitor(max_round=cfg.patience)
                     for _ in range(s_n)]
         stopped, stop_epoch = [False] * s_n, [-1] * s_n
-        best: list = [None] * s_n
+        # global lane → this rank's (params, memory) snapshot of it
+        best: Dict[int, Tuple] = {}
         timers = PhaseTimers()
         n_train_events = self.splits.train.n_interactions
 
@@ -830,10 +1000,11 @@ class Trainer:
                 ckpt = load_checkpoint(self.checkpoint_path)
                 mem = self._memory_from(ckpt["mem"])
                 n = cfg.n_nodes
-                best = [({k: v[s].to(self.device)
-                          for k, v in ckpt["params"].items()},
-                         MemoryState(*(x[s * n: (s + 1) * n] for x in mem)))
-                        for s in range(s_n)]
+                best = {g: ({k: v[g].to(self.device)
+                             for k, v in ckpt["params"].items()},
+                            MemoryState(*(x[i * n: (i + 1) * n]
+                                          for x in mem)))
+                        for i, g in enumerate(lanes)}
             logger.info("resumed seed-parallel fit from %s at epoch %d "
                         "chunk %d", resume_from, start_epoch, start_chunk)
         state_path = os.path.join(cfg.checkpoint_dir,
@@ -842,10 +1013,12 @@ class Trainer:
         def save_best():
             """The stacked best-or-current (params, memory) of every seed."""
             params, mem = self._stack_snapshots(
-                [best[s] if best[s] is not None else self._lane_snapshot(s)
-                 for s in range(s_n)])
-            save_checkpoint(self.checkpoint_path,
-                            {"params": params, "mem": mem})
+                [best[g] if g in best else self._lane_snapshot(i)
+                 for i, g in enumerate(lanes)])
+            tree = self._gather({"params": params, "mem": mem})
+            if tree is not None:
+                save_checkpoint(self.checkpoint_path, tree)
+            barrier(self.mesh)
 
         for epoch in range(start_epoch, n_epoch):
             with trace_context(
@@ -853,7 +1026,7 @@ class Trainer:
                 with timers.time("train", n_train_events):
                     tr = self.train_epoch(
                         start_chunk=start_chunk if epoch == start_epoch else 0)
-            if self._stop_requested:
+            if self._agree_stop():
                 self._fit_state = self._seed_stopper_state(
                     stoppers, stopped, stop_epoch)
                 done = self._chunk_cursor == 0
@@ -901,7 +1074,8 @@ class Trainer:
                     logger.info("seed %d stopped at epoch %d (best epoch %d)",
                                 s, epoch + 1, stoppers[s].best_epoch + 1)
                 elif epoch == stoppers[s].best_epoch:
-                    best[s] = self._lane_snapshot(s)
+                    if s in lanes:
+                        best[s] = self._lane_snapshot(s - lanes.start)
                     improved = True
             if improved:
                 save_best()
@@ -919,13 +1093,13 @@ class Trainer:
         # others from their final state
         n = cfg.n_nodes
         with torch.no_grad():
-            for s in range(s_n):
-                if stopped[s] and best[s] is not None:
-                    params, mem = best[s]
+            for i, g in enumerate(lanes):
+                if stopped[g] and g in best:
+                    params, mem = best[g]
                     for k, v in self.params.state_dict().items():
-                        v[s].copy_(params[k])
+                        v[i].copy_(params[k])
                     for x, y in zip(self.mem, mem):
-                        x[s * n: (s + 1) * n] = y
+                        x[i * n: (i + 1) * n] = y
 
         with timers.time("test"):
             t_trans, t_induct = self.test()
@@ -936,7 +1110,8 @@ class Trainer:
         logger.info("Test statistics: New nodes -- ap: %s, auc: %s, acc: %s",
                     _fmt_seeds(t_induct.ap), _fmt_seeds(t_induct.auc),
                     _fmt_seeds(t_induct.acc))
-        if not cfg.save_best and os.path.exists(self.checkpoint_path):
+        if (self.mesh.lead and not cfg.save_best
+                and os.path.exists(self.checkpoint_path)):
             os.remove(self.checkpoint_path)
 
         mean = lambda x: float(np.asarray(x).mean())
@@ -958,8 +1133,7 @@ class Trainer:
                 "nn_test_auc": aslist(t_induct.auc),
                 "nn_test_acc": aslist(t_induct.acc),
                 "stop_epoch": [float(e) for e in stop_epoch],
-                "lr": [float(lr) for lr in (
-                    cfg.parallel_lr or (cfg.lr,) * s_n)],
+                "lr": [float(lr) for lr in lane_lrs(cfg)],
             },
         }
 

@@ -1,0 +1,133 @@
+"""The device-memory guard (counterpart of the JAX Trainer's
+``_check_hbm_budget``, ``zebra_tpu/train/loop.py:573-668``): before any
+epoch, whether a rank's node tables fit its card through validate() and
+test(), and with which backup protocol.
+
+The tables of S_local seed lanes of N rows each take ``S_local · N ·
+per_row`` bytes (:func:`row_bytes`: the memory row, the pending-message row
+with its flag column, three f32 columns), and the streaming index ``N ·
+M(4k+1) · 4`` more (:func:`index_bytes`). validate() and test() hold
+several copies of the tables at their peak:
+
+- the device protocol: the train-end tables beside the flushed ones, then
+  the val-end tables beside the test leg's copy;
+- the host protocol (``host_backup``): the backups wait in host memory, so
+  the device holds the working tables alone, flushed in place.
+
+The constants come from ``torch.cuda.max_memory_allocated`` over
+validate() + test() on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``
+phase 13, the flagship's widths: bs 200, two members, top-20, dims 100):
+the peak's growth per seed, at two seed counts on two streams of different
+node counts, splits into each protocol's table copies
+(:data:`DEVICE_COPIES`, :data:`HOST_COPIES`, the resident tables included)
+and a seed's batch activations (:data:`LANE_BATCH_BYTES`, which do not
+grow with N); the flush's scratch grows with the rows, not the seeds (it
+flushes one seed at a time): :data:`FLUSH_ROW_BYTES` per node row, the
+peak of one seed's flush; the usable share of the card's free memory
+(:data:`USABLE_SHARE`) is the allocated bytes over the allocator's
+reserved bytes at the host protocol's peak. The index is counted twice in
+both protocols (the train-end index beside the val leg's copy).
+
+``host_backup`` None picks the host protocol when only it fits; a
+protocol that does not fit raises "HBM budget exceeded" (the JAX
+package's words). On the CPU there is no accounting, and nothing is
+checked."""
+
+from __future__ import annotations
+
+import logging
+from typing import NamedTuple, Optional
+
+import torch
+
+from zebra_tpu_torch.config import Config, torch_dtype
+
+logger = logging.getLogger("zebra_tpu_torch")
+
+# two runs measured 2.545 and 2.539 copies, 0.954 and 0.967 (the resident
+# copy alone: taken as 1), 71,180,325 and 70,977,106 B, 5,786 and 5,794 B,
+# 0.843 and 0.822; each rounded away from the risky side
+DEVICE_COPIES = 2.6
+HOST_COPIES = 1.0
+LANE_BATCH_BYTES = 72_000_000
+FLUSH_ROW_BYTES = 5_800
+INDEX_COPIES = 2
+USABLE_SHARE = 0.82
+
+
+def row_bytes(cfg: Config) -> int:
+    """Bytes of one node row of the memory tables."""
+    size = lambda name: torch.empty((), dtype=torch_dtype(name)).element_size()
+    return (cfg.memory_dim * size(cfg.memory_dtype)
+            + (cfg.msg_table_dim + 1) * size(cfg.message_dtype)
+            + 3 * 4)    # last_update, msg_ts, msg_count
+
+
+def index_bytes(cfg: Config) -> int:
+    """Bytes of the streaming index, [N, M(4k+1)] f32 (0 where none is
+    kept)."""
+    if not cfg.keeps_tppr_index:
+        return 0
+    return cfg.n_nodes * cfg.n_tppr * (4 * cfg.topk + 1) * 4
+
+
+class Budget(NamedTuple):
+    tables: int       # S_local · N · per_row
+    device: float     # the device protocol's estimate
+    host: float       # the host protocol's estimate
+    usable: float     # USABLE_SHARE of the free bytes
+
+    def decide(self, host_backup: Optional[bool]) -> str:
+        """"device", "host" or "refused" for a ``host_backup`` setting."""
+        if host_backup is None:
+            host_backup = self.device > self.usable >= self.host
+        est = self.host if host_backup else self.device
+        if est > self.usable:
+            return "refused"
+        return "host" if host_backup else "device"
+
+
+def budget(cfg: Config, s_local: int, free_bytes: int) -> Budget:
+    """The estimates of ``s_local`` lanes of ``cfg.n_nodes`` rows against
+    ``free_bytes`` of device memory."""
+    tables = s_local * cfg.n_nodes * row_bytes(cfg)
+    rest = (INDEX_COPIES * index_bytes(cfg) + LANE_BATCH_BYTES * s_local
+            + FLUSH_ROW_BYTES * cfg.n_nodes)
+    return Budget(tables, DEVICE_COPIES * tables + rest,
+                  HOST_COPIES * tables + rest, USABLE_SHARE * free_bytes)
+
+
+def check_memory_budget(cfg: Config, s_local: int, device) -> bool:
+    """Whether validate() and test() keep their table backups in host
+    memory: ``cfg.host_backup``, or where it is None, whether only the host
+    protocol fits. Raises where the protocol chosen does not fit the free
+    memory of ``device``; on the CPU returns ``bool(cfg.host_backup)``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return bool(cfg.host_backup)
+    free, total = torch.cuda.mem_get_info(device)
+    b = budget(cfg, s_local, free)
+    decision = b.decide(cfg.host_backup)
+    gib = lambda x: x / 2**30
+    if decision == "refused":
+        # auto falls back to the host protocol only where it fits
+        copies, est = ((HOST_COPIES, b.host) if cfg.host_backup
+                       else (DEVICE_COPIES, b.device))
+        raise ValueError(
+            f"node-table HBM budget exceeded: ~{gib(est):.1f} GiB estimated "
+            f"on {device} ({s_local} seed(s) × {cfg.n_nodes} rows × "
+            f"{row_bytes(cfg)} B, ×{copies} for the val/test backup "
+            f"protocol, + the batches' activations, a flush's scratch and "
+            f"the index ×{INDEX_COPIES})"
+            f" against a usable "
+            f"~{gib(b.usable):.1f} GiB of {gib(free):.1f} GiB free "
+            f"({gib(total):.1f} GiB on the card). Reduce --parallel_runs, "
+            "shard seeds over more devices (--n_devices), or shrink "
+            "--memory_dim/--topk.")
+    if decision == "host" and cfg.host_backup is None:
+        logger.info(
+            "val/test table backups will live in host memory (--host_backup "
+            "auto: the device protocol needs ~%.1f GiB of the usable ~%.1f "
+            "GiB, the host protocol ~%.1f GiB; --no_host_backup forces the "
+            "device protocol)", gib(b.device), gib(b.usable), gib(b.host))
+    return decision == "host"

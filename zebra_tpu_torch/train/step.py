@@ -72,13 +72,23 @@ from zebra_tpu_torch.models.tgn import (
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
 
 
-def make_optimizer(cfg: Config, params):
+def lane_lrs(cfg: Config, lanes: Optional[Sequence[int]] = None):
+    """The lr of each seed lane of ``lanes`` (global ids; every lane by
+    default): ``cfg.parallel_lr``, or ``cfg.lr`` for every seed when
+    unset."""
+    lrs = cfg.parallel_lr or (cfg.lr,) * cfg.n_seeds
+    return tuple(lrs[g] for g in (range(cfg.n_seeds) if lanes is None
+                                  else lanes))
+
+
+def make_optimizer(cfg: Config, params,
+                   lanes: Optional[Sequence[int]] = None):
     """``optax.adam(cfg.lr)``: the same update rule, with the moments on the
     parameters' device. Stacked parameters (S > 1 seeds) get a
-    :class:`SeedAdam` at ``cfg.parallel_lr`` (``cfg.lr`` for every seed when
-    unset)."""
+    :class:`SeedAdam` at :func:`lane_lrs` of ``lanes``, the global seed
+    lanes they hold (all S by default)."""
     if cfg.n_seeds > 1:
-        return SeedAdam(params, cfg.parallel_lr or (cfg.lr,) * cfg.n_seeds)
+        return SeedAdam(params, lane_lrs(cfg, lanes))
     return torch.optim.Adam(params.parameters(), lr=cfg.lr,
                             betas=(0.9, 0.999), eps=1e-8)
 
@@ -561,29 +571,35 @@ def flush_pending(cfg: Config, params, mem: MemoryState) -> MemoryState:
     """The train→eval flush of every pending message, dense over the N rows
     (``flush_pending_impl``). Returns a new state and leaves ``mem`` as it
     was, so ``mem`` can stay the pre-flush backup."""
-    msg, flag = message_input(cfg, params, mem, None)
-    upd = cell_apply(cfg, params, msg, mem.memory).to(mem.memory.dtype)
-    return MemoryState(
-        memory=torch.where(flag[:, None], upd, mem.memory),
-        last_update=torch.where(flag, mem.msg_ts, mem.last_update),
-        messages=torch.zeros_like(mem.messages),
-        msg_ts=mem.msg_ts.clone(),
-        msg_count=torch.zeros_like(mem.msg_count),
-    )
+    out = MemoryState(*(x.clone() for x in mem))
+    return flush_pending_(cfg, params, out)
 
 
 @torch.no_grad()
-def flush_pending_seeds(cfg: Config, params, mem: MemoryState) -> MemoryState:
-    """:func:`flush_pending` of flat seed-parallel tables, one seed at a
-    time (``_flush_mem_seeds``): the dense f32 scratch of the cell stays at
-    one seed's N rows. Returns new tables and leaves ``mem`` as it was."""
-    n_seeds = cfg.n_seeds
-    n = mem.memory.shape[0] // n_seeds
-    out = MemoryState(*(torch.empty_like(x) for x in mem))
-    for s in range(n_seeds):
+def flush_pending_(cfg: Config, params, mem: MemoryState) -> MemoryState:
+    """:func:`flush_pending` in place: the host-backup protocol's flush,
+    whose backup lives in host memory. Returns ``mem``."""
+    msg, flag = message_input(cfg, params, mem, None)
+    upd = cell_apply(cfg, params, msg, mem.memory).to(mem.memory.dtype)
+    mem.memory.copy_(torch.where(flag[:, None], upd, mem.memory))
+    mem.last_update.copy_(torch.where(flag, mem.msg_ts, mem.last_update))
+    mem.messages.zero_()
+    mem.msg_count.zero_()
+    return mem
+
+
+@torch.no_grad()
+def flush_pending_seeds(cfg: Config, params, mem: MemoryState,
+                        in_place: bool = False) -> MemoryState:
+    """:func:`flush_pending` of flat seed-parallel tables (the lanes
+    ``params`` holds, N = ``cfg.n_nodes`` rows each), one seed at a time
+    (``_flush_mem_seeds``): the dense f32 scratch of the cell stays at one
+    seed's N rows. Returns new tables and leaves ``mem`` as it was, or
+    flushes ``mem`` itself under ``in_place``."""
+    n = cfg.n_nodes
+    out = mem if in_place else MemoryState(*(x.clone() for x in mem))
+    for s in range(out.memory.shape[0] // n):
         rows = slice(s * n, (s + 1) * n)
-        lane = flush_pending(cfg, lane_params(params, s),
-                             MemoryState(*(x[rows] for x in mem)))
-        for o, x in zip(out, lane):
-            o[rows] = x
+        flush_pending_(cfg, lane_params(params, s),
+                       MemoryState(*(x[rows] for x in out)))
     return out
