@@ -140,8 +140,36 @@ Phases, in order; any failure exits non-zero:
       seconds and the table copies the guard counts;
     - (d) the guard's decision at Wiki-Talk's 1,140,096 nodes for S = 1, 2,
       … from this card's free memory;
-14. one ``{"kernels": [...]}`` line;
-15. last line ``{"ok": true, "device": {...}}``.
+14. row sharding: one seed's node rows over two ranks that share the one
+    card (``--device cuda:0``, the row exchange's Gloo form; no scaling
+    figure), the flagship at full width:
+    - (a) two ranks started by ``zebra_tpu_torch.parallel.launch`` against
+      one process on the card: the first 3,000 events (an epoch and
+      ``validate()``, dropout 0) at phase 9's lane bars; then the bench
+      stream (dropout 0.1), a
+      warm-up and a timed epoch (each rank's seconds, waves, santa_merge
+      launches, one per wave of every rank's scan, and the exchange's bytes
+      and seconds per kind), ``validate()`` + ``test()`` under the device
+      protocol and, from the saved train-end state, under host backups
+      (bit-equal, each one's peak device bytes); the index bit-equal on
+      both ranks and to the one process; the params bit-equal across ranks;
+    - (b) the CLI's form, ``--n_devices 2`` with one seed, on the first
+      10,000 events: a 2-epoch ``fit`` with ``--state_every 1``, a 1-epoch
+      run resumed from its state file to 2 epochs, bit-equal; the state
+      file served by a one-process ``LinkPredictor`` on the card, bit-equal
+      to the predictor of a one-process Trainer restored from it;
+    - (c) owner-aligned waves and the id interleave on the Wikipedia-shaped
+      stream with the flagship's diffusion tower: the waves of a train
+      epoch of the 120,000-event stream under the plain, aligned and
+      aligned + interleaved schedules; one epoch and ``validate()`` of the
+      plain and the interleaved run on its first 10,000 events, the
+      interleaved index mapped back through the inverse permutation
+      bit-equal to the plain one, and the interleaved run's state file
+      served on external ids against the plain run's;
+    - (d) the guard's decisions for one seed at 1,140,096 nodes over D = 1,
+      2, 4 and 8 ranks, with the rows per rank;
+15. one ``{"kernels": [...]}`` line;
+16. last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result."""
 
@@ -186,6 +214,10 @@ from zebra_tpu_torch.models.embedding import recursive_embed
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import init_tgn_params, lane_params
 from zebra_tpu_torch.parallel.launch import launch
+from zebra_tpu_torch.parallel.sharding import (
+    interleave_inverse,
+    interleave_permutation,
+)
 from zebra_tpu_torch.profile_serve import flagship
 from zebra_tpu_torch.profile_train import (
     bench_stream,
@@ -331,6 +363,23 @@ SHARD_FLAGS = ["--bs", "200", "--topk", "20", "--alpha_list", "0.1", "0.1",
 BACKUP_SEEDS = SEEDS
 GUARD_SEEDS = (2, BACKUP_SEEDS)
 WIKI_TALK_NODES = 1_140_096
+# Phase 14, row sharding: one seed over two ranks on the one card; the
+# CLI's flags for the flagship with one seed; the cut streams of the CLI
+# and the alignment legs; the mesh sizes the guard is asked about. The
+# replay keeps phase 9's lane bars against one process, with dropout 0 as
+# phase 7's replay: the gradient's sum over two blocks rounds in another
+# order (and a block's products may run other kernels), and with dropout's
+# 1/(1 - p) scaling such last-bit differences cross more bf16 rounding
+# boundaries (on the CPU, 9 batches of the replay: 1.8e-5 with dropout 0.1,
+# 3.7e-6 without; 1.2e-7 with f32 tables and dropout 0.1, the masks being
+# the one process's). Served scores are held bit-equal.
+ROWS_RANKS = 2
+ROWS_REPLAY_DROPOUT = 0.0
+ROWS_FLAGS = [f for f in SHARD_FLAGS[:-2]]
+ROWS_CLI_EVENTS = ROWS_WIKI_EVENTS = 10_000
+ROWS_GUARD_DEVICES = (1, 2, 4, 8)
+ROWS_TPPR = dict(bs=200, topk=20, alpha_list=(0.1, 0.1),
+                 beta_list=(0.05, 0.95), embedding_module="diffusion")
 
 
 def merge_work(rows: torch.Tensor, m: int, k: int):
@@ -2431,6 +2480,475 @@ def shard_phase(card: str):
     return launches, merged
 
 
+# ------------------------------------------------------------- phase 14
+
+def _cpu_tree(tree):
+    """Every tensor of a nested dict or list, detached on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cpu_tree(v) for v in tree]
+    return tree
+
+
+def _exchange(trainer: Trainer) -> dict:
+    """The row exchange's counts since their last reset, per kind."""
+    return {kind: dict(calls=n, bytes=b, seconds=sec)
+            for kind, (n, b, sec) in trainer.exchange.stats.items()}
+
+
+def rows_rank(out: str, device: str, n_events: int) -> None:
+    """(a), one rank: the flagship's one seed over ROWS_RANKS ranks, the
+    replay leg (TRAIN_REPLAY_EVENTS events), then the full leg on
+    ``n_events``; what the parent compares goes to ``out/rows<r>.pt``."""
+    res = {}
+    for leg, n in (("replay", TRAIN_REPLAY_EVENTS), ("full", n_events)):
+        cfg, splits, edge_feats = flagship_training(
+            seed=0, n_events=n, n_devices=ROWS_RANKS,
+            dropout=ROWS_REPLAY_DROPOUT if leg == "replay" else 0.1)
+        trainer = Trainer(cfg.replace(checkpoint_dir=out), splits,
+                          edge_feats, device=device)
+        res[leg] = (_rows_replay(trainer) if leg == "replay"
+                    else _rows_run(trainer, out))
+    res.update(rank=trainer.mesh.rank, backend=trainer.exchange.backend,
+               device=str(trainer.device),
+               local_rows=int(trainer.mem.memory.shape[0]))
+    torch.save(res, os.path.join(out, f"rows{trainer.mesh.rank}.pt"))
+
+
+def _rows_replay(trainer: Trainer) -> dict:
+    """One epoch and validate(): per-batch metrics, the params, the
+    gathered memory table and the val metrics."""
+    r, v = trainer.train_epoch(), trainer.validate()[0]
+    mem, _ = trainer.gathered_state()
+    return dict(per_batch=r.per_batch, steps=int(r.per_batch.shape[0]),
+                params=_cpu_tree(trainer.params.state_dict()),
+                memory=mem.memory.cpu().clone(),
+                val=np.asarray([v.ap, v.auc, v.acc]))
+
+
+def _rows_run(trainer: Trainer, out: str) -> dict:
+    """Two epochs, then validate() + test() under the device protocol and,
+    from the saved train-end state, under host backups."""
+    dev = trainer.device
+    _reset_counts()
+    epochs = []
+    for _ in (1, 2):
+        trainer.exchange.reset_stats()
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = trainer.train_epoch()
+        _sync(dev)
+        epochs.append(dict(seconds=time.perf_counter() - t0, waves=r.waves,
+                           index_host_s=r.index_seconds,
+                           gather_ms=1e3 * r.gather_seconds,
+                           per_batch=r.per_batch, exchange=_exchange(trainer)))
+    _, index = trainer.gathered_state()
+    train_index = index.data.cpu().clone()
+    path = os.path.join(out, "rows_train_end.state.ckpt")
+    trainer.save_state(path)
+    evals, eval_exchange = {}, {}
+    for host in (False, True):
+        if host:
+            trainer.host_backup = True
+            trainer.restore_state(path)
+        trainer.exchange.reset_stats()
+        evals[host] = _eval_peak(trainer)
+        eval_exchange[host] = _exchange(trainer)
+        if not host:
+            _, index = trainer.gathered_state()
+            index_end = index.data.cpu().clone()
+    waves = sum(e["waves"] for e in epochs)
+    bitwise = (all(np.array_equal(x, y) for x, y in zip(
+        evals[False]["per_batch"], evals[True]["per_batch"]))
+        and all(torch.equal(evals[False]["mem"][k], evals[True]["mem"][k])
+                for k in evals[False]["mem"])
+        and torch.equal(evals[False]["index"], evals[True]["index"]))
+    return dict(
+        epochs=epochs, train_index=train_index, index_end=index_end,
+        eval={("host" if h else "device"): dict(
+            seconds=m["seconds"], host_copy_s=m["host_copy_s"],
+            base_bytes=m["base_bytes"], peak_bytes=m["peak_bytes"],
+            peak_above_base=m["peak_bytes"] - m["base_bytes"],
+            per_batch=m["per_batch"], exchange=eval_exchange[h])
+            for h, m in evals.items()},
+        host_backup_bitwise=bitwise,
+        params=_cpu_tree(trainer.params.state_dict()),
+        train_waves=waves,
+        santa_merge_launches=merge.SANTA_MERGE.launches,
+        santa_scan_launches=scan.SANTA_SCAN.launches,
+        index_waves=trainer.index_waves)
+
+
+def _same_params(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def rows_train(card: str, device: str = "cuda:0",
+               n_events: int = 120_000) -> int:
+    """(a): two ranks of one seed sharing one card against one process on
+    it. Returns santa_merge's launches of the ranks' full runs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch(rows_rank, ROWS_RANKS, (tmp, device, n_events),
+               threads=max(1, (os.cpu_count() or 2) // ROWS_RANKS))
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rows{r}.pt"),
+                            weights_only=False) for r in range(ROWS_RANKS)]
+    # one process, the same legs
+    one = {}
+    for leg, n in (("replay", TRAIN_REPLAY_EVENTS), ("full", n_events)):
+        cfg, splits, edge_feats = flagship_training(
+            seed=0, n_events=n,
+            dropout=ROWS_REPLAY_DROPOUT if leg == "replay" else 0.1)
+        trainer = Trainer(cfg, splits, edge_feats, device=device)
+        if leg == "replay":
+            r, v = trainer.train_epoch(), trainer.validate()[0]
+            one[leg] = dict(per_batch=r.per_batch,
+                            steps=int(r.per_batch.shape[0]),
+                            params=_cpu_tree(trainer.params.state_dict()),
+                            memory=trainer.mem.memory.cpu().clone(),
+                            val=np.asarray([v.ap, v.auc, v.acc]))
+            continue
+        seconds = []
+        for _ in (1, 2):
+            _sync(device)
+            t0 = time.perf_counter()
+            r = trainer.train_epoch()
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
+        train_index = trainer.index_state.data.cpu().clone()
+        phases = (*trainer.validate(), *trainer.test())
+        one[leg] = dict(epoch_s=seconds, per_batch=r.per_batch,
+                        train_index=train_index,
+                        index_end=trainer.index_state.data.cpu().clone(),
+                        eval=[p.per_batch for p in phases])
+        del trainer
+        gc.collect()
+    rep, want = [r["replay"] for r in ranks], one["replay"]
+    loss = max(float(np.abs(r["per_batch"][:, 0]
+                            - want["per_batch"][:, 0]).max()) for r in rep)
+    params = max(float((rep[0]["params"][k] - v).abs().max())
+                 for k, v in want["params"].items())
+    mem_err, mem_share = _lanes_err(rep[0]["memory"], want["memory"])
+    metric = max(float(np.abs(r["val"] - want["val"]).max()) for r in rep)
+    replay = dict(events=TRAIN_REPLAY_EVENTS, steps=want["steps"],
+                  batch_loss_max_abs_err=loss, params_max_abs_err=params,
+                  memory_max_abs_err=mem_err, memory_diff_share=mem_share,
+                  val_metric_max_abs_err=metric,
+                  params_bitwise_across_ranks=_same_params(
+                      rep[0]["params"], rep[1]["params"]))
+    print("rows replay " + json.dumps(dict(replay, card=card)), flush=True)
+    assert replay["params_bitwise_across_ranks"], replay
+    assert loss <= LANE_LOSS_ATOL, replay
+    assert params <= 2 * cfg.lr * want["steps"], replay
+    assert mem_err <= MEMORY_ATOL and mem_share <= MEMORY_DIFF_SHARE, replay
+    assert metric <= LANE_METRIC_ATOL, replay
+
+    full = [r["full"] for r in ranks]
+    index_bitwise = all(
+        torch.equal(f["train_index"], one["full"]["train_index"])
+        and torch.equal(f["index_end"], one["full"]["index_end"])
+        for f in full)
+    assert index_bitwise, "a rank's index differs from the one-process run"
+    assert _same_params(full[0]["params"], full[1]["params"]), (
+        "the ranks' params differ")
+    cuda = torch.device(device).type == "cuda"
+    launches = 0
+    for r, f in zip(ranks, full):
+        assert r["backend"] == "gloo", r      # two ranks on one card
+        assert f["santa_merge_launches"] == (
+            f["index_waves"] if cuda else 0), (r["rank"], f)
+        assert f["santa_scan_launches"] == 0
+        assert f["host_backup_bitwise"], r["rank"]
+        launches += f["santa_merge_launches"]
+        for e, ep in enumerate(f["epochs"], 1):
+            print(f"rows rank {r['rank']} of {ROWS_RANKS} on {r['device']} "
+                  f"({r['local_rows']} node rows, {r['backend']}) epoch {e}"
+                  f"{' (warm-up)' if e == 1 else ''}: {ep['seconds']:.3f} s, "
+                  f"{ep['waves']} waves, exchange "
+                  + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B "
+                              f"{v['seconds']:.3f} s"
+                              for k, v in ep["exchange"].items())
+                  + f"; the ranks share one card, so this is no scaling "
+                  f"figure  ({card})", flush=True)
+        aps = [p[:, 1].mean() for p in f["eval"]["device"]["per_batch"]]
+        assert all(np.isfinite(ep["per_batch"]).all()
+                   for ep in f["epochs"]) and min(aps) > 0.5, aps
+    res = dict(
+        ranks=ROWS_RANKS, device=device, backend=ranks[0]["backend"],
+        events=n_events, group_s=group_s,
+        local_node_rows=[r["local_rows"] for r in ranks],
+        rank_epoch_s=[[e["seconds"] for e in f["epochs"]] for f in full],
+        one_process_epoch_s=one["full"]["epoch_s"],
+        rank_waves=[[e["waves"] for e in f["epochs"]] for f in full],
+        rank_santa_merge_launches=[f["santa_merge_launches"] for f in full],
+        rank_exchange_epoch2=[f["epochs"][1]["exchange"] for f in full],
+        eval={k: [dict({x: f["eval"][k][x] for x in (
+            "seconds", "host_copy_s", "base_bytes", "peak_bytes",
+            "peak_above_base")}, exchange=f["eval"][k]["exchange"])
+            for f in full] for k in ("device", "host")},
+        index_bitwise=index_bitwise, params_bitwise_across_ranks=True,
+        host_backup_bitwise=True, lane_replay=replay,
+        full_epoch2=_divergence(full[0]["epochs"][1]["per_batch"][:, None],
+                                one["full"]["per_batch"][:, None]),
+        card=card)
+    print("rows train " + json.dumps(res), flush=True)
+    return launches
+
+
+def _tensor_leaves(tree) -> list:
+    """Every tensor of a nested state file's tree, in key order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in
+                _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return []
+
+
+def rows_cli(card: str, device: str = "cuda:0",
+             n_events: int = ROWS_CLI_EVENTS) -> int:
+    """(b): the CLI's one-seed form on two ranks, its resume and its state
+    file served, against one process. Returns santa_merge's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_bench_dataset(root, n_events)
+        base = ["-d", "bench", "--data_dir", str(root), *ROWS_FLAGS,
+                "--device", device]
+        run = lambda tag, *extra: [*base, "--checkpoint_dir",
+                                   str(root / tag), "--log_dir",
+                                   str(root / f"log_{tag}"), *extra]
+        sharded = ["--n_devices", str(ROWS_RANKS)]
+        a, a_s = _cli_ranks(run("a", "--n_epoch", "2", *sharded), root, "a")
+        b1, _ = _cli_ranks(run("b1", "--n_epoch", "1", *sharded), root, "b1")
+        states = lambda tag: sorted((root / tag).glob("*.state.ckpt"))
+        b1_state, = states("b1")
+        b2, b2_s = _cli_ranks(run("b2", "--n_epoch", "2", *sharded,
+                                  "--resume_state", str(b1_state)),
+                              root, "b2")
+        a_state, = states("a")
+        b2_state, = states("b2")
+        assert a_state.name == b2_state.name and "_par_" not in a_state.name
+        logs = list((root / "log_a" / "bench").iterdir())
+        assert len(logs) == 1 and "Test statistics" in logs[0].read_text()
+        resume_bitwise = all(torch.equal(x, y) for x, y in zip(
+            _tensor_leaves(load_checkpoint(str(a_state))),
+            _tensor_leaves(load_checkpoint(str(b2_state))))) and (
+                a[0]["results"] == b2[0]["results"])
+        assert resume_bitwise, (a[0]["results"], b2[0]["results"])
+        _, edge_feats = load_feat("bench", str(root))
+        ns = Config.arg_parser().parse_args(run("c", "--n_epoch", "2"))
+        one = Trainer(Config.from_dict(vars(ns)), get_data("bench",
+                                                           str(root)),
+                      edge_feats, device=device)
+        one.restore_state(str(a_state))
+        live = LinkPredictor.from_trainer(one)
+        served = LinkPredictor.from_checkpoint(
+            str(a_state), edge_feats=edge_feats, device=device)
+        te = one.splits.test
+        q = (te.sources[:DEPLOY_SCORE_B], te.destinations[:DEPLOY_SCORE_B],
+             te.timestamps[:DEPLOY_SCORE_B])
+        obs = (te.sources[-DEPLOY_OBSERVE_B:],
+               te.destinations[-DEPLOY_OBSERVE_B:],
+               te.timestamps[-DEPLOY_OBSERVE_B:],
+               te.edge_idxs[-DEPLOY_OBSERVE_B:])
+        _reset_counts()
+        scores = []
+        for pred in (served, live):
+            first = pred.score(*q)
+            pred.observe(*obs)
+            scores.append((first, pred.score(*q)))
+        serve_scans = scan.SANTA_SCAN.launches
+        serve_bitwise = all(np.array_equal(x, y) for x, y in zip(*scores))
+        assert serve_bitwise and np.isfinite(scores[0][0]).all()
+        state_bytes = a_state.stat().st_size
+    launches = 0
+    for tag, ranks in (("a", a), ("b1", b1), ("b2", b2)):
+        launches += sum(r["santa_merge_launches"] for r in ranks)
+    res = dict(ranks=ROWS_RANKS, device=device, events=n_events,
+               uninterrupted_s=a_s, resumed_s=b2_s,
+               rank_epochs=[r["epochs"] for r in a],
+               rank_santa_merge_launches={tag: [r["santa_merge_launches"]
+                                                for r in ranks]
+                                          for tag, ranks in (("a", a),
+                                                             ("b1", b1),
+                                                             ("b2", b2))},
+               state_file=a_state.name, state_file_bytes=state_bytes,
+               resume_bitwise=resume_bitwise,
+               served_vs_one_process_bitwise=serve_bitwise,
+               serve_santa_scan_launches=serve_scans,
+               results=a[0]["results"], card=card)
+    print("rows cli " + json.dumps(res), flush=True)
+    return launches
+
+
+def rows_align_rank(out: str, device: str, n_events: int) -> None:
+    """(c), one rank: each schedule's waves over a train epoch of the
+    120,000-event Wikipedia-shaped stream (the host's plans of the epoch's
+    negatives); one epoch and validate() of the plain and the interleaved
+    run on the first ``n_events``, their gathered index and tables and
+    state files."""
+    legs = {"plain": dict(owner_aligned_waves=False),
+            "aligned": dict(owner_aligned_waves=True,
+                            interleave_node_ids=False),
+            "interleaved": dict(owner_aligned_waves=True)}
+    res = {}
+    for name, kw in legs.items():
+        cfg, splits, edge_feats = wikipedia_attention(
+            seed=0, n_devices=ROWS_RANKS, **ROWS_TPPR, **kw)
+        t = Trainer(cfg.replace(checkpoint_dir=out), splits, edge_feats,
+                    device=device)
+        plans = t._wave_plans("train", t._draw_train_negs(0),
+                              range(t._streams["train"].n_chunks))
+        res[name] = dict(full_stream_waves=sum(p.n_waves
+                                               for p in plans.values()),
+                         wave_shards=t._wave_shards,
+                         interleave_shards=t.cfg.interleave_shards)
+        del t
+        if name == "aligned":
+            continue
+        cfg, splits, edge_feats = wikipedia_attention(
+            seed=0, n_events=n_events, n_devices=ROWS_RANKS, **ROWS_TPPR,
+            **kw)
+        t = Trainer(cfg.replace(checkpoint_dir=out), splits, edge_feats,
+                    device=device)
+        _reset_counts()
+        tr = t.train_epoch()
+        val, nn_val = t.validate()
+        mem, index = t.gathered_state()
+        path = os.path.join(out, f"{name}.state.ckpt")
+        t.save_state(path)
+        res[name].update(waves=tr.waves, train_ap=tr.ap, val_ap=val.ap,
+                         nn_val_ap=nn_val.ap, index=index.data.cpu().clone(),
+                         memory=mem.memory.cpu().clone(), path=path,
+                         n_nodes=t.cfg.n_nodes,
+                         santa_merge_launches=merge.SANTA_MERGE.launches,
+                         index_waves=t.index_waves)
+    torch.save(res, os.path.join(out, f"align{t.mesh.rank}.pt"))
+
+
+def _unpermute_index(index: torch.Tensor, n_shards: int, m: int,
+                     k: int) -> torch.Tensor:
+    """An index trained on interleaved ids → the raw id space: row v is
+    the permuted run's row perm[v], its neighbor ids mapped back through
+    the inverse (padding 0 stays 0)."""
+    n = index.shape[0]
+    perm = torch.from_numpy(interleave_permutation(n, n_shards).astype(
+        np.int64))
+    inv = torch.from_numpy(interleave_inverse(n, n_shards).astype(np.int64))
+    rows = index[perm]
+    fields = rows[:, : 4 * m * k].reshape(n, m, 4, k).clone()
+    fields[:, :, 1] = inv[fields[:, :, 1].to(torch.int64)].to(torch.float32)
+    return torch.cat([fields.reshape(n, -1), rows[:, 4 * m * k:]], dim=1)
+
+
+def rows_align(card: str, device: str = "cuda:0",
+               n_events: int = ROWS_WIKI_EVENTS) -> int:
+    """(c): aligned waves and the interleave. Returns santa_merge's
+    launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launch(rows_align_rank, ROWS_RANKS, (tmp, device, n_events),
+               threads=max(1, (os.cpu_count() or 2) // ROWS_RANKS))
+        ranks = [torch.load(os.path.join(tmp, f"align{r}.pt"),
+                            weights_only=False) for r in range(ROWS_RANKS)]
+        r0 = ranks[0]
+        plain, il = r0["plain"], r0["interleaved"]
+        assert (plain["wave_shards"], r0["aligned"]["wave_shards"],
+                il["wave_shards"]) == (1, ROWS_RANKS, ROWS_RANKS)
+        assert (r0["aligned"]["interleave_shards"],
+                il["interleave_shards"]) == (0, ROWS_RANKS)
+        back = _unpermute_index(il["index"], ROWS_RANKS, len(
+            ROWS_TPPR["alpha_list"]), ROWS_TPPR["topk"])
+        index_bitwise = bool(torch.equal(back, plain["index"]))
+        perm = torch.from_numpy(interleave_permutation(
+            il["n_nodes"], ROWS_RANKS).astype(np.int64))
+        mem_err = float((il["memory"][perm].float()
+                         - plain["memory"].float()).abs().max())
+        # the interleaved file answers external ids as the plain one does
+        _, splits, edge_feats = wikipedia_attention(
+            seed=0, n_events=n_events, **ROWS_TPPR)
+        te = splits.test
+        q = (te.sources[:DEPLOY_SCORE_B], te.destinations[:DEPLOY_SCORE_B],
+             te.timestamps[:DEPLOY_SCORE_B])
+        serve = lambda path: LinkPredictor.from_checkpoint(
+            path, edge_feats=edge_feats, device=device)
+        p_plain, p_il = serve(plain["path"]), serve(il["path"])
+        got, want = p_il.score(*q), p_plain.score(*q)
+        score_err = float(np.abs(got - want).max())
+        obs = (te.sources[-DEPLOY_OBSERVE_B:],
+               te.destinations[-DEPLOY_OBSERVE_B:],
+               te.timestamps[-DEPLOY_OBSERVE_B:],
+               te.edge_idxs[-DEPLOY_OBSERVE_B:])
+        p_plain.observe(*obs)
+        p_il.observe(*obs)
+        observed_err = float(np.abs(p_il.score(*q) - p_plain.score(*q)).max())
+    launches = sum(r[leg]["santa_merge_launches"] for r in ranks
+                   for leg in ("plain", "interleaved"))
+    cuda = torch.device(device).type == "cuda"
+    for r in ranks:
+        for leg in ("plain", "interleaved"):
+            assert r[leg]["santa_merge_launches"] == (
+                r[leg]["index_waves"] if cuda else 0), (leg, r[leg])
+    res = dict(
+        ranks=ROWS_RANKS, device=device,
+        full_stream_train_waves={k: r0[k]["full_stream_waves"]
+                                 for k in ("plain", "aligned",
+                                           "interleaved")},
+        cut_events=n_events,
+        cut_train_waves={k: r0[k]["waves"] for k in ("plain",
+                                                     "interleaved")},
+        cut_train_ap={k: r0[k]["train_ap"] for k in ("plain",
+                                                     "interleaved")},
+        cut_val_ap={k: r0[k]["val_ap"] for k in ("plain", "interleaved")},
+        interleaved_index_unpermuted_bitwise=index_bitwise,
+        interleaved_memory_unpermuted_max_abs_err=mem_err,
+        served_external_ids_max_abs_err=score_err,
+        served_after_observe_max_abs_err=observed_err, card=card)
+    print("rows align " + json.dumps(res), flush=True)
+    assert index_bitwise, res
+    assert score_err <= SCORE_ATOL and observed_err <= SCORE_ATOL, res
+    return launches
+
+
+def rows_guard(card: str, device: str = "cuda") -> None:
+    """(d): the guard's decisions for one seed at Wiki-Talk's node count
+    over ROWS_GUARD_DEVICES ranks, on this card's free memory."""
+    free, _ = torch.cuda.mem_get_info(device)
+    cfg, _, _ = flagship_training(seed=0, n_events=10)
+    cfg = cfg.replace(n_nodes=WIKI_TALK_NODES, edge_dim=1)
+    out = []
+    for d in ROWS_GUARD_DEVICES:
+        rows = WIKI_TALK_NODES // d
+        b = mb.budget(cfg, 1, free, rows)
+        out.append(dict(devices=d, rows_per_rank=rows, auto=b.decide(None),
+                        device_protocol=b.decide(False),
+                        host_backup=b.decide(True),
+                        device_gib=b.device / 2**30, host_gib=b.host / 2**30,
+                        usable_gib=b.usable / 2**30))
+    print("rows guard " + json.dumps(dict(
+        n_nodes=WIKI_TALK_NODES, seeds=1, row_bytes=mb.row_bytes(cfg),
+        index_row_bytes=mb.index_bytes(cfg, 1), free_bytes=free,
+        decisions=out, card=card)), flush=True)
+
+
+def rows_phase(card: str) -> int:
+    """Phase 14 (module docstring). Returns santa_merge's launches of its
+    main path (every rank's)."""
+    t0 = time.perf_counter()
+    launches = rows_train(card)
+    launches += rows_cli(card)
+    launches += rows_align(card)
+    rows_guard(card)
+    print(f"rows phase: {time.perf_counter() - t0:.1f} s  ({card})",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -2470,6 +2988,7 @@ def main() -> int:
     towers_phase(card)
     option_merges, option_scans = options_phase(card, flagship_epoch_s)
     shard_merges, shard_merge = shard_phase(card)
+    row_merges = rows_phase(card)
 
     def entry(name, results, main, launches):
         return dict(
@@ -2483,13 +3002,15 @@ def main() -> int:
 
     # each kernel at the shape its path gives it: a training wave for
     # santa_merge (launches: the CLI's fit run, the seed-parallel Trainer's
-    # and the options Trainer's epochs and eval phases, and phase 13's
-    # ranks, one-process runs and host-backup leg), a b = 200 observe
+    # and the options Trainer's epochs and eval phases, phase 13's ranks,
+    # one-process runs and host-backup leg, and phase 14's row-sharded
+    # ranks), a b = 200 observe
     # for santa_scan (launches: the serve phase, the ensemble's observe
     # calls and the options predictor's extracting ones)
     print(json.dumps({"kernels": [
         entry("santa_merge", merges + [seed_merge, shard_merge], merges[1],
-              merge_launches + seed_merges + option_merges + shard_merges),
+              merge_launches + seed_merges + option_merges + shard_merges
+              + row_merges),
         entry("santa_scan", scans, scans[0],
               scan_launches + seed_scans + option_scans),
     ]}), flush=True)

@@ -142,7 +142,8 @@ OUTSIDE = [
 # flag is accepted and carries over with JAX's derived widths
 OPENED = ("message_function", "use_source_embedding_in_message",
           "use_destination_embedding_in_message", "debug_nans",
-          "lazy_unique_cap", "host_backup")
+          "lazy_unique_cap", "host_backup", "n_devices", "dist_coordinator",
+          "dist_process_id", "interleave_node_ids", "owner_aligned_waves")
 
 
 @pytest.mark.parametrize("argv,field", OUTSIDE,

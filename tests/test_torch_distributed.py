@@ -69,8 +69,10 @@ def test_local_lanes():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(parallel_runs=3, n_devices=2), "multiple of the mesh size"),
-    (dict(n_devices=2), "row-sharded single seed.*next slice.*n_devices=2"),
-    (dict(n_devices=0), "n_devices=0"),
+    (dict(n_devices=2, tppr_strategy="pruning"),
+     "under row sharding.*next slice.*tppr_strategy='pruning'"),
+    (dict(n_devices=0, dist_num_processes=2, aggregator="mean"),
+     "under row sharding.*aggregator='mean'"),
     (dict(parallel_runs=4, n_devices=2, dist_num_processes=4),
      "one process per device"),
 ], ids=["not_a_multiple", "one_seed", "one_seed_all", "processes"])

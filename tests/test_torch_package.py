@@ -170,14 +170,16 @@ def test_ids_past_f32_width_raise(call):
 def test_config_refuses_values_outside_the_slice(field, value):
     """A JAX config outside the ported slice raises, naming the field. The
     single-device model options (aggregator, message function, message
-    sources, lazy compaction, debug_nans) and the host-backup protocol are
-    ported: accepted, with JAX's message and cell widths. ``n_devices=2``
-    for one seed is the row-sharded layout, still refused."""
+    sources, lazy compaction, debug_nans), the host-backup protocol and
+    the row-sharded layout (``n_devices=2`` for one seed, owner-aligned
+    waves, the interleave's shard count) are ported: accepted, with JAX's
+    message and cell widths."""
     jcfg = JaxConfig(**{field: value})
     if field in ("debug_nans", "aggregator", "message_function",
                  "use_source_embedding_in_message",
                  "use_destination_embedding_in_message", "lazy_unique_cap",
-                 "host_backup"):
+                 "host_backup", "interleave_shards", "n_devices",
+                 "owner_aligned_waves"):
         cfg = Config.from_dict(dataclasses.asdict(jcfg))
         assert getattr(cfg, field) == value
         for width in ("message_dim", "msg_table_dim", "cell_input_dim"):

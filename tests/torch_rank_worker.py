@@ -1,9 +1,12 @@
-"""The rank side of the port's seed-sharded tests: scenarios that one rank
-of a spawned group runs (``run_group``), each saving what the tests check
-to ``<out>/<scenario>_rank<r>.pt``. The ranks import the port alone (never
-JAX), at the sizes of test_torch_seed_trainer.py: 1,200 events, 40 + 40
-nodes, bs 50, index_chunk 200 (four superchunks), dims 16, top-5, the
-flagship (α, β) ensemble, S = 4 seeds over D = 2 ranks."""
+"""The rank side of the port's seed-sharded and row-sharded tests:
+scenarios that one rank of a spawned group runs (``run_group``), each
+saving what the tests check to ``<out>/<scenario>_rank<r>.pt``. The ranks
+import the port alone (never JAX), at the sizes of
+test_torch_seed_trainer.py: 1,200 events, 40 + 40 nodes, bs 50,
+index_chunk 200 (four superchunks), dims 16, top-5, the flagship (α, β)
+ensemble, S = 4 seeds over D = 2 ranks; the row-sharded scenarios (the
+``rows_*`` ones) run one seed over the D = 2 ranks, each rank holding 64
+of the 128 padded node rows and 25 of each batch's 50 events."""
 
 from __future__ import annotations
 
@@ -178,6 +181,143 @@ def sc_random_bases(tmp: str) -> dict:
                 enable_random=True)
     return dict(neg_base=np.asarray(t._neg_base), lanes=list(t._lanes),
                 own=own, broadcast=broadcast_one_to_all(own))
+
+
+def run_rows(t: Trainer) -> dict:
+    """``run_phases`` of a row-sharded Trainer: the index and the tables
+    gathered into the one-process layout after the train epoch and at the
+    end, the exchange's counts per kind."""
+    tr = t.train_epoch()
+    mem, index = t.gathered_state()
+    train_mem = {k: v.clone() for k, v in mem._asdict().items()}
+    train_index = index.data.clone()
+    val, nn_val = t.validate()
+    test, nn_test = t.test()
+    mem, index = t.gathered_state()
+    return dict(
+        per_batch={p: r.per_batch for p, r in
+                   zip(PHASES, (tr, val, nn_val, test, nn_test))},
+        waves={p: r.waves for p, r in
+               zip(PHASES, (tr, val, nn_val, test, nn_test))},
+        train_index=train_index, index=index.data.clone(),
+        train_mem=train_mem, mem={k: v.clone() for k, v in
+                                  mem._asdict().items()},
+        params={k: v.clone() for k, v in t.params.state_dict().items()},
+        local_rows=t.mem.memory.shape[0], backend=t.exchange.backend,
+        stats={k: list(v) for k, v in t.exchange.stats.items()},
+        negs=t._draw_train_negs(0), neg_base=t._neg_base)
+
+
+def sc_rows_jax(tmp: str) -> dict:
+    """One seed over 2 ranks from JAX's params (``<tmp>/rows_params.pkl``),
+    dropout 0, f32 tables."""
+    t = trainer(os.path.join(tmp, "rows_jax"), n_devices=D, dropout=0.0,
+                **F32)
+    with open(os.path.join(tmp, "rows_params.pkl"), "rb") as f:
+        bridge.load_trainer_params(t, pickle.load(f))
+    return run_rows(t)
+
+
+def sc_rows_dropout(tmp: str) -> dict:
+    """One seed over 2 ranks with the default dropout (0.1) and f32 tables,
+    from the Trainer's own init: the first superchunk of a train epoch."""
+    t = trainer(os.path.join(tmp, "rows_dropout"), n_devices=D, **F32)
+    r = t.train_epoch(max_chunks=1)
+    return dict(per_batch=r.per_batch,
+                params={k: v.clone() for k, v in
+                        t.params.state_dict().items()})
+
+
+def sc_rows_host_backup(tmp: str) -> dict:
+    """Row-sharded validate() and test() from one train-end state under
+    each backup protocol (the host one restored from the state file)."""
+    t = trainer(os.path.join(tmp, "rows_hb"), n_devices=D, host_backup=False,
+                **F32)
+    t.train_epoch()
+    path = os.path.join(tmp, "rows_hb", "train_end.state.ckpt")
+    t.save_state(path)
+    res = {}
+    for host in (False, True):
+        if host:
+            t.host_backup = True
+            t.restore_state(path)
+        phases = (*t.validate(), *t.test())
+        mem, index = t.gathered_state()
+        res[host] = dict(per_batch=[p.per_batch for p in phases],
+                         mem={k: v.clone() for k, v in
+                              mem._asdict().items()},
+                         index=index.data.clone())
+    return res
+
+
+def sc_rows_resume(tmp: str) -> dict:
+    """An uninterrupted 2-epoch row-sharded fit, and one resumed from the
+    epoch-1 state file of a 1-epoch fit."""
+    kw = dict(n_epoch=2, patience=5, state_every=1, n_devices=D)
+    full = trainer(os.path.join(tmp, "rows_a"), **kw)
+    ref = full.fit()
+    half = trainer(os.path.join(tmp, "rows_b"), **kw)
+    half.fit(n_epoch=1)
+    state = os.path.join(half.cfg.checkpoint_dir,
+                         half.cfg.run_name() + ".state.ckpt")
+    resumed = trainer(os.path.join(tmp, "rows_b"), **kw)
+    out = resumed.fit(resume_from=state)
+    mem_a, idx_a = full.gathered_state()
+    mem_b, idx_b = resumed.gathered_state()
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    return dict(ref=ref, out=out, state=state,
+                params_equal=same(full.params.parameters(),
+                                  resumed.params.parameters()),
+                mem_equal=same(mem_a, mem_b),
+                index_equal=torch.equal(idx_a.data, idx_b.data),
+                rank_params={k: v.clone() for k, v in
+                             full.params.state_dict().items()})
+
+
+def sc_rows_state(tmp: str) -> dict:
+    """One row-sharded epoch and validate(), then its state file (the tests
+    restore it with D = 1 and D = 2 and serve it)."""
+    t = trainer(os.path.join(tmp, "rows_state"), n_devices=D)
+    t.train_epoch()
+    t.validate()
+    path = os.path.join(tmp, "rows_state", "rows.state.ckpt")
+    t.save_state(path)
+    mem, index = t.gathered_state()
+    res = dict(path=path, mem={k: v.clone() for k, v in
+                               mem._asdict().items()},
+               index=index.data.clone())
+    # a second Trainer of two ranks restores it and carries on alike
+    again = trainer(os.path.join(tmp, "rows_state2"), n_devices=D)
+    again.restore_state(path)
+    a, b = t.train_epoch(), again.train_epoch()
+    res["restored_equal"] = bool(np.array_equal(a.per_batch, b.per_batch))
+    return res
+
+
+def sc_rows_aligned(tmp: str) -> dict:
+    """Owner-aligned waves over 2 ranks: with the id interleave (auto) and
+    without it, and neither (the auto rule on one host), one epoch and
+    validate each, and the plain and interleaved runs' state files."""
+    res = {}
+    for name, kw in (("plain", {}),
+                     ("aligned", dict(owner_aligned_waves=True,
+                                      interleave_node_ids=False)),
+                     ("interleaved", dict(owner_aligned_waves=True))):
+        t = trainer(os.path.join(tmp, f"rows_{name}"), n_devices=D, **F32,
+                    **kw)
+        tr = t.train_epoch()
+        val, nn_val = t.validate()
+        mem, index = t.gathered_state()
+        res[name] = dict(train=tr.ap, val=val.ap, nn_val=nn_val.ap,
+                         waves=tr.waves, shards=t.cfg.interleave_shards,
+                         wave_shards=t._wave_shards,
+                         index=index.data.clone(),
+                         memory=mem.memory.clone())
+        if name != "aligned":
+            path = os.path.join(tmp, f"rows_{name}", "run.state.ckpt")
+            t.save_state(path)
+            res[name]["path"] = path
+    return res
 
 
 def fail_on_rank_one() -> None:

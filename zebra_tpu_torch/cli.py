@@ -19,13 +19,18 @@ their mean ± σ; ``--parallel_lr`` gives each seed its own lr. It supersedes
 ``--n_runs``; ``--task node`` is single-seed and refused with it.
 
 ``--n_devices D`` shards those seeds over D devices, S/D whole seeds per
-process. Without ``--dist_*`` (or the ``ZEBRA_*`` variables) the command
+process; with one seed (no ``--parallel_runs``) it splits the seed's node
+rows over the D devices instead (``train/loop.py``: the row-sharded
+layout, with ``--owner_aligned_waves`` and ``--interleave_node_ids``).
+Without ``--dist_*`` (or the ``ZEBRA_*`` variables) the command
 starts D local ranks itself, rank r on ``cuda:r`` (``--device cuda:0`` puts
 every rank on one card, ``--device cpu`` on the host); with them, the
 caller started the processes and this one joins the group as one rank.
 Rank 0 alone writes the log, the ``epoch:`` and ``Test statistics:`` lines
 (over all S seeds) and the state files, in the one-process run's layout and
-name. A rank that fails makes the command exit non-zero."""
+name. A rank that fails makes the command exit non-zero. The row-sharded
+ranks exchange rows over NCCL where each has a card of its own, over Gloo
+where they share one (``--device cuda:0``) or run on the CPU."""
 
 from __future__ import annotations
 

@@ -173,17 +173,6 @@ class Config:
             "aggregator": self.aggregator not in AGGREGATORS,
             "message_function":
                 self.message_function not in MESSAGE_FUNCTIONS,
-            "interleave_shards": int(self.interleave_shards or 0) > 1,
-            "interleave_node_ids": bool(self.interleave_node_ids),
-            # more than one device (or process) for one seed is the
-            # row-sharded layout; whole seeds per device are ported
-            "n_devices": int(self.n_devices) != 1 and n_seeds == 1,
-            "dist_coordinator": (self.dist_coordinator is not None
-                                 and n_seeds == 1),
-            "dist_num_processes": (int(self.dist_num_processes) != 1
-                                   and n_seeds == 1),
-            "dist_process_id": int(self.dist_process_id) != 0 and n_seeds == 1,
-            "owner_aligned_waves": bool(self.owner_aligned_waves),
             "fused_dispatch": bool(self.fused_dispatch),
             "pallas_merge": not self.pallas_merge,
             "prng_impl": self.prng_impl != "rbg",
@@ -202,12 +191,18 @@ class Config:
                 "identity and mlp message functions, memory- or "
                 "embedding-sourced messages, per-position or compacted lazy "
                 "updates, debug_nans, the hand-written merge kernel, one "
-                "device per process, whole seeds per device; the "
-                "row-sharded single seed, owner-aligned waves and the id "
-                "interleave are the next slice): " + ", ".join(bad)
+                "device per process, whole seeds per device or one seed's "
+                "node rows over the devices): " + ", ".join(bad)
             )
         n_dev = int(self.n_devices)
-        if n_dev > 1 and n_seeds % n_dev:
+        if n_seeds == 1 and (n_dev > 1 or int(self.dist_num_processes) > 1):
+            self.check_row_sharded()
+            if n_dev > 1 and self.bs % n_dev:
+                raise ValueError(
+                    f"bs ({self.bs}) must be a multiple of the mesh size "
+                    f"({n_dev}): each rank takes an equal block of every "
+                    "batch's events")
+        if n_dev > 1 and n_seeds > 1 and n_seeds % n_dev:
             raise ValueError(
                 f"parallel_runs ({n_seeds}) must be a multiple of the mesh "
                 f"size ({n_dev}): the seed axis shards whole seeds per "
@@ -228,6 +223,34 @@ class Config:
             raise ValueError(
                 f"n_head={self.n_head} must divide the attention query width "
                 f"node_dim + time_dim = {q_dim}")
+
+    def check_row_sharded(self) -> None:
+        """Refuse what the row-sharded layout (one seed's node rows over
+        the devices) does not carry yet: it runs the streaming diffusion
+        tower with the ``last`` aggregator, identity messages from memory
+        and per-position lazy updates, for link prediction."""
+        outside = {
+            "tppr_strategy": self.tppr_strategy != "streaming",
+            "embedding_module": self.embedding_module != "diffusion",
+            "aggregator": self.aggregator != "last",
+            "message_function": self.message_function != "identity",
+            "use_source_embedding_in_message":
+                self.use_source_embedding_in_message,
+            "use_destination_embedding_in_message":
+                self.use_destination_embedding_in_message,
+            "lazy_unique_cap": int(self.lazy_unique_cap) != 0,
+            "task": self.task != "link",
+        }
+        bad = [f"{k}={getattr(self, k)!r}" for k, v in outside.items() if v]
+        if bad:
+            raise ValueError(
+                "outside the ported slice under row sharding (one seed over "
+                "--n_devices D: the streaming diffusion tower, last "
+                "aggregator, identity messages from memory, per-position "
+                "lazy updates, link prediction; the pruning strategy, the "
+                "other towers, mean, mlp, embedding-sourced messages, "
+                "lazy_unique_cap and --task node under row sharding are the "
+                "next slice): " + ", ".join(bad))
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "Config":

@@ -1,8 +1,8 @@
 // Greedy wave scheduler for the wave-parallel SANTA scan: host code, built
-// with g++ and loaded with ctypes (zebra_tpu_torch/build.py). A copy of the
-// one-shard case of zebra_tpu/native/ingest.cc (schedule_impl,
-// zt_wave_schedule_multi); the same inputs give the same (wave, slot,
-// n_waves).
+// with g++ and loaded with ctypes (zebra_tpu_torch/build.py). A copy of
+// zebra_tpu/native/ingest.cc (schedule_impl, zt_wave_schedule_multi, and
+// with n_shards > 1 zt_wave_schedule_aligned); the same inputs give the
+// same (wave, slot, n_waves).
 //
 // Edge i reads the rows of src, dst and each of its n_neg negatives, and
 // writes those of src and dst. Edges whose nodes are pairwise disjoint form
@@ -22,6 +22,13 @@
 // its own negative stream, row s of negs [n_neg, n], and every seed's read
 // is ordered against the writes. One stream gives the single-negative
 // schedule.
+//
+// Owner-aligned (n_shards > 1, the row-sharded layout): the cap lanes of a
+// wave split into n_shards blocks of cap / n_shards, and an edge takes a
+// lane of the block of its src row's owner, owner(v) = v / ceil(n_nodes /
+// n_shards) (contiguous rows per rank). The dependency rules are the same,
+// so the scan stays bit-equal to the sequential one; a shard that holds
+// many sources fills its block sooner and the wave count grows.
 
 #include <algorithm>
 #include <cstdint>
@@ -32,12 +39,16 @@ extern "C" int64_t zt_wave_schedule_multi(const int32_t* src,
                                           const int32_t* dst,
                                           const int32_t* negs, int32_t n_neg,
                                           int64_t n, int64_t n_nodes,
-                                          int32_t cap, int32_t* wave_out,
+                                          int32_t cap, int32_t n_shards,
+                                          int32_t* wave_out,
                                           int32_t* slot_out) {
-  if (cap < 1) return -2;
+  if (n_shards < 1) n_shards = 1;
+  if (cap < 1 || cap % n_shards != 0) return -2;  // blocks tile the lanes
+  const int32_t block = cap / n_shards;
+  const int64_t rows_per_shard = (n_nodes + n_shards - 1) / n_shards;
   std::vector<int32_t> last_write(static_cast<size_t>(n_nodes), -1);
   std::vector<int32_t> last_read(static_cast<size_t>(n_nodes), 0);
-  std::vector<int32_t> count;  // occupancy per wave
+  std::vector<int32_t> count;  // occupancy per (wave, shard), stride n_shards
   count.reserve(1024);
   int32_t n_waves = 0;
   for (int64_t i = 0; i < n; ++i) {
@@ -52,10 +63,16 @@ extern "C" int64_t zt_wave_schedule_multi(const int32_t* src,
       w = std::max(w, last_write[g]);
     }
     w = std::max({w + 1, last_read[s], last_read[d]});
-    while (static_cast<size_t>(w) < count.size() && count[w] >= cap) w++;
-    if (static_cast<size_t>(w) >= count.size()) count.resize(w + 1, 0);
+    const int32_t own =
+        n_shards > 1 ? static_cast<int32_t>(s / rows_per_shard) : 0;
+    while (static_cast<size_t>(w) * n_shards < count.size() &&
+           count[static_cast<size_t>(w) * n_shards + own] >= block)
+      w++;
+    if (static_cast<size_t>(w + 1) * n_shards > count.size())
+      count.resize(static_cast<size_t>(w + 1) * n_shards, 0);
     wave_out[i] = w;
-    slot_out[i] = count[w]++;
+    slot_out[i] =
+        own * block + count[static_cast<size_t>(w) * n_shards + own]++;
     last_write[s] = w;
     last_write[d] = w;
     if (w > last_read[s]) last_read[s] = w;

@@ -46,6 +46,22 @@ def step(data, ids, rows, src, dst, e_idx, e_ts, valid, params,
     data.index_copy_(0, write_ids, new_rows.view(-1, f))
 
 
+def sharded_step(data, ids, rows, src, dst, e_idx, e_ts, params, exchange,
+                 own_pos, own_rows) -> None:
+    """:func:`step` on a row-sharded index (``data`` holds this rank's
+    rows): the W·R rows ``ids`` come through one ``exchange.fetch`` (the
+    ids are the same on every rank), every rank merges every lane (one
+    ``santa_merge`` launch on the card; the same inputs, so the same bits
+    on every rank), and this rank writes the new rows it owns: the entries
+    ``own_pos`` of the [2W] written rows, at its local rows ``own_rows``."""
+    f = data.shape[1]
+    rows.view(-1, f).copy_(exchange.fetch((data,), ids.reshape(-1),
+                                          "wave")[0])
+    new_rows = merge_both(rows, src, dst, e_idx, e_ts, params)  # [W, 2, F]
+    data.index_copy_(0, own_rows, new_rows.view(-1, f).index_select(
+        0, own_pos))
+
+
 def scan_reference(data: torch.Tensor, params: TpprParams, src, dst, neg,
                    e_ts, e_idx, valid,
                    extract: bool = True) -> Optional[torch.Tensor]:

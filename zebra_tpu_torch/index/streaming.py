@@ -17,7 +17,7 @@ in place."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -85,12 +85,15 @@ def unpack_queries(rows3: torch.Tensor, e_ts: torch.Tensor, n_tppr: int,
     )
 
 
-def _columns(data, src, dst, neg, e_ts, e_idx, valid):
+def _columns(data, src, dst, neg, e_ts, e_idx, valid,
+             n_nodes: Optional[int] = None):
     """The event columns on ``data``'s device: i32 ids, f32 times, bool
     valid, contiguous (``neg`` [E], or [E, S] with one negative per seed).
     One host read checks, on the ids as given (before they narrow to i32),
-    that node ids lie in [0, N) and edge ids below 2^24."""
+    that node ids lie in [0, N) and edge ids below 2^24. N is ``data``'s
+    rows, or ``n_nodes`` where ``data`` holds a rank's block of them."""
     dev = data.device
+    n_nodes = data.shape[0] if n_nodes is None else n_nodes
     as_t = lambda x, dt: torch.as_tensor(x).to(device=dev,
                                                dtype=dt).contiguous()
     src, dst, neg, e_idx = (as_t(x, torch.int64)
@@ -102,9 +105,9 @@ def _columns(data, src, dst, neg, e_ts, e_idx, valid):
         lo, hi, e_max = torch.stack([ids.min(), ids.max(),
                                      e_idx.max()]).tolist()
         check_id_width(n_edges=e_max + 1)
-        if lo < 0 or hi >= data.shape[0]:
+        if lo < 0 or hi >= n_nodes:
             raise ValueError(
-                f"node ids must lie in [0, {data.shape[0]}), got "
+                f"node ids must lie in [0, {n_nodes}), got "
                 f"[{lo}, {hi}]")
     src, dst, neg, e_idx = (x.to(torch.int32) for x in (src, dst, neg, e_idx))
     return src, dst, neg, e_ts, e_idx, valid

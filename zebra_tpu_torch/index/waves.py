@@ -18,20 +18,30 @@ into wave order once; each wave is then a contiguous slice, so the loop
 over the waves reads nothing back from the device and passes no validity
 mask. Only the real waves run: the JAX package pads the wave count to few
 distinct values so that XLA compiles few programs, which here would only
-add empty launches."""
+add empty launches.
+
+Row-sharded (``zebra_tpu_torch/parallel/``), each rank holds a block of
+the index's rows: a wave's W·R rows come through one fetch of the row
+exchange, every rank merges every lane, and each rank writes the new rows
+it owns, which its plan lists (``WavePlan.own_*``, from the host
+columns). Every rank then holds the whole chunk's extraction rows. With
+``n_shards`` > 1 the scheduler aligns the lanes to the owners of the
+sources (``csrc/wave_schedule.cc``); a wave's lanes are laid out compact
+either way, so an aligned wave with an empty block is a narrower
+launch."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from zebra_tpu_torch import build
 from zebra_tpu_torch.index.layout import TpprParams
-from zebra_tpu_torch.index.scan import step
+from zebra_tpu_torch.index.scan import sharded_step, step
 from zebra_tpu_torch.index.streaming import TpprState, _columns
 
 
@@ -41,18 +51,23 @@ def _scheduler():
     i32p = ctypes.POINTER(ctypes.c_int32)
     fn = build.load("wave_schedule").zt_wave_schedule_multi
     fn.argtypes = [i32p, i32p, i32p, ctypes.c_int32, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int32, i32p, i32p]
+                   ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i32p, i32p]
     fn.restype = ctypes.c_int64
     return fn
 
 
-def wave_schedule(src, dst, neg, n_nodes: int,
-                  cap: int) -> Tuple[np.ndarray, np.ndarray, int]:
+def wave_schedule(src, dst, neg, n_nodes: int, cap: int,
+                  n_shards: int = 1) -> Tuple[np.ndarray, np.ndarray, int]:
     """Greedy dependency-respecting waves of at most ``cap`` edges: returns
     (wave [E] i32, slot [E] i32, n_waves). ``neg`` is [E], or [S, E] for
     the seed-parallel trainer's one scan that extracts every seed's
-    negative ([1, E] gives the schedule of [E]). Refuses node ids outside
-    [0, n_nodes)."""
+    negative ([1, E] gives the schedule of [E]). ``n_shards`` > 1 aligns
+    the lanes to the sources' owners (module docstring): slot s of a wave
+    lies in the block of shard s // (cap / n_shards), and ``cap`` must be a
+    multiple of ``n_shards``. Refuses node ids outside [0, n_nodes)."""
+    if n_shards > 1 and cap % n_shards:
+        raise ValueError(
+            f"wave_cap {cap} must be a multiple of n_shards {n_shards}")
     src, dst = (np.ascontiguousarray(c, np.int32) for c in (src, dst))
     negs = np.ascontiguousarray(np.atleast_2d(np.asarray(neg, np.int32)))
     n = len(src)
@@ -63,7 +78,8 @@ def wave_schedule(src, dst, neg, n_nodes: int,
     wave, slot = np.empty(n, np.int32), np.empty(n, np.int32)
     ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
     n_waves = _scheduler()(ptr(src), ptr(dst), ptr(negs), negs.shape[0], n,
-                           int(n_nodes), int(cap), ptr(wave), ptr(slot))
+                           int(n_nodes), int(cap), max(1, int(n_shards)),
+                           ptr(wave), ptr(slot))
     if n_waves < 0:
         raise ValueError(
             f"wave_schedule: node id out of range [0, {n_nodes})" if n_waves == -1
@@ -71,11 +87,12 @@ def wave_schedule(src, dst, neg, n_nodes: int,
     return wave, slot, int(n_waves)
 
 
-def wave_flat_index(src, dst, neg, n_nodes: int,
-                    cap: int = 64) -> Tuple[np.ndarray, int]:
+def wave_flat_index(src, dst, neg, n_nodes: int, cap: int = 64,
+                    n_shards: int = 1) -> Tuple[np.ndarray, int]:
     """The schedule as one slot per edge, ``wave·cap + lane`` [E] i32, and
     the real wave count (no padding of the count)."""
-    wave, slot, n_waves = wave_schedule(src, dst, neg, n_nodes, cap)
+    wave, slot, n_waves = wave_schedule(src, dst, neg, n_nodes, cap,
+                                        n_shards)
     return wave.astype(np.int32) * cap + slot, n_waves
 
 
@@ -87,21 +104,31 @@ class WavePlan(NamedTuple):
     inv: torch.Tensor          # i64 [E] each event's place in ``order``;
                                # E' for an unscheduled (invalid) event
     bounds: Tuple[int, ...]    # wave w is order[bounds[w]:bounds[w + 1]]
+    # row-sharded only (None otherwise): the written rows this rank owns,
+    # as entries of the [2E'] rows the waves write (src, dst per lane, in
+    # order), their local row ids, and wave w's part of both,
+    # [own_bounds[w], own_bounds[w + 1])
+    own_pos: Optional[torch.Tensor] = None
+    own_rows: Optional[torch.Tensor] = None
+    own_bounds: Optional[Tuple[int, ...]] = None
 
     @property
     def n_waves(self) -> int:
         return len(self.bounds) - 1
 
 
-def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int,
-               device) -> WavePlan:
+def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int, device,
+               n_shards: int = 1, rows: Optional[range] = None) -> WavePlan:
     """Schedule the valid events of a chunk (host numpy columns; ``neg``
     [E], or [E, S] with one negative per seed) and lay the schedule out as
-    a :class:`WavePlan` on ``device``."""
+    a :class:`WavePlan` on ``device``. ``n_shards`` aligns the lanes to
+    the sources' owners; ``rows``, the global ids a rank of a row-sharded
+    index holds, adds the rows it writes (``own_*``)."""
     valid = np.asarray(valid, bool)
     pos = np.flatnonzero(valid)
     flat, n_waves = wave_flat_index(np.asarray(src)[pos], np.asarray(dst)[pos],
-                                    np.asarray(neg)[pos].T, n_nodes, cap)
+                                    np.asarray(neg)[pos].T, n_nodes, cap,
+                                    n_shards)
     by_slot = np.argsort(flat, kind="stable")
     order = pos[by_slot]
     counts = np.bincount(flat[by_slot] // cap, minlength=n_waves)
@@ -109,11 +136,22 @@ def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int,
     inv = np.full(len(valid), len(pos), np.int64)
     inv[order] = np.arange(len(pos))
     as_t = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)
-    return WavePlan(as_t(order), as_t(inv), tuple(int(b) for b in bounds))
+    own = {}
+    if rows is not None:
+        written = np.stack([np.asarray(src)[order], np.asarray(dst)[order]],
+                           axis=1).reshape(-1).astype(np.int64)
+        own_pos = np.flatnonzero((written >= rows.start)
+                                 & (written < rows.stop))
+        own = dict(own_pos=as_t(own_pos),
+                   own_rows=as_t(written[own_pos] - rows.start),
+                   own_bounds=tuple(int(b) for b in np.searchsorted(
+                       own_pos, 2 * bounds)))
+    return WavePlan(as_t(order), as_t(inv), tuple(int(b) for b in bounds),
+                    **own)
 
 
 def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
-                    eidx, valid, plan: WavePlan
+                    eidx, valid, plan: WavePlan, exchange=None
                     ) -> Tuple[TpprState, torch.Tensor]:
     """Scan a chunk wave by wave (one ``santa_merge`` launch per wave on the
     card). ``neg`` is [E], or [E, S] for the seed-parallel trainer, whose
@@ -126,9 +164,14 @@ def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
     The columns are checked once (``_columns``: one host read), gathered
     into wave order once, and each wave's extraction rows are gathered
     straight into its slice of the [E' + 1, 2+S, F] buffer whose last row
-    is the zero row of the unscheduled events."""
+    is the zero row of the unscheduled events. With the row ``exchange``
+    (a row-sharded index: ``state`` holds this rank's rows, the plan its
+    writes) each wave runs :func:`~zebra_tpu_torch.index.scan.sharded_step`
+    and every rank returns the whole chunk's rows."""
     data = state.data
-    src, dst, neg, t, eidx, _ = _columns(data, src, dst, neg, t, eidx, valid)
+    n_nodes = None if exchange is None else exchange.rows * exchange.mesh.size
+    src, dst, neg, t, eidx, _ = _columns(data, src, dst, neg, t, eidx, valid,
+                                         n_nodes)
     order = plan.order
     w_src, w_dst, w_neg, w_t, w_eidx = (
         c.index_select(0, order) for c in (src, dst, neg, t, eidx))
@@ -140,8 +183,15 @@ def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
                        device=data.device)
     rows[n_sched] = 0.0
     bounds = plan.bounds
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
+    for w, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
         if hi == lo:
+            continue
+        if exchange is not None:
+            a, b = plan.own_bounds[w], plan.own_bounds[w + 1]
+            sharded_step(data, ids[lo:hi], rows[lo:hi], w_src[lo:hi],
+                         w_dst[lo:hi], w_eidx[lo:hi], w_t[lo:hi], params,
+                         exchange, plan.own_pos[a:b] - 2 * lo,
+                         plan.own_rows[a:b])
             continue
         step(data, ids[lo:hi], rows[lo:hi], w_src[lo:hi], w_dst[lo:hi],
              w_eidx[lo:hi], w_t[lo:hi], None, params,

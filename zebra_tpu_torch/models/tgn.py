@@ -30,11 +30,16 @@ Seed-parallel parameters (:func:`init_seed_params`) keep this structure
 with a leading [S] axis on every leaf; the forward then takes activations
 with a leading [S] axis and runs all S lanes in one set of operations. The
 dropout masks of lane s come from its own generator, in the order and
-shapes of a single-seed forward."""
+shapes of a single-seed forward.
+
+A rank of a row-sharded run embeds one block of each batch's query rows
+(:class:`BlockMasks`): it draws the whole batch's masks from the run's
+generator, which every rank holds in the same state, and keeps its block's
+rows, so its events see the one-process run's masks."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -160,11 +165,29 @@ def params_from_state_dict(state) -> nn.ModuleDict:
                           for name, layer in tree.items()}).requires_grad_(False)
 
 
-def _dropout_keep(shape, dropout: float, generator, device) -> torch.Tensor:
+class BlockMasks(NamedTuple):
+    """The dropout masks of a block of a batch's query rows: ``generator``
+    draws the masks of all ``n_rows`` rows of the batch, and the block
+    keeps its ``rows`` (i64 positions among them, on the activations'
+    device)."""
+
+    generator: torch.Generator
+    rows: torch.Tensor
+    n_rows: int
+
+
+def _dropout_keep(shape, dropout: float, generator, device,
+                  row_axis: int) -> torch.Tensor:
     """The keep mask of inverted dropout. ``generator`` is one generator,
     or a list of one per seed lane: lane s then draws its mask [shape[1:]]
     from its own generator, as a single-seed forward would, and the masks
-    are stacked."""
+    are stacked. A :class:`BlockMasks` draws the whole batch's mask, whose
+    query rows lie on ``row_axis``, and keeps its block's rows."""
+    if isinstance(generator, BlockMasks):
+        full = list(shape)
+        full[row_axis] = generator.n_rows
+        draw = torch.rand(full, generator=generator.generator, device=device)
+        return draw.index_select(row_axis, generator.rows) < 1.0 - dropout
     if isinstance(generator, (list, tuple)):
         draw = torch.stack([torch.rand(shape[1:], generator=g, device=device)
                             for g in generator])
@@ -173,13 +196,16 @@ def _dropout_keep(shape, dropout: float, generator, device) -> torch.Tensor:
     return draw < 1.0 - dropout
 
 
-def _mlp2(p1, p2, x, mxu=None, dropout: float = 0.0, generator=None):
+def _mlp2(p1, p2, x, mxu=None, dropout: float = 0.0, generator=None,
+          row_axis: int = -2):
     """fc2(drop(relu(fc1(x)))): inverted dropout of rate ``dropout`` with a
     mask from ``generator`` (no dropout when it is None; one generator per
-    lane for stacked parameters)."""
+    lane for stacked parameters; ``row_axis`` is the query-row axis of a
+    :class:`BlockMasks`)."""
     hidden = torch.relu(add_bias(matmul(x, p1["w"], mxu), p1["b"]))
     if generator is not None and dropout > 0.0:
-        keep = _dropout_keep(hidden.shape, dropout, generator, hidden.device)
+        keep = _dropout_keep(hidden.shape, dropout, generator, hidden.device,
+                             row_axis)
         hidden = torch.where(keep, hidden / (1.0 - dropout), 0.0)
     return add_bias(matmul(hidden, p2["w"], mxu), p2["b"])
 
@@ -249,7 +275,7 @@ def diffusion_embed(cfg: Config, params, src_mem: torch.Tensor,
     nbr_static = nbr_static.expand(nbr_mem.shape[:-1] + nbr_static.shape[-1:])
     nbr_in = torch.cat([nbr_mem.to(dt), nbr_static.to(dt)], dim=-1)
     nbr_emb = _mlp2(params["fc1"], params["fc2"], nbr_in, cfg.mxu_dtype,
-                    cfg.dropout, generator)
+                    cfg.dropout, generator, row_axis=-3)
 
     # weight-normalize with the zero-sum guard
     w_sum = w.sum(-1, keepdim=True)                          # [M, Q, 1]

@@ -1,11 +1,13 @@
-"""The process group of a seed-sharded run (counterpart of
+"""The process group of a sharded run (counterpart of
 ``zebra_tpu/parallel/distributed.py``).
 
 One process per device: a mesh of D devices is a ``torch.distributed``
-group of D ranks. Nothing of this slice exchanges device tensors (rank r
-holds whole seeds, the index and the adjacency are built by every rank
-from the same stream), so the group's backend is Gloo and every collective
-runs on CPU tensors, on the CPU and on the card alike.
+group of D ranks. The group's backend is Gloo: the host arrays a run
+exchanges (a phase's metrics, stop flags, a state file's lanes or rows)
+cross it as CPU tensors, on the CPU and on the card alike. The row
+exchange of a row-sharded run moves device tensors, over this group or an
+NCCL group of its own where every rank has a card
+(``parallel/exchange.py``).
 
 The group comes from flags or the JAX package's environment variables
 (``ZEBRA_COORDINATOR``, ``ZEBRA_NUM_PROCESSES``, ``ZEBRA_PROCESS_ID``):

@@ -1,4 +1,4 @@
-"""Start D local ranks of a seed-sharded run: ``launch(fn, D, args)`` runs
+"""Start D local ranks of a sharded run: ``launch(fn, D, args)`` runs
 ``fn(*args)`` in D spawned processes, each a rank of one Gloo group that
 meets at a ``FileStore`` in a fresh temporary directory (no port to pick,
 so two runs on one host never collide), with ``LOCAL_RANK`` set and

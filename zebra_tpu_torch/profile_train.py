@@ -43,11 +43,17 @@ Prints one JSON line; train events/s count every seed's events. Needs a
 CUDA device.
 
 With ``--n_devices D`` the S seeds are sharded over D local ranks (rank r
-on ``cuda:r``, every rank on one card under ``--device cuda:0``), and each
-rank prints one JSON line of its own: a warm-up and a timed epoch's
-seconds, the metrics gather's host ms per phase, validate() + test() as
-above, and the state file's gather and write (``save_state``'s seconds:
-rank 0 gathers and writes, the others send and wait)."""
+on ``cuda:r``, every rank on one card under ``--device cuda:0``), or with
+one seed (no ``--parallel_runs``) its node rows, and each rank prints one
+JSON line of its own: a warm-up and a timed epoch's seconds and waves, the
+metrics gather's host ms per phase, validate() + test() as above, and the
+state file's gather and write (``save_state``'s seconds: rank 0 gathers
+and writes, the others send and wait). A row-sharded rank adds its row
+exchange's calls, bytes and seconds per kind (``parallel/exchange.py``:
+the waves' fetches, the batches' fetches and sends, the gradients' sum,
+the scores' gather) for the timed epoch and for validate() + test(): host
+seconds inside the calls, which wait for the device work queued before
+them and for the other ranks."""
 
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ import json
 import os
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -267,15 +274,28 @@ def build(args) -> tuple:
     return flagship_training(**common)
 
 
+def exchange_stats(trainer: Trainer) -> Optional[dict]:
+    """A row-sharded rank's exchange counts since their last reset, per
+    kind: calls, bytes, seconds and bytes/s; None for other layouts."""
+    if trainer.exchange is None:
+        return None
+    return {kind: dict(calls=n, bytes=b, seconds=sec,
+                       gb_per_s=b / max(sec, 1e-12) / 1e9)
+            for kind, (n, b, sec) in trainer.exchange.stats.items()}
+
+
 def sharded_rank(args) -> None:
     """One rank of ``--n_devices D``: prints its JSON line."""
     cfg, splits, edge_feats = build(args)
+    rows = cfg.n_seeds == 1
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(cfg.replace(checkpoint_dir=tmp), splits,
                           edge_feats, device=args.device)
         epochs = []
         for _ in range(2):                     # a warm-up, a timed epoch
             merge.SANTA_MERGE.launches = 0
+            if rows:
+                trainer.exchange.reset_stats()
             torch.cuda.synchronize(trainer.device)
             t0 = time.perf_counter()
             r = trainer.train_epoch()
@@ -285,13 +305,20 @@ def sharded_rank(args) -> None:
                                santa_merge_launches=merge.SANTA_MERGE
                                .launches,
                                gather_ms=1e3 * r.gather_seconds,
-                               ap=[float(x) for x in r.ap]))
+                               ap=np.atleast_1d(r.ap).tolist(),
+                               exchange=exchange_stats(trainer)))
+        if rows:
+            trainer.exchange.reset_stats()
         out = eval_and_state(trainer, os.path.join(tmp, "state.ckpt"))
+        out["eval_exchange"] = exchange_stats(trainer)
     print(json.dumps(dict(
         rank=trainer.mesh.rank, ranks=trainer.mesh.size,
         device=str(trainer.device), lanes=list(trainer._lanes),
         parallel_runs=cfg.n_seeds, epochs=epochs,
-        train_events_per_s_rank=len(trainer._lanes)
+        backend=None if trainer.exchange is None else trainer.exchange
+        .backend,
+        local_node_rows=trainer.mem.memory.shape[0] // len(trainer._lanes),
+        train_events_per_s_rank=(1 if rows else len(trainer._lanes))
         * splits.train.n_interactions / epochs[1]["seconds"], **out,
         card=torch.cuda.get_device_name(trainer.device))), flush=True)
 

@@ -29,6 +29,15 @@ recursive ones search the adjacency index, which ``observe`` folds the
 same way. An observed edge id past the feature table reads the table's
 last row there, as JAX's clamped gather does.
 
+A state file trained with interleaved node ids (``Config.
+interleave_shards``: a row-sharded run with ``--interleave_node_ids``)
+holds its rows in the permuted id space: the predictor rebuilds the
+permutation from the shard count and maps every external node id of
+``score``, ``observe`` and ``events`` through it (:meth:`LinkPredictor.
+_map_ids`), after the range check; ``from_trainer`` passes the Trainer's
+events, already internal (``internal_ids``). A row-sharded Trainer's
+file serves on one device like any other.
+
 A seed-parallel training run (``--parallel_runs``) serves one seed,
 ``LinkPredictor.from_checkpoint(path, run_index=s)``, or all of them as a
 deep ensemble, :class:`EnsemblePredictor` (``from_checkpoint(path,
@@ -61,6 +70,7 @@ from zebra_tpu_torch.index.streaming import (
 )
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import affinity_score, params_from_state_dict
+from zebra_tpu_torch.parallel.sharding import interleave_permutation
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import _forward, eval_protocol
@@ -83,6 +93,17 @@ def check_node_ids(n_nodes: int, *cols) -> None:
                          f"[{lo}, {hi}]")
 
 
+def events_to_internal(cfg: Config, events):
+    """External-id event columns → the internal (interleave-permuted) id
+    space (``zebra_tpu/serve.py:_events_to_internal``); themselves where
+    the config trained without the interleave."""
+    if events is None or int(cfg.interleave_shards or 0) <= 1:
+        return events
+    perm = interleave_permutation(cfg.n_nodes, cfg.interleave_shards)
+    return (perm[np.asarray(events[0], np.int64)],
+            perm[np.asarray(events[1], np.int64)]) + tuple(events[2:])
+
+
 class LinkPredictor:
     """Stateful scorer over a (params, memory, index) snapshot.
 
@@ -95,7 +116,8 @@ class LinkPredictor:
                  index_state: Optional[TpprState], edge_feats,
                  nbr_index: Optional[NeighborIndex] = None,
                  events: Optional[Tuple[np.ndarray, ...]] = None,
-                 rebuild_every: int = 1, device=None):
+                 rebuild_every: int = 1, device=None,
+                 internal_ids: bool = False):
         """``index_state`` is the streaming diffusion tower's T-PPR state
         (None otherwise). ``nbr_index`` is the adjacency index of the
         pruning strategy and the recursive towers, and ``events`` the
@@ -104,7 +126,9 @@ class LinkPredictor:
         new interactions into the index, by a rebuild on the host once
         ``rebuild_every`` events are pending (1: at every call;
         ``flush_index()`` forces one). Without ``events`` the index stays
-        as given, and observe() warns once."""
+        as given, and observe() warns once. ``events`` carry external ids
+        (mapped through the interleave, where the config used one) unless
+        ``internal_ids``."""
         self.device = resolve_device(device)
         if index_state is not None:
             # the packed T-PPR rows hold ids as f32 values
@@ -123,6 +147,14 @@ class LinkPredictor:
         # a Trainer's may be shared
         self.nbr_index = None if nbr_index is None else nbr_index.to(dev)
         self._alpha_beta = ensemble_tensors(cfg, dev)
+        # rows live in the interleave's id space where training used it:
+        # external ids map through it at this boundary
+        self._id_perm = None
+        if int(cfg.interleave_shards or 0) > 1:
+            self._id_perm = interleave_permutation(cfg.n_nodes,
+                                                   cfg.interleave_shards)
+        if not internal_ids:
+            events = events_to_internal(cfg, events)
         self._events = (None if events is None else
                         tuple(np.array(c) for c in events[:4]))
         self._pending: list = []
@@ -192,7 +224,8 @@ class LinkPredictor:
                     f"{cfg.embedding_module!r} query an adjacency index; "
                     "pass events=(sources, destinations, timestamps, "
                     "edge_idxs) of the training stream")
-            nbr_index = build_neighbor_index(*events[:4], cfg.n_nodes, dev)
+            nbr_index = build_neighbor_index(
+                *events_to_internal(cfg, events)[:4], cfg.n_nodes, dev)
         index_state = ckpt["index_state"]
         return cls(cfg, params_from_state_dict(params), MemoryState(**mem),
                    None if index_state is None else TpprState(index_state),
@@ -203,9 +236,12 @@ class LinkPredictor:
         """A predictor over a port Trainer's current params, memory, index
         and edge features, on the Trainer's device (copies: the Trainer
         trains on undisturbed); under the pruning strategy and for the
-        recursive towers the full graph's adjacency index, with the full split's events as the base stream of
-        the folds. A seed-parallel Trainer serves through
-        ``EnsemblePredictor.from_trainer``."""
+        recursive towers the full graph's adjacency index, with the full
+        split's events as the base stream of the folds. A seed-parallel
+        Trainer serves through ``EnsemblePredictor.from_trainer``. A rank
+        of a row-sharded Trainer gathers every rank's rows first (a
+        collective: every rank calls it) and serves them whole on its
+        device; the Trainer's ids are internal already."""
         n_seeds = trainer.cfg.n_seeds
         if n_seeds > 1 and not cls._stacked:
             raise ValueError(
@@ -215,19 +251,22 @@ class LinkPredictor:
         if n_seeds == 1 and cls._stacked:
             raise ValueError("EnsemblePredictor needs a seed-parallel Trainer "
                              "(--parallel_runs > 1)")
-        if trainer.mesh.size > 1:
+        if trainer.mesh.size > 1 and n_seeds > 1:
             raise ValueError(
                 "this Trainer is one rank of a seed-sharded run and holds "
                 "some of the seeds: serve its state file with "
                 "from_checkpoint (ensemble=True or run_index=...)")
         cfg = trainer.cfg.single_seed()
         fu = trainer.splits.full
-        return cls(cfg, trainer.params,
-                   MemoryState(**trainer._memory_tables()),
-                   trainer.index_state, trainer.edge_feats,
+        if n_seeds > 1:
+            mem, index_state = (MemoryState(**trainer._memory_tables()),
+                                trainer.index_state)
+        else:
+            mem, index_state = trainer.gathered_state()
+        return cls(cfg, trainer.params, mem, index_state, trainer.edge_feats,
                    trainer.full_nbr_index,
                    (fu.sources, fu.destinations, fu.timestamps, fu.edge_idxs),
-                   rebuild_every, device=trainer.device)
+                   rebuild_every, device=trainer.device, internal_ids=True)
 
     # ------------------------------------------------------------ adjacency
 
@@ -271,12 +310,18 @@ class LinkPredictor:
 
     # ------------------------------------------------------------ requests
 
+    def _map_ids(self, ids) -> np.ndarray:
+        """External node ids → internal row ids (the interleave's, where
+        the config trained with it)."""
+        ids = np.asarray(ids, np.int64)
+        return ids if self._id_perm is None else self._id_perm[ids]
+
     def _request(self, src, dst, t):
         """Host columns → (src, dst, t) on the device, after checking the
-        node ids on the host."""
+        node ids on the host and mapping them to internal ids."""
         check_node_ids(self.cfg.n_nodes, src, dst)
-        ids = lambda x: torch.as_tensor(np.asarray(x, np.int32)).to(
-            self.device)
+        ids = lambda x: torch.as_tensor(
+            self._map_ids(x).astype(np.int32)).to(self.device)
         return ids(src), ids(dst), torch.as_tensor(
             np.asarray(t, np.float32)).to(self.device)
 
@@ -329,7 +374,8 @@ class LinkPredictor:
         T-PPR queries."""
         with torch.no_grad():
             cols = self._request(src, dst, t)
-            self._append_events(src, dst, t, eidx)
+            self._append_events(self._map_ids(src), self._map_ids(dst), t,
+                                eidx)
             src, dst, t = cols
             eidx = torch.as_tensor(np.asarray(eidx, np.int32)).to(self.device)
             valid = torch.ones(src.shape[0], dtype=torch.bool,
@@ -393,11 +439,13 @@ class EnsemblePredictor(LinkPredictor):
                  index_state: Optional[TpprState], edge_feats,
                  nbr_index: Optional[NeighborIndex] = None,
                  events: Optional[Tuple[np.ndarray, ...]] = None,
-                 rebuild_every: int = 1, device=None):
+                 rebuild_every: int = 1, device=None,
+                 internal_ids: bool = False):
         n_models = next(iter(params.parameters())).shape[0]
         super().__init__(cfg, params, MemoryState(*(
             x.reshape((-1,) + x.shape[2:]) for x in mem)), index_state,
-            edge_feats, nbr_index, events, rebuild_every, device)
+            edge_feats, nbr_index, events, rebuild_every, device,
+            internal_ids)
         self._offs = torch.arange(n_models, dtype=torch.int64,
                                   device=self.device) * cfg.n_nodes
 

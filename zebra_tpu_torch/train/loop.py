@@ -60,7 +60,26 @@ against its own lanes' negatives (a merge of rows [W, 2 + S/D, F]), so the
 index is bit-equal on every rank. A phase gathers its per-batch metrics of
 every lane onto every rank once, at its end; a stop request and a
 compaction overflow are agreed by every rank; rank 0 gathers the lanes of
-a state file and writes it in the one-process layout."""
+a state file and writes it in the one-process layout.
+
+Row-sharded (``cfg.n_devices`` = D > 1 with one seed; the JAX package's
+``shard_memory``/``shard_index_state``/``shard_batch`` layout): rank r
+holds the node rows [r·N/D, (r+1)·N/D) of the memory tables and of the
+index, and the params, Adam's state and the dropout generator whole, the
+same on every rank. A wave's rows come through the row exchange
+(``parallel/exchange.py``), every rank merges every lane and writes the
+rows it owns; the batches run block by block (``run_phase_rows``: rank r
+takes the events [r·b/D, (r+1)·b/D) of each batch), with the gradients
+summed over the ranks. The index and the memory tables, gathered, are
+those of one process. With owner-aligned waves (``--owner_aligned_waves``;
+auto: on where the ranks span more than one host,
+:func:`resolve_owner_aligned`) the scheduler puts an edge in its source
+owner's lane block, and the id interleave (``--interleave_node_ids``;
+auto: where aligned waves run) relabels the node ids round-robin over the
+ranks first (:func:`permute_splits`): the samplers stay in raw id space
+and their draws map afterwards (``_neg_ids``). The state file holds the
+rows in the one-process layout, written by rank 0, and records the
+interleave's shard count for serving."""
 
 from __future__ import annotations
 
@@ -79,14 +98,20 @@ from zebra_tpu_torch.config import Config, torch_dtype
 from zebra_tpu_torch.data.dataset import Data, DatasetSplits
 from zebra_tpu_torch.data.sampler import RandEdgeSampler
 from zebra_tpu_torch.parallel.distributed import broadcast_one_to_all
+from zebra_tpu_torch.parallel.exchange import RowExchange
 from zebra_tpu_torch.parallel.mesh import make_mesh
 from zebra_tpu_torch.parallel.sharding import (
     agree_max,
+    all_gather_blocks,
     all_gather_lanes,
     barrier,
-    gather_lanes,
+    gather_blocks,
+    interleave_permutation,
     local_lanes,
+    local_rows,
+    rows_per_rank,
     take_lanes,
+    take_rows,
 )
 from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
 from zebra_tpu_torch.index.streaming import (
@@ -101,7 +126,15 @@ from zebra_tpu_torch.train.memory_budget import check_memory_budget
 from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
-from zebra_tpu_torch.train.phase import Stream, _mark, run_phase
+from zebra_tpu_torch.train.phase import (
+    RowPlan,
+    Stream,
+    _mark,
+    plan_rows,
+    rows_metrics,
+    run_phase,
+    run_phase_rows,
+)
 from zebra_tpu_torch.train.step import (
     flush_pending,
     flush_pending_,
@@ -118,6 +151,32 @@ logger = logging.getLogger("zebra_tpu_torch")
 # eval negative-sampling seeds; the inductive val stream shares the val
 # sampler
 SEED_VAL, SEED_TEST, SEED_NN_TEST = 0, 2, 3
+
+
+def resolve_owner_aligned(cfg: Config, n_hosts: int) -> bool:
+    """Whether a row-sharded run aligns its waves to the row owners
+    (``zebra_tpu/train/loop.py:resolve_owner_aligned``): the flag when
+    given; auto (None) on where the ranks span more than one host. The JAX
+    package's auto asks for more than one process, and a one-host JAX mesh
+    is one process; the port's ranks on one host stand in for that mesh,
+    so ``--n_devices 2`` on one host resolves to unaligned waves in both."""
+    if cfg.owner_aligned_waves is not None:
+        return bool(cfg.owner_aligned_waves)
+    return n_hosts > 1
+
+
+def permute_splits(splits: DatasetSplits, perm: np.ndarray) -> DatasetSplits:
+    """Every split's node ids relabelled through ``perm`` (times, edge ids
+    and labels unchanged; ``zebra_tpu/train/loop.py:_permute_splits``). The
+    model is equivariant in node ids, so a permuted run matches the plain
+    one up to the top-k's tie order (ties break by neighbor id)."""
+    pd = lambda d: Data(perm[d.sources], perm[d.destinations], d.timestamps,
+                        d.edge_idxs, d.labels)
+    return DatasetSplits(
+        full=pd(splits.full), train=pd(splits.train), val=pd(splits.val),
+        test=pd(splits.test), new_node_val=pd(splits.new_node_val),
+        new_node_test=pd(splits.new_node_test), n_nodes=splits.n_nodes,
+        n_edges=splits.n_edges)
 
 
 @dataclass
@@ -186,19 +245,58 @@ class Trainer:
         if cfg.keeps_tppr_index:
             # the packed T-PPR rows hold ids as f32 values
             check_id_width(cfg.n_nodes, cfg.n_edges)
+        # one seed over a mesh: its node rows split over the ranks, which
+        # exchange rows on the device
+        self.exchange: Optional[RowExchange] = None
+        self._rows = n_nodes
+        if mesh.size > 1 and cfg.n_seeds == 1:
+            cfg.check_row_sharded()
+            if cfg.bs % mesh.size:
+                raise ValueError(
+                    f"bs ({cfg.bs}) must be a multiple of the mesh size "
+                    f"({mesh.size}): each rank takes an equal block of "
+                    "every batch's events")
+            self._rows = rows_per_rank(n_nodes, mesh.size)
+            self.exchange = RowExchange(mesh, n_nodes)
+        aligned = (self.exchange is not None
+                   and resolve_owner_aligned(cfg, self.exchange.hosts))
+        # the waves' lane blocks: one per rank under owner alignment
+        self._wave_shards = mesh.size if aligned else 1
+        if aligned and cfg.wave_cap % mesh.size:
+            raise ValueError(f"wave_cap {cfg.wave_cap} must be a multiple of "
+                             f"n_shards {mesh.size}")
+        # the id interleave (auto: where aligned waves run); the samplers
+        # stay in raw id space and their draws map through it (_neg_ids)
+        use_il = cfg.interleave_node_ids
+        if use_il is None:
+            use_il = aligned
+        self._id_perm = None
+        sampler_splits = splits
+        if use_il and mesh.size > 1:
+            self._id_perm = interleave_permutation(n_nodes, mesh.size)
+            cfg = cfg.replace(interleave_shards=mesh.size)
+            splits = permute_splits(splits, self._id_perm)
+            logger.info("node ids interleaved over %d shards for owner-"
+                        "aligned scheduling (--no_interleave_node_ids to "
+                        "disable)", mesh.size)
+        elif cfg.interleave_node_ids and mesh.size <= 1:
+            logger.warning(
+                "--interleave_node_ids has no effect without a >1-device "
+                "mesh (the permutation exists to balance owner-aligned lane "
+                "blocks across shards); running with raw ids")
         self.cfg, self.splits = cfg, splits
         self.edge_feats = torch.as_tensor(
             np.asarray(edge_feats, np.float32)).to(dev)
 
-        tr, fu = splits.train, splits.full
+        tr, fu = sampler_splits.train, sampler_splits.full
         self.train_sampler = RandEdgeSampler(tr.sources, tr.destinations)
         self.val_sampler = RandEdgeSampler(fu.sources, fu.destinations,
                                            seed=SEED_VAL)
         self.test_sampler = RandEdgeSampler(fu.sources, fu.destinations,
                                             seed=SEED_TEST)
         self.nn_test_sampler = RandEdgeSampler(
-            splits.new_node_test.sources, splits.new_node_test.destinations,
-            seed=SEED_NN_TEST)
+            sampler_splits.new_node_test.sources,
+            sampler_splits.new_node_test.destinations, seed=SEED_NN_TEST)
         self._streams: Dict[str, PhaseStream] = {
             name: self._upload_stream(data, sampler)
             for name, data, sampler in (
@@ -209,24 +307,29 @@ class Trainer:
                 ("nn_test", splits.new_node_test, self.nn_test_sampler),
             )
         }
-        # eval negatives are fixed, so their wave plans are made once
+        # eval negatives are fixed, so their wave plans (and row-sharded
+        # batch plans) are made once
         self._eval_plans: Dict[str, Dict[int, WavePlan]] = {}
+        self._eval_row_plans: Dict[str, Dict[int, RowPlan]] = {}
         # adjacency indices of the pruning strategy and the recursive
         # towers: the train graph in training, the full graph in validate
         # and test
         self.train_nbr_index = self.full_nbr_index = None
         if cfg.needs_adjacency:
+            # in the (possibly permuted) id space the streams query with
             self.train_nbr_index, self.full_nbr_index = (
                 build_neighbor_index(d.sources, d.destinations, d.timestamps,
                                      d.edge_idxs, cfg.n_nodes, dev)
-                for d in (tr, fu))
+                for d in (splits.train, splits.full))
         self._tppr = TpprParams.create(cfg.alpha_list, cfg.beta_list,
                                        cfg.topk)
 
-        # the seed lanes this rank holds (global ids; all S on one device)
-        # and whether the state is stacked on a seed axis (S > 1)
+        # the seed lanes this rank holds (global ids; all S on one device,
+        # the one seed on every rank of a row-sharded mesh) and whether the
+        # state is stacked on a seed axis (S > 1)
         self._stacked = cfg.n_seeds > 1
-        self._lanes = lanes = local_lanes(cfg.n_seeds, mesh.size, mesh.rank)
+        self._lanes = lanes = (range(1) if self.exchange is not None else
+                               local_lanes(cfg.n_seeds, mesh.size, mesh.rank))
         self._n_seeds = n_seeds = len(lanes)
 
         # the base of the per-epoch train negatives: the first draw of a
@@ -236,6 +339,10 @@ class Trainer:
             draw = np.random if cfg.enable_random else np.random.RandomState(
                 cfg.seed)
             self._neg_base = int(draw.randint(0, 2**31 - 1))
+            if cfg.enable_random and self.exchange is not None:
+                # every rank draws; rank 0's draw holds for all
+                self._neg_base = int(broadcast_one_to_all(
+                    np.asarray([self._neg_base], np.int64))[0])
         else:
             if cfg.enable_random:
                 bases = np.random.randint(0, 2**31 - 1,
@@ -267,7 +374,8 @@ class Trainer:
         # validate/test's table backups in host memory, or on the device
         # (host_backup None: the guard decides); the host buffers are
         # pinned on a card, made at the first validate and reused
-        self.host_backup = check_memory_budget(cfg, n_seeds, dev)
+        self.host_backup = check_memory_budget(cfg, n_seeds, dev,
+                                               self._rows)
         self._host_tables: Dict[str, MemoryState] = {}
         self.host_copy_seconds = 0.0
         self.mem, self.index_state = self._fresh_state()
@@ -325,18 +433,23 @@ class Trainer:
     # ---------------------------------------------------------------- helpers
 
     def _fresh_state(self) -> Tuple[MemoryState, Optional[TpprState]]:
-        """Zeroed memory (S·N flat rows for S seeds) and an empty index
-        (None where no T-PPR index is kept: the pruning strategy and the
-        towers other than diffusion)."""
+        """Zeroed memory (S·N flat rows for S seeds; a row-sharded rank's
+        N/D) and an empty index (None where no T-PPR index is kept: the
+        pruning strategy and the towers other than diffusion)."""
         cfg = self.cfg
-        mem = init_memory(cfg.n_nodes * self._n_seeds, cfg.memory_dim,
+        mem = init_memory(self._rows * self._n_seeds, cfg.memory_dim,
                           cfg.msg_table_dim,
                           torch_dtype(cfg.message_dtype),
                           torch_dtype(cfg.memory_dtype), device=self.device)
         if not cfg.keeps_tppr_index:
             return mem, None
-        return mem, init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk,
+        return mem, init_tppr_state(cfg.n_tppr, self._rows, cfg.topk,
                                     device=self.device)
+
+    def _neg_ids(self, negs: np.ndarray) -> np.ndarray:
+        """Sampler draws (raw id space) → the streams' ids (through the
+        interleave, when it runs)."""
+        return negs if self._id_perm is None else self._id_perm[negs]
 
     def _upload_stream(self, data: Data, sampler) -> PhaseStream:
         """Pad a stream to whole batches and to equal superchunks of whole
@@ -356,7 +469,7 @@ class Trainer:
             a = np.asarray(a, dtype)
             return np.concatenate([a, np.zeros(pad, dtype)])
 
-        negs = (sampler.sample_eval_negatives(n, bs)
+        negs = (self._neg_ids(sampler.sample_eval_negatives(n, bs))
                 if sampler is not None and n > 0 else np.zeros(n, np.int64))
         host = {
             "src": p(data.sources, np.int32),
@@ -382,6 +495,7 @@ class Trainer:
             rs = np.random.RandomState(
                 (int(base) + 0x9E3779B1 * (epoch_id + 1)) % (2**32))
             _, negs = self.train_sampler.sample_with(rs, n)
+            negs = self._neg_ids(negs)
             return np.concatenate([negs, np.zeros(pad, negs.dtype)]).astype(
                 np.int32)
 
@@ -398,12 +512,29 @@ class Trainer:
         host = ps.host
         chunk = len(host["src"]) // ps.n_chunks
         plans = {}
+        rows = None if self.exchange is None else local_rows(
+            self.mesh.rank, self._rows)
         for ci in chunks:
             sl = slice(ci * chunk, (ci + 1) * chunk)
             plans[ci] = plan_waves(host["src"][sl], host["dst"][sl], negs[sl],
                                    host["valid"][sl], self.cfg.n_nodes,
-                                   self.cfg.wave_cap, self.device)
+                                   self.cfg.wave_cap, self.device,
+                                   self._wave_shards, rows)
         return plans
+
+    def _row_plans(self, name: str, negs: np.ndarray,
+                   chunks: range) -> Dict[int, RowPlan]:
+        """The row-sharded batch plan (``train/phase.py:plan_rows``) of each
+        superchunk in ``chunks`` of stream ``name`` under the negatives
+        ``negs``."""
+        ps = self._streams[name]
+        host = ps.host
+        chunk = len(host["src"]) // ps.n_chunks
+        return {ci: plan_rows(*(c[ci * chunk: (ci + 1) * chunk] for c in (
+                    host["src"], host["dst"], negs, host["valid"])),
+                    self.cfg.bs, self.mesh.size, self.mesh.rank, self._rows,
+                    self.device)
+                for ci in chunks}
 
     def _phase(self, name: str, train: bool,
                index_state: Optional[TpprState],
@@ -436,18 +567,25 @@ class Trainer:
                 f"empty superchunk window: start_chunk={start_chunk}, "
                 f"max_chunks={max_chunks} select none of the {ps.n_chunks} "
                 "chunks")
-        plans = None
+        plans = row_plans = None
+        row_sharded = self.exchange is not None
         if train:
             # [E], or [E, S]: the phases' layout of one negative per seed
             negs = np.ascontiguousarray(self._draw_train_negs(self._epoch_id).T)
             stream = stream._replace(neg=torch.from_numpy(negs).to(self.device))
             if wave_scan:
                 plans = self._wave_plans(name, negs, chunks)
+            if row_sharded:
+                row_plans = self._row_plans(name, negs, chunks)
         elif wave_scan:
             if name not in self._eval_plans:
                 self._eval_plans[name] = self._wave_plans(
                     name, ps.host["neg"], range(ps.n_chunks))
+                if row_sharded:
+                    self._eval_row_plans[name] = self._row_plans(
+                        name, ps.host["neg"], range(ps.n_chunks))
             plans = self._eval_plans[name]
+            row_plans = self._eval_row_plans.get(name)
         # the wave plans' host time; the BFS calls add theirs below
         t_index = time.perf_counter() - t0 if wave_scan else 0.0
 
@@ -462,7 +600,7 @@ class Trainer:
             if wave_scan:
                 ti = time.perf_counter()
                 index_state, queries = wave_scan_chunk(
-                    index_state, self._tppr, *cs, plans[ci])
+                    index_state, self._tppr, *cs, plans[ci], self.exchange)
                 if cfg.profile and self.device.type == "cuda":
                     # the index's share covers the device's work, at the
                     # cost of the overlap with the towers
@@ -473,21 +611,38 @@ class Trainer:
             else:
                 # the BFS's index, or none for a tower without T-PPR
                 queries = nbr_index if cfg.uses_tppr else None
-            metrics.append(run_phase(
-                run_cfg, train, self.params, self.optimizer, self.mem,
-                self.edge_feats, cs, queries,
-                n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist(),
-                self._dropout if train else None, marks, self._offs, bfs_s,
-                nbr_index, overflow, name))
+            batches = n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist()
+            if row_sharded:
+                metrics.append(run_phase_rows(
+                    run_cfg, train, self.params, self.optimizer, self.mem,
+                    self.edge_feats, cs, queries, batches, row_plans[ci],
+                    self.exchange, self._dropout if train else None, marks,
+                    name))
+            else:
+                metrics.append(run_phase(
+                    run_cfg, train, self.params, self.optimizer, self.mem,
+                    self.edge_feats, cs, queries, batches,
+                    self._dropout if train else None, marks, self._offs,
+                    bfs_s, nbr_index, overflow, name))
             if train:
                 self._chunk_cursor = ci + 1
                 if wave_scan and self._agree_stop():
                     break
         self.index_waves += waves
-        # [n_batches, 4], or [n_batches, S, 4]: every lane's, on every rank
-        per_batch = torch.cat(metrics).cpu().numpy()
         t_gather = time.perf_counter()
-        per_batch = all_gather_lanes(self.mesh, per_batch)
+        if row_sharded:
+            # every rank's block scores, once; the metrics of whole batches
+            ran = slice(start_chunk * chunk, start_chunk * chunk
+                        + len(metrics) * chunk)
+            per_batch = rows_metrics(
+                self.exchange, torch.cat([p for p, _ in metrics]),
+                torch.cat([loss for _, loss in metrics]),
+                stream.valid[ran]).cpu().numpy()
+        else:
+            # [n_batches, 4], or [n_batches, S, 4]: every lane's, on every
+            # rank
+            per_batch = all_gather_lanes(self.mesh,
+                                         torch.cat(metrics).cpu().numpy())
         t_gather = time.perf_counter() - t_gather
         # a window that starts at chunk c holds the real batches from
         # c·per_chunk on
@@ -681,14 +836,22 @@ class Trainer:
 
     # ---------------------------------------------------------------- state
 
+    def _take_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a one-process table (all of them unless
+        row-sharded), on its device."""
+        if self.exchange is not None:
+            t = take_rows(t, self.mesh.rank, self._rows).clone()
+        return t.to(self.device)
+
     def _memory_from(self, tables: Dict[str, torch.Tensor]) -> MemoryState:
         """Memory tables as a state file holds them ([S, N, ...] for S
-        seeds, of which this rank takes its lanes) → this Trainer's (flat)
-        tables on its device."""
-        n = self._n_seeds * self.cfg.n_nodes
+        seeds, of which this rank takes its lanes; [N, ...], of which a
+        row-sharded rank takes its rows) → this Trainer's (flat) tables on
+        its device."""
+        n = self._n_seeds * self._rows
         if self._stacked:
             tables = {k: take_lanes(v, self._lanes) for k, v in tables.items()}
-        return MemoryState(**{k: v.to(self.device).reshape((n,) + v.shape[
+        return MemoryState(**{k: self._take_rows(v).reshape((n,) + v.shape[
             1 + self._stacked:]) for k, v in tables.items()})
 
     def _memory_tables(self, mem: Optional[MemoryState] = None
@@ -703,14 +866,37 @@ class Trainer:
                 for k, v in mem._asdict().items()}
 
     def _gather(self, lanes: Dict) -> Optional[Dict]:
-        """Per-lane tensors (each value, or each value of a dict value,
-        holds this rank's lanes on its leading axis) → every lane's, at rank
-        0 (None elsewhere), for a file in the one-process layout."""
-        gather = lambda t: gather_lanes(self.mesh, t)
+        """Per-rank blocks (each value, or each value of a dict value,
+        holds this rank's lanes, or its node rows, on its leading axis) →
+        every rank's, at rank 0 (None elsewhere), for a file in the
+        one-process layout."""
+        gather = lambda t: gather_blocks(self.mesh, t)
         out = {k: ({n: gather(v) for n, v in d.items()}
                    if isinstance(d, dict) else gather(d))
                for k, d in lanes.items()}
         return out if self.mesh.lead else None
+
+    def gathered_state(self) -> Tuple[MemoryState, Optional[TpprState]]:
+        """The memory tables and the index in the one-process layout on
+        every rank, on its device: a collective where the rows are sharded
+        (every rank calls it), this Trainer's own state elsewhere."""
+        if self.exchange is None:
+            return self.mem, self.index_state
+        every = lambda t: all_gather_blocks(self.mesh, t)
+        return (MemoryState(*(every(x) for x in self.mem)),
+                None if self.index_state is None
+                else TpprState(every(self.index_state.data)))
+
+    def _save_best(self) -> None:
+        """fit's best checkpoint, (params, memory in the one-process
+        layout), written by rank 0."""
+        tree = {"params": self.params.state_dict(),
+                "mem": self._memory_tables()}
+        if self.exchange is not None:
+            tree["mem"] = self._gather(tree["mem"])
+        if self.mesh.lead:
+            save_checkpoint(self.checkpoint_path, tree)
+        barrier(self.mesh)
 
     def save_state(self, path: str, epoch: int = 0,
                    chunk: Optional[int] = None) -> None:
@@ -723,7 +909,10 @@ class Trainer:
         memory [S, N, ...], the shared index, the dropout states [S, ·] and
         the negative bases [S]. A seed-sharded run writes the same file:
         rank 0 gathers every rank's lanes and writes it, as a one-process
-        run of S seeds would, and the ranks wait for the write.
+        run of S seeds would, and the ranks wait for the write. A
+        row-sharded run gathers the rows of the tables and the index to
+        rank 0 the same way (the params, Adam's state and the dropout
+        generator are the same on every rank).
 
         A mid-epoch cursor needs nothing more: this epoch's negatives are
         drawn again from (negative base, epoch id), and the dropout
@@ -740,11 +929,18 @@ class Trainer:
             "fit": self._fit_state,
         }
         if not self._stacked:
-            save_checkpoint(path, dict(
-                tree, params=self.params.state_dict(),
-                optimizer=self.optimizer.state_dict(),
-                mem=self._memory_tables(),
-                dropout=self._dropout.get_state(), neg_base=self._neg_base))
+            rows = {"mem": self._memory_tables(), "index": tree["index_state"]}
+            if self.exchange is not None:
+                rows = self._gather({k: v for k, v in rows.items()
+                                     if v is not None})
+            if rows is not None:
+                save_checkpoint(path, dict(
+                    tree, params=self.params.state_dict(),
+                    optimizer=self.optimizer.state_dict(),
+                    mem=rows["mem"], index_state=rows.get("index"),
+                    dropout=self._dropout.get_state(),
+                    neg_base=self._neg_base))
+            barrier(self.mesh)
             return
         opt = self.optimizer.state_dict()
         lanes = self._gather({
@@ -773,7 +969,8 @@ class Trainer:
         ``chunk`` to ``train_epoch(start_chunk=...)`` to finish a partly
         trained epoch. Refuses a file whose state-shaping fields differ
         from this Trainer's (``Config.STATE_FIELDS``). A seed-sharded rank
-        takes its lanes of the file, whatever number of ranks wrote it."""
+        takes its lanes of the file, a row-sharded rank its rows, whatever
+        number of ranks wrote it."""
         ckpt = load_checkpoint(path)
         diffs = Config.state_compat_diff(Config.from_dict(ckpt["cfg"]),
                                          self.cfg)
@@ -809,7 +1006,7 @@ class Trainer:
                 np.asarray(ckpt["neg_base"], np.int64), lanes)
         self.mem = self._memory_from(ckpt["mem"])
         self.index_state = (None if ckpt["index_state"] is None else
-                            TpprState(ckpt["index_state"].to(self.device)))
+                            TpprState(self._take_rows(ckpt["index_state"])))
         self._chunk_cursor = ckpt["chunk"]
         self._epoch_id = ckpt["epoch_id"]
         self._fit_state = ckpt["fit"]
@@ -852,7 +1049,7 @@ class Trainer:
                     # a restored mid-epoch cursor finishes its epoch first
                     tr = self.train_epoch(
                         start_chunk=start_chunk if epoch == start_epoch else 0)
-            if self._stop_requested:
+            if self._agree_stop():
                 self._fit_state = self._stopper_state(stopper)
                 # train_epoch returns the cursor to 0 when the epoch ran to
                 # its end: then the next epoch is where to resume
@@ -902,9 +1099,7 @@ class Trainer:
                 self.mem = self._memory_from(best["mem"])
                 break
             if epoch == stopper.best_epoch:
-                save_checkpoint(self.checkpoint_path,
-                                {"params": self.params.state_dict(),
-                                 "mem": self.mem._asdict()})
+                self._save_best()
             if cfg.state_every and (epoch + 1) % cfg.state_every == 0:
                 # an epoch boundary: the next epoch starts from zeroed
                 # memory and an empty index
@@ -921,7 +1116,8 @@ class Trainer:
                     t_trans.auc, t_trans.ap, t_trans.acc)
         logger.info("Test statistics: New nodes -- auc: %f, ap: %f, acc: %f",
                     t_induct.auc, t_induct.ap, t_induct.acc)
-        if not cfg.save_best and os.path.exists(self.checkpoint_path):
+        if (self.mesh.lead and not cfg.save_best
+                and os.path.exists(self.checkpoint_path)):
             os.remove(self.checkpoint_path)
         return {
             "test_ap": t_trans.ap,

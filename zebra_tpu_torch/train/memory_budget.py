@@ -28,6 +28,12 @@ peak of one seed's flush; the usable share of the card's free memory
 reserved bytes at the host protocol's peak. The index is counted twice in
 both protocols (the train-end index beside the val leg's copy).
 
+A rank of a row-sharded run (one seed over D ranks) holds N/D rows of
+the tables and of the index, and the guard counts those (as the JAX guard
+counts ``ceil(N/D)``, ``zebra_tpu/train/loop.py:607-622``); a batch block
+of b/D events holds about 1/D of a seed's batch activations, which the
+guard still counts whole (not measured per block).
+
 ``host_backup`` None picks the host protocol when only it fits; a
 protocol that does not fit raises "HBM budget exceeded" (the JAX
 package's words). On the CPU there is no accounting, and nothing is
@@ -63,16 +69,17 @@ def row_bytes(cfg: Config) -> int:
             + 3 * 4)    # last_update, msg_ts, msg_count
 
 
-def index_bytes(cfg: Config) -> int:
-    """Bytes of the streaming index, [N, M(4k+1)] f32 (0 where none is
-    kept)."""
+def index_bytes(cfg: Config, n_rows: Optional[int] = None) -> int:
+    """Bytes of the streaming index, [N, M(4k+1)] f32, or of ``n_rows`` of
+    its rows (0 where none is kept)."""
     if not cfg.keeps_tppr_index:
         return 0
-    return cfg.n_nodes * cfg.n_tppr * (4 * cfg.topk + 1) * 4
+    rows = cfg.n_nodes if n_rows is None else n_rows
+    return rows * cfg.n_tppr * (4 * cfg.topk + 1) * 4
 
 
 class Budget(NamedTuple):
-    tables: int       # S_local · N · per_row
+    tables: int       # S_local · rows · per_row
     device: float     # the device protocol's estimate
     host: float       # the host protocol's estimate
     usable: float     # USABLE_SHARE of the free bytes
@@ -87,26 +94,33 @@ class Budget(NamedTuple):
         return "host" if host_backup else "device"
 
 
-def budget(cfg: Config, s_local: int, free_bytes: int) -> Budget:
-    """The estimates of ``s_local`` lanes of ``cfg.n_nodes`` rows against
-    ``free_bytes`` of device memory."""
-    tables = s_local * cfg.n_nodes * row_bytes(cfg)
-    rest = (INDEX_COPIES * index_bytes(cfg) + LANE_BATCH_BYTES * s_local
-            + FLUSH_ROW_BYTES * cfg.n_nodes)
+def budget(cfg: Config, s_local: int, free_bytes: int,
+           n_rows: Optional[int] = None) -> Budget:
+    """The estimates of ``s_local`` lanes of ``n_rows`` rows each (all
+    ``cfg.n_nodes``; a row-sharded rank's N/D) against ``free_bytes`` of
+    device memory."""
+    rows = cfg.n_nodes if n_rows is None else n_rows
+    tables = s_local * rows * row_bytes(cfg)
+    rest = (INDEX_COPIES * index_bytes(cfg, rows) + LANE_BATCH_BYTES * s_local
+            + FLUSH_ROW_BYTES * rows)
     return Budget(tables, DEVICE_COPIES * tables + rest,
                   HOST_COPIES * tables + rest, USABLE_SHARE * free_bytes)
 
 
-def check_memory_budget(cfg: Config, s_local: int, device) -> bool:
+def check_memory_budget(cfg: Config, s_local: int, device,
+                        n_rows: Optional[int] = None) -> bool:
     """Whether validate() and test() keep their table backups in host
     memory: ``cfg.host_backup``, or where it is None, whether only the host
     protocol fits. Raises where the protocol chosen does not fit the free
-    memory of ``device``; on the CPU returns ``bool(cfg.host_backup)``."""
+    memory of ``device``; on the CPU returns ``bool(cfg.host_backup)``.
+    ``n_rows`` is the node rows of a lane on this device (a row-sharded
+    rank's N/D; all N by default)."""
     device = torch.device(device)
     if device.type != "cuda":
         return bool(cfg.host_backup)
     free, total = torch.cuda.mem_get_info(device)
-    b = budget(cfg, s_local, free)
+    rows = cfg.n_nodes if n_rows is None else n_rows
+    b = budget(cfg, s_local, free, rows)
     decision = b.decide(cfg.host_backup)
     gib = lambda x: x / 2**30
     if decision == "refused":
@@ -115,15 +129,15 @@ def check_memory_budget(cfg: Config, s_local: int, device) -> bool:
                        else (DEVICE_COPIES, b.device))
         raise ValueError(
             f"node-table HBM budget exceeded: ~{gib(est):.1f} GiB estimated "
-            f"on {device} ({s_local} seed(s) × {cfg.n_nodes} rows × "
+            f"on {device} ({s_local} seed(s) × {rows} rows × "
             f"{row_bytes(cfg)} B, ×{copies} for the val/test backup "
             f"protocol, + the batches' activations, a flush's scratch and "
             f"the index ×{INDEX_COPIES})"
             f" against a usable "
             f"~{gib(b.usable):.1f} GiB of {gib(free):.1f} GiB free "
             f"({gib(total):.1f} GiB on the card). Reduce --parallel_runs, "
-            "shard seeds over more devices (--n_devices), or shrink "
-            "--memory_dim/--topk.")
+            "shard seeds or node rows over more devices (--n_devices), or "
+            "shrink --memory_dim/--topk.")
     if decision == "host" and cfg.host_backup is None:
         logger.info(
             "val/test table backups will live in host memory (--host_backup "

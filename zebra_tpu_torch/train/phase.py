@@ -22,13 +22,25 @@ then the memory protocol for all lanes. Train lane s reads query blocks
 [src, dst, neg_s]: of the shared scan's rows [E, 2+S, F], or of one BFS
 call over the roots [src; dst; neg_0 … neg_{S-1}] (the BFS answers each
 root on its own); eval shares the negatives and the query blocks. Only the
-dropout masks are drawn lane by lane, from each seed's generator."""
+dropout masks are drawn lane by lane, from each seed's generator.
+
+Row-sharded (one seed, its node rows split over D ranks:
+:func:`run_phase_rows`, the counterpart of the JAX package's row-sharded
+phases with ``shard_batch``'s ``P('data')``): rank r takes the event block
+[r·b/D, (r+1)·b/D) of each batch. It fetches the rows its block reads (the
+block's nodes and their T-PPR neighbors) through the row exchange
+(``parallel/exchange.py``) into a small table of its own, runs the towers
+and the memory protocol on that table, and sends the rows whose write it
+wins to their owners. The gradients are summed over the ranks before one
+Adam step, the same on every rank; the scores cross once, at the phase's
+end, where the metrics are computed as in one process."""
 
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Optional, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +49,7 @@ from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
 from zebra_tpu_torch.index.pruning import pruned_topk
 from zebra_tpu_torch.index.streaming import TpprQueries, unpack_queries
 from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.models.tgn import BlockMasks
 from zebra_tpu_torch.ops.metrics import masked_ap, masked_auc, masked_rank_acc
 from zebra_tpu_torch.models.embedding import lane_ids
 from zebra_tpu_torch.train.step import (
@@ -281,4 +294,235 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                 masked_auc(pos_p, neg_p, s.valid),
                 masked_rank_acc(pos_p, neg_p, s.valid)], dim=-1))
         _mark(marks, "metrics")
+    return torch.stack(out)
+
+
+# ------------------------------------------------------------ row-sharded
+
+class RowPlan(NamedTuple):
+    """A superchunk's plan of the row-sharded batches, made on the host
+    from the event columns (:func:`plan_rows`) and uploaded once. The
+    block of rank j in a batch is its events [j·b', (j+1)·b'), b' = b/D;
+    its query rows are its src, dst and neg ids, 3b' of them."""
+
+    uniq: torch.Tensor        # i64 [n_batches, D, 3b'] each rank's block's
+                              # distinct node ids, padded with 0
+    inv: torch.Tensor         # i64 [n_batches, 3b'] this rank's query rows
+                              # → their place among its distinct ids
+    send: torch.Tensor        # i64 [n_batches, 2b'] the places of the rows
+                              # whose write this rank wins (padded with 0)
+    take: torch.Tensor        # i64 [m] the entries of every rank's sent
+                              # rows (D·2b' per batch) that this rank owns
+    rows: torch.Tensor        # i64 [m] their local row ids
+    bounds: Tuple[int, ...]   # batch i: take/rows[bounds[i]:bounds[i + 1]]
+
+
+def plan_rows(src, dst, neg, valid, b: int, world: int, rank: int,
+              rows_per_rank: int, device) -> RowPlan:
+    """The :class:`RowPlan` of a superchunk's host columns (whole batches
+    of ``b`` events). A batch writes the rows of its valid senders (src
+    and dst of its valid events), each from the last valid position that
+    names it (``cat([src, dst])`` order: the last-wins message and, since
+    every sender is a committed positive, the row's every column); the
+    rank whose block holds that position sends the row."""
+    bl = b // world
+    n_b = len(src) // b
+    uniq = np.zeros((n_b, world, 3 * bl), np.int64)
+    inv = np.zeros((n_b, 3 * bl), np.int64)
+    send = np.zeros((n_b, 2 * bl), np.int64)
+    take, rows, bounds = [], [], [0]
+    for i in range(n_b):
+        sl = slice(i * b, (i + 1) * b)
+        s_, d_, n_ = (np.asarray(c[sl], np.int64) for c in (src, dst, neg))
+        places = []
+        for j in range(world):
+            blk = slice(j * bl, (j + 1) * bl)
+            u, iv = np.unique(np.concatenate([s_[blk], d_[blk], n_[blk]]),
+                              return_inverse=True)
+            uniq[i, j, :len(u)] = u
+            places.append(iv)
+        inv[i] = places[rank]
+        snd = np.concatenate([s_, d_])
+        last_first = np.flatnonzero(np.tile(np.asarray(valid[sl], bool),
+                                            2))[::-1]
+        _, first = np.unique(snd[last_first], return_index=True)
+        win = np.sort(last_first[first])
+        event, part = win % b, win // b
+        sender = event // bl
+        at = part * bl + event - sender * bl      # place in the block's rows
+        slot = np.zeros_like(win)
+        for j in range(world):
+            mine = sender == j
+            slot[mine] = np.arange(mine.sum())
+            if j == rank:
+                send[i, : mine.sum()] = places[j][at[mine]]
+        gid = snd[win]
+        own = gid // rows_per_rank == rank
+        take.append(sender[own] * 2 * bl + slot[own])
+        rows.append(gid[own] - rank * rows_per_rank)
+        bounds.append(bounds[-1] + int(own.sum()))
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
+        device)
+    cat = lambda parts: np.concatenate(parts) if parts else np.zeros(0)
+    return RowPlan(as_t(uniq), as_t(inv), as_t(send), as_t(cat(take)),
+                   as_t(cat(rows)), tuple(bounds))
+
+
+def block_queries(cfg: Config, rows: torch.Tensor, t: torch.Tensor,
+                  world: int) -> TpprQueries:
+    """A batch's extraction rows [b, 3, F] → every rank's block's queries,
+    fields [D, M, 3b', k] (each block as :func:`batch_queries` lays out a
+    batch)."""
+    b = rows.shape[0]
+    bl, m, k = b // world, cfg.n_tppr, cfg.topk
+    q = unpack_queries(rows, t, m, k)                      # [b, M, 3, k]
+    return TpprQueries(*(x.reshape(world, bl, m, 3, k).permute(0, 2, 3, 1, 4)
+                         .reshape(world, m, 3 * bl, k) for x in q))
+
+
+def _all_reduce_grads(params, exchange) -> None:
+    """Sum every gradient over the ranks (one flat buffer, one
+    collective); every rank gets the same bits."""
+    ps = [p for p in params.parameters() if p.grad is not None]
+    flat = exchange.all_reduce_(
+        torch.cat([p.grad.reshape(-1) for p in ps]), "grad")
+    for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+        p.grad.copy_(g.view_as(p.grad))
+
+
+def run_phase_rows(cfg: Config, train: bool, params, optimizer,
+                   mem: MemoryState, edge_feats: torch.Tensor,
+                   stream: Stream, queries: torch.Tensor,
+                   n_valid: Sequence[int], plan: RowPlan, exchange,
+                   generator=None, marks: Optional[List] = None,
+                   phase: str = "train"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass of a row-sharded rank over the batches of ``stream`` (the
+    whole batches, the same on every rank) with the chunk's extraction rows
+    ``queries`` [E, 3, F] (every rank holds all of them) and the chunk's
+    :class:`RowPlan`. ``mem`` holds this rank's rows; it changes in place
+    where this rank owns a row a batch writes.
+
+    Per batch: one ``exchange.fetch`` of the rows of every rank's block
+    (each rank knows every block's ids: the distinct query nodes from the
+    plan, the T-PPR neighbors from the extraction rows) into a table of
+    3b' + M·3b'·k rows; the towers on this rank's block over that table,
+    with the lazy-update plan made from the global ids and the dropout
+    masks of the whole batch (:class:`BlockMasks`), a query row updating
+    lazily where its node is among the whole batch's selected neighbors;
+    in training the loss
+    as this block's share of the batch's masked means (over the batch's
+    valid count), one backward, the gradients summed over the ranks, one
+    Adam step; the memory protocol of the block on the table; one
+    ``exchange.send`` of the rows this rank's block wins. ``marks`` takes
+    (part, CUDA event) pairs: "fetch", "forward", "backward", "allreduce"
+    and "adam" (train), "protocol", "send".
+
+    Returns this block's (pos, neg) probabilities [n_batches, 2, b'] and
+    its share of each batch's loss [n_batches] (0 in eval), on the
+    device; the caller gathers them at the phase's end."""
+    b, world, rank = cfg.bs, exchange.mesh.size, exchange.mesh.rank
+    bl = b // world
+    bcfg = cfg.single_seed().replace(bs=bl)   # the config of one block
+    dev = mem.memory.device
+    tables = tuple(mem)
+    m, k = cfg.n_tppr, cfg.topk
+    mine = slice(rank * bl, (rank + 1) * bl)
+    ar = torch.arange(bl, device=dev)
+    # this block's rows among the batch's 3b query rows (its dropout masks)
+    block_rows = torch.cat([rank * bl + ar, b + rank * bl + ar,
+                            2 * b + rank * bl + ar])
+    # the neighbors' rows in the fetched table, after the distinct nodes
+    nbr_local = 3 * bl + torch.arange(m * 3 * bl * k, device=dev).view(
+        m, 3 * bl, k)
+    probs, losses = [], []
+    for i, nv in enumerate(n_valid):
+        s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+        blk = Stream(*(x[mine] for x in s))
+        valid = None if nv == b else blk.valid
+        qs = block_queries(cfg, queries[i * b: (i + 1) * b], s.t, world)
+        q = TpprQueries(*(x[rank] for x in qs))
+        ids = torch.cat([plan.uniq[i],
+                         qs.nbr.reshape(world, -1).to(torch.int64)], dim=1)
+        view = MemoryState(*exchange.fetch(tables, ids, "tower_fetch"))
+        _mark(marks, "fetch")
+        nodes = plan.inv[i]
+        local_q = q._replace(nbr=nbr_local)
+        src_l, dst_l = nodes[:bl], nodes[bl: 2 * bl]
+        if train:
+            # a query row updates lazily when its node is among the whole
+            # batch's selected neighbors (the one-process membership)
+            every = q._replace(nbr=qs.nbr.movedim(0, 1).reshape(m, -1, k))
+            lazy = train_plan(cfg, every, torch.cat([blk.src, blk.dst,
+                                                     blk.neg]))
+            optimizer.zero_grad(set_to_none=True)
+            emb = _forward(bcfg, params, view, edge_feats, nodes, local_q,
+                           train=True, plan=lazy,
+                           generator=BlockMasks(generator, block_rows, 3 * b))
+            pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
+            bce = F.binary_cross_entropy_with_logits
+            count = max(int(nv), 1)
+            loss = (
+                _masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
+                                 reduction="none"), blk.valid, count)
+                + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
+                                   reduction="none"), blk.valid, count))
+            _mark(marks, "forward")
+            loss.backward()
+            _mark(marks, "backward")
+            _all_reduce_grads(params, exchange)
+            _mark(marks, "allreduce")
+            optimizer.step()
+            _mark(marks, "adam")
+            _commit_pending(bcfg, params, view, torch.cat([src_l, dst_l]),
+                            None if valid is None else torch.cat([valid,
+                                                                  valid]))
+            _store_messages(bcfg, params, view, edge_feats, src_l, dst_l,
+                            blk.t, blk.eidx, valid)
+            loss = loss.detach()
+        else:
+            with torch.no_grad():
+                emb = _forward(bcfg, params, view, edge_feats, nodes,
+                               local_q)
+                pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
+            eval_protocol(bcfg, params, view, edge_feats, src_l, dst_l,
+                          blk.t, blk.eidx, valid)
+            loss = torch.zeros((), device=dev)
+        _mark(marks, "protocol")
+        if cfg.debug_nans:
+            rows = torch.cat([src_l, dst_l])
+            check_finite(phase, i, loss=loss,
+                         logits=[pos_logit.detach(), neg_logit.detach()],
+                         params=list(params.parameters()) if train else [],
+                         memory=[view.memory[rows], view.messages[rows]])
+        lo, hi = plan.bounds[i], plan.bounds[i + 1]
+        exchange.send(tables, [x.index_select(0, plan.send[i]) for x in view],
+                      plan.take[lo:hi], plan.rows[lo:hi], "tower_send")
+        _mark(marks, "send")
+        with torch.no_grad():
+            probs.append(torch.stack([torch.sigmoid(pos_logit),
+                                      torch.sigmoid(neg_logit)]))
+        losses.append(loss)
+    return torch.stack(probs), torch.stack(losses)
+
+
+def rows_metrics(exchange, probs: torch.Tensor, losses: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """A row-sharded phase's end: every rank's block probabilities
+    [n_batches, 2, b'] and loss shares [n_batches] gathered once, then the
+    per-batch metrics [n_batches, 4] (:data:`METRICS`) of the whole batches
+    as one process computes them, ``valid`` [n_batches·b] the stream's
+    mask."""
+    world = exchange.mesh.size
+    g = exchange.all_gather(probs, "scores")          # [D, nb, 2, b']
+    n_b = probs.shape[0]
+    probs = g.permute(1, 2, 0, 3).reshape(n_b, 2, -1)
+    loss = exchange.all_gather(losses, "scores").sum(0)
+    valid = valid.view(n_b, -1)
+    out = []
+    for i in range(n_b):
+        pos_p, neg_p, v = probs[i, 0], probs[i, 1], valid[i]
+        out.append(torch.stack([loss[i], masked_ap(pos_p, neg_p, v),
+                                masked_auc(pos_p, neg_p, v),
+                                masked_rank_acc(pos_p, neg_p, v)]))
     return torch.stack(out)

@@ -158,8 +158,13 @@ class SeedAdam:
         self.steps = int(state["steps"])
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of ``x`` over its last axis where ``mask`` holds."""
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 count: Optional[int] = None) -> torch.Tensor:
+    """Mean of ``x`` over its last axis where ``mask`` holds; with
+    ``count`` (a row-sharded block, known on the host), the sum over this
+    block's valid entries divided by the whole batch's valid count."""
+    if count is not None:
+        return torch.where(mask, x, 0.0).sum(-1) / count
     return torch.where(mask, x, 0.0).sum(-1) / mask.sum().clamp(min=1)
 
 
