@@ -168,6 +168,22 @@ Phases, in order; any failure exits non-zero:
       served on external ids against the plain run's;
     - (d) the guard's decisions for one seed at 1,140,096 nodes over D = 1,
       2, 4 and 8 ranks, with the rows per rank;
+    - (e)-(g), the ranks started once for all: the MOOC pruning run, the
+      options (``OPTIONS``) and the compaction at the auto cap, at an
+      overflowing cap (its rerun bit-equal to per-position training on the
+      ranks) and per position, on the bench stream, and the Wikipedia
+      graph_attention run, each cut to its first 10,000 events, and
+      graph_sum, identity and time on 1,500; f32 tables and dropout 0. Each
+      leg's train epoch, ``validate()`` and ``test()`` on two ranks against
+      one process on the card (``ROWS_LEGS``' bars), with each rank's
+      epoch seconds, the exchange's bytes and seconds per kind, the
+      recursive towers' distinct fetch against the ids named, the peak of
+      ``validate()`` + ``test()``, and santa_merge's launches per rank (the
+      waves on the streaming legs, none under pruning and the towers);
+    - (h) the CLI's ``--n_devices 2 --task node`` fit on the flagship's
+      first 10,000 events: the node AUCs every rank replays at full N equal
+      to one process's replay from the state file, which serves bit-equal
+      to that process's predictor;
 15. one ``{"kernels": [...]}`` line;
 16. last line ``{"ok": true, "device": {...}}``.
 
@@ -230,6 +246,8 @@ from zebra_tpu_torch.profile_train import (
 from zebra_tpu_torch.serve import EnsemblePredictor, LinkPredictor
 from zebra_tpu_torch.train import memory_budget as mb
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
+from zebra_tpu_torch.train import phase as phase_mod
+from zebra_tpu_torch.train.node_classification import run_node_classification
 from zebra_tpu_torch.train.loop import Trainer
 from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import flush_pending_
@@ -380,6 +398,42 @@ ROWS_CLI_EVENTS = ROWS_WIKI_EVENTS = 10_000
 ROWS_GUARD_DEVICES = (1, 2, 4, 8)
 ROWS_TPPR = dict(bs=200, topk=20, alpha_list=(0.1, 0.1),
                  beta_list=(0.05, 0.95), embedding_module="diffusion")
+# Phase 14's legs (e)-(g): the options beyond the flagship's, each cell cut
+# to its first ROWS_LEG_EVENTS events (the memory-only and sum towers'
+# replays to ROWS_TOWER_EVENTS), on f32 tables with dropout 0 as the CPU
+# tests run them (tests/test_torch_row_sharded_*.py): the per-batch loss
+# within 1e-6 of 1 + |loss| and the params bit-equal across ranks, as
+# there; every batch's probabilities and the memory within 1e-5, where the
+# CPU tests' 16-wide runs hold 1e-6: at width 100 on the card the time
+# tower's probabilities came 1.5e-6 from one process (its Δt·w factor
+# scales a param's last bits) and the pruning leg's memory 1.6e-6 after 35
+# batches (the gradient's sum over two blocks, carried by Adam: params
+# 1.1e-6 apart). AP, AUC and accuracy are reported, not held: at bs 200
+# ties come
+# in groups (fresh rows embed alike), so an ulp may move a batch's AUC by
+# more than one event's share (1.5e-2 seen on the CPU under the options).
+# The compaction leg's cap is the auto rule's floor, which the cut's
+# batches overflow. (h) holds the node AUCs of the CLI's run within 1e-6
+# of one process's replay from its state file.
+ROWS_LEG_EVENTS, ROWS_TOWER_EVENTS = 10_000, 1_500
+ROWS_LEG_TABLES = dict(memory_dtype="float32", message_dtype="float32",
+                       dropout=0.0)
+ROWS_LEG_ATOL, ROWS_LEG_DRIFT_ATOL = 1e-6, 1e-5
+ROWS_OVERFLOW_CAP = 256
+ROWS_LEGS = {
+    "pruning": (mooc_pruning, ROWS_LEG_EVENTS, {}),
+    "options": (flagship_training, ROWS_LEG_EVENTS, OPTIONS),
+    "lazy_auto": (flagship_training, ROWS_LEG_EVENTS,
+                  dict(lazy_unique_cap=AUTO_CAP)),
+    "lazy_overflow": (flagship_training, ROWS_LEG_EVENTS,
+                      dict(lazy_unique_cap=ROWS_OVERFLOW_CAP)),
+    "per_position": (flagship_training, ROWS_LEG_EVENTS,
+                     dict(lazy_unique_cap=0)),
+    "graph_attention": (wikipedia_attention, ROWS_LEG_EVENTS, {}),
+    **{tower: (wikipedia_attention, ROWS_TOWER_EVENTS,
+               dict(embedding_module=tower))
+       for tower in ("graph_sum", "identity", "time")},
+}
 
 
 def merge_work(rows: torch.Tensor, m: int, k: int):
@@ -2915,6 +2969,248 @@ def rows_align(card: str, device: str = "cuda:0",
     return launches
 
 
+def _leg_config(name: str, n_devices: int):
+    """Leg ``name`` of (e)-(g) (:data:`ROWS_LEGS`): (cfg, splits,
+    edge_feats) over ``n_devices`` ranks."""
+    build, n_events, kw = ROWS_LEGS[name]
+    return build(seed=0, n_events=n_events, n_devices=n_devices,
+                 **ROWS_LEG_TABLES, **kw)
+
+
+class _Scores:
+    """Every batch's (pos, neg) probabilities [2, b] as a phase's metrics
+    read them (``train/phase.py``'s accuracy, whole batches, in one process
+    and after a row-sharded phase's gather), while the context is open."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        self._acc = phase_mod.masked_rank_acc
+
+        def spy(pos, neg, valid):
+            self.rows.append(torch.stack([pos, neg]).detach().cpu())
+            return self._acc(pos, neg, valid)
+
+        phase_mod.masked_rank_acc = spy
+        return self
+
+    def __exit__(self, *exc):
+        phase_mod.masked_rank_acc = self._acc
+
+
+def _rows_leg_run(trainer: Trainer) -> dict:
+    """A train epoch, then validate() + test() with the device's
+    allocation peak: per-batch metrics and probabilities, seconds,
+    santa_merge's launches, the exchange's counts (two ranks), the gathered
+    tables and params."""
+    dev = trainer.device
+    cuda = dev.type == "cuda"
+    _reset_counts()
+    ex = trainer.exchange
+    if ex is not None:
+        ex.reset_stats()
+    scores = _Scores()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with scores:
+        tr = trainer.train_epoch()
+    _sync(dev)
+    train_s = time.perf_counter() - t0
+    # an overflowing epoch ran twice: its result is the rerun's
+    del scores.rows[: -trainer._streams["train"].n_batches]
+    train_exchange = None if ex is None else _exchange(trainer)
+    train_ids = None if ex is None else {k: list(v)
+                                         for k, v in ex.ids.items()}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    with scores:
+        phases = (tr, *trainer.validate(), *trainer.test())
+    _sync(dev)
+    eval_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    mem, _ = trainer.gathered_state()
+    return dict(
+        per_batch=[p.per_batch for p in phases], train_s=train_s,
+        eval_s=eval_s, eval_peak_above_base=peak - base,
+        waves=[p.waves for p in phases], index_waves=trainer.index_waves,
+        santa_merge_launches=merge.SANTA_MERGE.launches,
+        santa_scan_launches=scan.SANTA_SCAN.launches,
+        train_exchange=train_exchange, train_ids=train_ids,
+        fallback=trainer._lazy_fallback, scores=torch.stack(scores.rows),
+        mem={k: v.cpu().clone() for k, v in mem._asdict().items()},
+        params=_cpu_tree(trainer.params.state_dict()))
+
+
+def rows_legs_rank(out: str, device: str) -> None:
+    """(e)-(g), one rank: every leg of :data:`ROWS_LEGS` in turn, what the
+    parent compares to ``out/legs<r>.pt``."""
+    res = {}
+    for name in ROWS_LEGS:
+        cfg, splits, edge_feats = _leg_config(name, ROWS_RANKS)
+        trainer = Trainer(cfg.replace(checkpoint_dir=out), splits,
+                          edge_feats, device=device)
+        res[name] = _rows_leg_run(trainer)
+        res[name]["local_rows"] = int(trainer.mem.memory.shape[0])
+        rank = trainer.mesh.rank
+        del trainer
+        gc.collect()
+    torch.save(res, os.path.join(out, f"legs{rank}.pt"))
+
+
+def _leg_errors(ranks, one) -> dict:
+    """A leg's ranks against one process: the probabilities' and the
+    memory's largest errors, the per-batch losses' largest error relative
+    to 1 + |loss|, the params' largest error and whether they are
+    bit-equal across ranks; AP, AUC and accuracy's largest error and the
+    count of entries past 1e-6 (reported: an ulp breaks f32 ties)."""
+    probs = max(float((r["scores"] - one["scores"]).abs().max())
+                for r in ranks)
+    loss, metric, past = 0.0, 0.0, 0
+    for r in ranks:
+        for got, want in zip(r["per_batch"], one["per_batch"]):
+            assert got.shape == want.shape
+            err = np.abs(got - want)
+            loss = max(loss, float((err[:, 0] / (1 + np.abs(want[:, 0])))
+                                   .max()))
+            metric = max(metric, float(err[:, 1:].max()))
+            past += int((err[:, 1:] > ROWS_LEG_ATOL).sum())
+    mem = max(float((ranks[0]["mem"][k].float() - v.float()).abs().max())
+              for k, v in one["mem"].items())
+    params = max(float((ranks[0]["params"][k] - v).abs().max())
+                 for k, v in one["params"].items())
+    return dict(probs_max_abs_err=probs, loss_rel_err=loss,
+                memory_max_abs_err=mem, params_max_abs_err=params,
+                params_bitwise_across_ranks=_same_params(
+                    ranks[0]["params"], ranks[1]["params"]),
+                metric_max_abs_err=metric, metrics_past_bar=past)
+
+
+def rows_legs(card: str, device: str = "cuda:0") -> int:
+    """(e)-(g): the options beyond the flagship's on two ranks of one seed
+    sharing the card, each against one process on it. Returns
+    santa_merge's launches of the ranks' runs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launch(rows_legs_rank, ROWS_RANKS, (tmp, device),
+               threads=max(1, (os.cpu_count() or 2) // ROWS_RANKS))
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"legs{r}.pt"),
+                            weights_only=False) for r in range(ROWS_RANKS)]
+    cuda = torch.device(device).type == "cuda"
+    launches, out, failed = 0, {}, []
+    for name in ROWS_LEGS:
+        cfg, splits, edge_feats = _leg_config(name, 1)
+        one_t = Trainer(cfg, splits, edge_feats, device=device)
+        one = _rows_leg_run(one_t)
+        del one_t
+        gc.collect()
+        rs = [r[name] for r in ranks]
+        streaming = cfg.keeps_tppr_index
+        for r in rs:
+            want = r["index_waves"] if cuda and streaming else 0
+            assert r["santa_merge_launches"] == want, (name, r["index_waves"])
+            assert r["santa_scan_launches"] == 0, name
+            launches += r["santa_merge_launches"]
+        errs = _leg_errors(rs, one)
+        fetched, named = rs[0]["train_ids"]["tower_fetch"]
+        n_batches = rs[0]["per_batch"][0].shape[0]
+        leg = dict(
+            leg=name, events=ROWS_LEGS[name][1], ranks=ROWS_RANKS,
+            local_node_rows=[r["local_rows"] for r in rs],
+            rank_train_s=[r["train_s"] for r in rs], one_process_train_s=one[
+                "train_s"], rank_eval_s=[r["eval_s"] for r in rs],
+            rank_eval_peak_above_base=[r["eval_peak_above_base"]
+                                       for r in rs],
+            one_process_eval_peak_above_base=one["eval_peak_above_base"],
+            train_waves=[r["waves"][0] for r in rs],
+            rank_santa_merge_launches=[r["santa_merge_launches"]
+                                       for r in rs],
+            one_process_santa_merge_launches=one["santa_merge_launches"],
+            train_exchange=[r["train_exchange"] for r in rs],
+            tower_fetch_rows_per_batch=fetched / n_batches / ROWS_RANKS,
+            tower_fetch_ids_named_per_batch=named / n_batches / ROWS_RANKS,
+            overflow_rerun=rs[0]["fallback"], **errs, card=card)
+        print("rows leg " + json.dumps(leg), flush=True)
+        out[name] = (leg, rs, one)
+        held = dict(
+            params_bitwise=errs["params_bitwise_across_ranks"],
+            probs=errs["probs_max_abs_err"] <= ROWS_LEG_DRIFT_ATOL,
+            loss=errs["loss_rel_err"] <= ROWS_LEG_ATOL,
+            memory=errs["memory_max_abs_err"] <= ROWS_LEG_DRIFT_ATOL,
+            finite=all(np.isfinite(p).all() for r in rs
+                       for p in r["per_batch"]))
+        failed += [f"{name}: {k}" for k, ok in held.items() if not ok]
+    assert not failed, failed
+    # the overflowing cap's rerun is per-position training, bit for bit
+    over, plain = out["lazy_overflow"][1], out["per_position"][1]
+    for a, b in zip(over, plain):
+        assert a["fallback"] and not b["fallback"]
+        assert all(np.array_equal(x, y) for x, y in zip(a["per_batch"],
+                                                        b["per_batch"]))
+        assert all(torch.equal(a["mem"][k], b["mem"][k]) for k in a["mem"])
+        assert _same_params(a["params"], b["params"])
+    attn = out["graph_attention"][0]
+    print("rows legs " + json.dumps(dict(
+        group_s=group_s, overflow_rerun_bitwise=True,
+        attention_fetch_rows_per_block_batch=attn[
+            "tower_fetch_rows_per_batch"],
+        attention_ids_named_per_block_batch=attn[
+            "tower_fetch_ids_named_per_batch"],
+        card=card)), flush=True)
+    return launches
+
+
+def rows_node_cli(card: str, device: str = "cuda:0",
+                  n_events: int = ROWS_CLI_EVENTS) -> int:
+    """(h): the CLI's ``--n_devices 2 --task node`` fit on two ranks, its
+    state file served, and the node AUCs against one process's replay from
+    that file. Returns santa_merge's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_bench_dataset(root, n_events)
+        argv = ["-d", "bench", "--data_dir", str(root), *ROWS_FLAGS,
+                "--device", device, "--checkpoint_dir", str(root / "h"),
+                "--log_dir", str(root / "log_h"), "--n_epoch", "1",
+                "--task", "node", "--n_devices", str(ROWS_RANKS)]
+        ranks, fit_s = _cli_ranks(argv, root, "h")
+        res = ranks[0]["results"]
+        state, = sorted((root / "h").glob("*.state.ckpt"))
+        _, edge_feats = load_feat("bench", str(root))
+        ns = Config.arg_parser().parse_args(argv[:-2])
+        one = Trainer(Config.from_dict(vars(ns)),
+                      get_data("bench", str(root)), edge_feats,
+                      device=device)
+        one.restore_state(str(state))
+        node = run_node_classification(one, n_steps=one.cfg.node_decoder_steps,
+                                       lr=one.cfg.node_decoder_lr,
+                                       seed=one.cfg.seed)
+        live = LinkPredictor.from_trainer(one)
+        served = LinkPredictor.from_checkpoint(
+            str(state), edge_feats=edge_feats, device=device)
+        te = one.splits.test
+        q = (te.sources[:DEPLOY_SCORE_B], te.destinations[:DEPLOY_SCORE_B],
+             te.timestamps[:DEPLOY_SCORE_B])
+        serve_bitwise = bool(np.array_equal(served.score(*q),
+                                            live.score(*q)))
+    aucs = {k: res[k] for k in node}
+    auc_err = max(abs(aucs[k] - v) for k, v in node.items())
+    out = dict(ranks=ROWS_RANKS, device=device, events=n_events,
+               fit_s=fit_s, node_aucs=aucs, one_process_replay_aucs=node,
+               auc_max_abs_err=auc_err, served_vs_one_process_bitwise=(
+                   serve_bitwise),
+               rank_santa_merge_launches=[r["santa_merge_launches"]
+                                          for r in ranks],
+               rank_index_waves=[r["index_waves"] for r in ranks],
+               card=card)
+    print("rows node " + json.dumps(out), flush=True)
+    assert all(np.isfinite(v) for v in aucs.values()), out
+    assert auc_err <= ROWS_LEG_ATOL and serve_bitwise, out
+    return sum(r["santa_merge_launches"] for r in ranks)
+
+
 def rows_guard(card: str, device: str = "cuda") -> None:
     """(d): the guard's decisions for one seed at Wiki-Talk's node count
     over ROWS_GUARD_DEVICES ranks, on this card's free memory."""
@@ -2944,6 +3240,8 @@ def rows_phase(card: str) -> int:
     launches += rows_cli(card)
     launches += rows_align(card)
     rows_guard(card)
+    launches += rows_legs(card)
+    launches += rows_node_cli(card)
     print(f"rows phase: {time.perf_counter() - t0:.1f} s  ({card})",
           flush=True)
     return launches

@@ -90,8 +90,8 @@ def test_cli_n_runs_use_consecutive_seeds(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--parallel_runs", "2",
                                    "--fused_dispatch"],
-                                  ["--n_devices", "2", "--aggregator",
-                                   "mean"]])
+                                  ["--n_devices", "5",
+                                   "--dist_num_processes", "2"]])
 def test_cli_refuses_what_the_port_cannot_run(tmp_path, flag):
     with pytest.raises(ValueError, match=flag[0][2:]):
         cli.main(_argv(tmp_path, "toy", *flag))

@@ -10,6 +10,7 @@ of the 128 padded node rows and 25 of each batch's 50 events."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 
@@ -21,9 +22,18 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data import split_data, synthetic_stream
 from zebra_tpu_torch.parallel.distributed import broadcast_one_to_all, rank
 from zebra_tpu_torch.parallel.launch import launch
+from zebra_tpu_torch.train import phase as phase_mod
 from zebra_tpu_torch.train.loop import Trainer
+from zebra_tpu_torch.train.node_classification import (
+    collect_source_embeddings,
+    run_node_classification,
+)
 
 S, D = 4, 2
+# the --task node scenarios: the node decoder's steps, and the share of
+# users whose events carry label 1
+NODE_STEPS = 50
+NODE_LABELS = 0.3
 SMALL = dict(bs=50, index_chunk=200, node_dim=16, time_dim=16, memory_dim=16,
              topk=5, alpha_list=(0.1, 0.1), beta_list=(0.05, 0.95), lr=1e-3)
 F32 = dict(memory_dtype="float32", message_dtype="float32")
@@ -35,15 +45,17 @@ FIT = dict(data="synthetic", bs=50, index_chunk=200, node_dim=16,
            patience=5, memory_dtype="float32", save_best=True)
 
 
-def splits(n_events: int = 1200):
+def splits(n_events: int = 1200, label_users_frac: float = 0.0):
     data, ef = synthetic_stream(n_events=n_events, n_users=40, n_items=40,
-                                edge_dim=4, seed=0)
+                                edge_dim=4, seed=0,
+                                label_users_frac=label_users_frac)
     return split_data(data.sources, data.destinations, data.timestamps,
                       data.edge_idxs, data.labels), ef
 
 
-def trainer(ckpt: str, n_events: int = 1200, base=SMALL, **kw) -> Trainer:
-    sp, ef = splits(n_events)
+def trainer(ckpt: str, n_events: int = 1200, base=SMALL,
+            label_users_frac: float = 0.0, **kw) -> Trainer:
+    sp, ef = splits(n_events, label_users_frac)
     cfg = Config(**{**base, "checkpoint_dir": ckpt, **kw})
     return Trainer(cfg, sp, ef, device="cpu")
 
@@ -183,29 +195,60 @@ def sc_random_bases(tmp: str) -> dict:
                 own=own, broadcast=broadcast_one_to_all(own))
 
 
-def run_rows(t: Trainer) -> dict:
-    """``run_phases`` of a row-sharded Trainer: the index and the tables
-    gathered into the one-process layout after the train epoch and at the
-    end, the exchange's counts per kind."""
-    tr = t.train_epoch()
+@contextlib.contextmanager
+def recorded_scores(out: list):
+    """Record every batch's (pos, neg) probabilities [2, b] as a phase's
+    metrics read them (``train/phase.py``'s accuracy, whole batches, in one
+    process and after a row-sharded phase's gather)."""
+    acc = phase_mod.masked_rank_acc
+
+    def spy(pos, neg, valid):
+        out.append(torch.stack([pos, neg]).detach().cpu().clone())
+        return acc(pos, neg, valid)
+
+    phase_mod.masked_rank_acc = spy
+    try:
+        yield
+    finally:
+        phase_mod.masked_rank_acc = acc
+
+
+def run_rows(t: Trainer, state: str = None) -> dict:
+    """``run_phases`` of a row-sharded Trainer (or of one process): the
+    index (None where none is kept) and the tables gathered into the
+    one-process layout after the train epoch and at the end, the exchange's
+    counts per kind; with ``state``, the train-end state file written
+    there."""
+    scores = []
+    with recorded_scores(scores):
+        tr = t.train_epoch()
     mem, index = t.gathered_state()
     train_mem = {k: v.clone() for k, v in mem._asdict().items()}
-    train_index = index.data.clone()
-    val, nn_val = t.validate()
-    test, nn_test = t.test()
+    train_index = None if index is None else index.data.clone()
+    if state is not None:
+        t.save_state(state)
+    with recorded_scores(scores):
+        val, nn_val = t.validate()
+        test, nn_test = t.test()
     mem, index = t.gathered_state()
+    phases = (tr, val, nn_val, test, nn_test)
+    ex = t.exchange
     return dict(
-        per_batch={p: r.per_batch for p, r in
-                   zip(PHASES, (tr, val, nn_val, test, nn_test))},
-        waves={p: r.waves for p, r in
-               zip(PHASES, (tr, val, nn_val, test, nn_test))},
-        train_index=train_index, index=index.data.clone(),
+        per_batch={p: r.per_batch for p, r in zip(PHASES, phases)},
+        waves={p: r.waves for p, r in zip(PHASES, phases)},
+        index_seconds={p: r.index_seconds for p, r in zip(PHASES, phases)},
+        train_index=train_index,
+        index=None if index is None else index.data.clone(),
         train_mem=train_mem, mem={k: v.clone() for k, v in
                                   mem._asdict().items()},
         params={k: v.clone() for k, v in t.params.state_dict().items()},
-        local_rows=t.mem.memory.shape[0], backend=t.exchange.backend,
-        stats={k: list(v) for k, v in t.exchange.stats.items()},
-        negs=t._draw_train_negs(0), neg_base=t._neg_base)
+        local_rows=t.mem.memory.shape[0],
+        backend=None if ex is None else ex.backend,
+        stats=None if ex is None else {k: list(v)
+                                       for k, v in ex.stats.items()},
+        ids=None if ex is None else {k: list(v) for k, v in ex.ids.items()},
+        negs=t._draw_train_negs(0), neg_base=t._neg_base, state=state,
+        cfg=t.cfg, scores=torch.stack(scores))
 
 
 def sc_rows_jax(tmp: str) -> dict:
@@ -318,6 +361,145 @@ def sc_rows_aligned(tmp: str) -> dict:
             t.save_state(path)
             res[name]["path"] = path
     return res
+
+
+# the options the row-sharded layout runs beyond the flagship's, each held
+# against the one-process port and JAX's n_devices=2 Trainer, at JAX's
+# default lr (tests/test_torch_row_sharded_pruning.py says why)
+OPTION_LR = 1e-4
+ROW_OPTIONS = {
+    "pruning": dict(tppr_strategy="pruning", beta_list=(0.5, 0.95),
+                    n_degree=4, n_layer=2),
+    "messages": dict(message_function="mlp",
+                     use_source_embedding_in_message=True,
+                     use_destination_embedding_in_message=True),
+    "mean": dict(aggregator="mean"),
+    "lazy": dict(lazy_unique_cap=-1),
+    "identity": dict(embedding_module="identity"),
+    "time": dict(embedding_module="time"),
+    "graph_sum": dict(embedding_module="graph_sum", n_degree=4, n_layer=2),
+    "graph_attention": dict(embedding_module="graph_attention", n_degree=4,
+                            n_layer=2, n_head=2),
+    "graph_attention_il": dict(embedding_module="graph_attention",
+                               n_degree=4, n_layer=2, n_head=2,
+                               owner_aligned_waves=True),
+    "node": dict(task="node"),
+}
+# a compaction cap the batches' distinct neighbors overflow
+OVERFLOW_CAP = 20
+
+
+def option_trainer(tmp: str, name: str, n_devices: int = D,
+                   **kw) -> Trainer:
+    """A Trainer of option ``name`` (:data:`ROW_OPTIONS`) at dropout 0 with
+    f32 tables, from JAX's params where ``<tmp>/<name>_params.pkl``
+    exists."""
+    t = trainer(os.path.join(tmp, f"{name}_{n_devices}"), n_devices=n_devices,
+                lr=OPTION_LR, dropout=0.0, **F32,
+                **{**ROW_OPTIONS[name], **kw})
+    path = os.path.join(tmp, f"{name}_params.pkl")
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            bridge.load_trainer_params(t, pickle.load(f))
+    return t
+
+
+def row_option(name: str):
+    """The scenario of option ``name`` on the ranks: ``run_rows`` with its
+    train-end state file."""
+    def scenario(tmp: str) -> dict:
+        t = option_trainer(tmp, name)
+        return run_rows(t, os.path.join(tmp, f"{name}.state.ckpt"))
+    scenario.__doc__ = f"{name} over {D} ranks (``option_trainer``)."
+    return scenario
+
+
+for _name in ROW_OPTIONS:
+    globals()[f"sc_rows_{_name}"] = row_option(_name)
+
+
+def sc_rows_overflow(tmp: str) -> dict:
+    """A train epoch over 2 ranks whose compaction cap overflows (the
+    epoch reruns per position), and one per position from the start."""
+    res = {}
+    for cap in (OVERFLOW_CAP, 0):
+        t = option_trainer(tmp, "lazy", lazy_unique_cap=cap)
+        r = t.train_epoch()
+        mem, _ = t.gathered_state()
+        res[cap] = dict(per_batch=r.per_batch, overflow=r.overflow,
+                        fallback=t._lazy_fallback,
+                        params={k: v.clone() for k, v in
+                                t.params.state_dict().items()},
+                        mem={k: v.clone() for k, v in mem._asdict().items()})
+    return res
+
+
+# the options whose other paths (host backups, fit's resume) the ranks run
+PATH_OPTIONS = ("pruning", "mean", "graph_attention")
+
+
+def sc_rows_paths(tmp: str) -> dict:
+    """Each option of :data:`PATH_OPTIONS` over 2 ranks: validate() and
+    test() from one train-end state under each backup protocol, and a
+    2-epoch ``fit`` against a 1-epoch fit resumed from its state file."""
+    res = {}
+    for name in PATH_OPTIONS:
+        t = option_trainer(tmp, name, host_backup=False)
+        t.train_epoch()
+        path = os.path.join(tmp, f"{name}_paths.state.ckpt")
+        t.save_state(path)
+        backups = {}
+        for host in (False, True):
+            if host:
+                t.host_backup = True
+                t.restore_state(path)
+            phases = (*t.validate(), *t.test())
+            mem, _ = t.gathered_state()
+            backups[host] = dict(per_batch=[p.per_batch for p in phases],
+                                 mem={k: v.clone() for k, v in
+                                      mem._asdict().items()})
+        kw = dict(n_epoch=2, patience=5, state_every=1)
+        full = option_trainer(os.path.join(tmp, f"{name}_a"), name, **kw)
+        ref = full.fit()
+        half = option_trainer(os.path.join(tmp, f"{name}_b"), name, **kw)
+        half.fit(n_epoch=1)
+        state = os.path.join(half.cfg.checkpoint_dir,
+                             half.cfg.run_name() + ".state.ckpt")
+        resumed = option_trainer(os.path.join(tmp, f"{name}_b"), name, **kw)
+        out = resumed.fit(resume_from=state)
+        same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+        res[name] = dict(
+            backups=backups, ref=ref, out=out,
+            params_equal=same(full.params.parameters(),
+                              resumed.params.parameters()),
+            mem_equal=same(full.gathered_state()[0],
+                           resumed.gathered_state()[0]))
+    return res
+
+
+def replay_embeddings(t: Trainer) -> dict:
+    """The node-classification replay's source embeddings of the train,
+    val and test streams, from fresh tables at full N (the valid events')."""
+    mem, index = t._fresh_state(whole=True)
+    out = {}
+    for name in ("train", "val", "test"):
+        ps = t._streams[name]
+        mem, index, e, _ = collect_source_embeddings(
+            t.cfg, t.params, mem, index, t.edge_feats, ps)
+        out[name] = e[torch.from_numpy(ps.host["valid"])].clone()
+    return out
+
+
+def sc_rows_node(tmp: str) -> dict:
+    """``--task node`` on 2 ranks: the replay's embeddings from JAX's
+    params, then a train epoch and the node-classification protocol."""
+    t = option_trainer(tmp, "node", label_users_frac=NODE_LABELS)
+    embs = replay_embeddings(t)
+    t.train_epoch()
+    aucs = run_node_classification(t, n_steps=NODE_STEPS)
+    return dict(embs=embs, aucs=aucs, local_rows=t.mem.memory.shape[0],
+                params={k: v.clone() for k, v in
+                        t.params.state_dict().items()})
 
 
 def fail_on_rank_one() -> None:

@@ -195,13 +195,11 @@ class Config:
                 "node rows over the devices): " + ", ".join(bad)
             )
         n_dev = int(self.n_devices)
-        if n_seeds == 1 and (n_dev > 1 or int(self.dist_num_processes) > 1):
-            self.check_row_sharded()
-            if n_dev > 1 and self.bs % n_dev:
-                raise ValueError(
-                    f"bs ({self.bs}) must be a multiple of the mesh size "
-                    f"({n_dev}): each rank takes an equal block of every "
-                    "batch's events")
+        if n_seeds == 1 and n_dev > 1 and self.bs % n_dev:
+            raise ValueError(
+                f"bs ({self.bs}) must be a multiple of the mesh size "
+                f"({n_dev}): each rank takes an equal block of every "
+                "batch's events")
         if n_dev > 1 and n_seeds > 1 and n_seeds % n_dev:
             raise ValueError(
                 f"parallel_runs ({n_seeds}) must be a multiple of the mesh "
@@ -223,34 +221,6 @@ class Config:
             raise ValueError(
                 f"n_head={self.n_head} must divide the attention query width "
                 f"node_dim + time_dim = {q_dim}")
-
-    def check_row_sharded(self) -> None:
-        """Refuse what the row-sharded layout (one seed's node rows over
-        the devices) does not carry yet: it runs the streaming diffusion
-        tower with the ``last`` aggregator, identity messages from memory
-        and per-position lazy updates, for link prediction."""
-        outside = {
-            "tppr_strategy": self.tppr_strategy != "streaming",
-            "embedding_module": self.embedding_module != "diffusion",
-            "aggregator": self.aggregator != "last",
-            "message_function": self.message_function != "identity",
-            "use_source_embedding_in_message":
-                self.use_source_embedding_in_message,
-            "use_destination_embedding_in_message":
-                self.use_destination_embedding_in_message,
-            "lazy_unique_cap": int(self.lazy_unique_cap) != 0,
-            "task": self.task != "link",
-        }
-        bad = [f"{k}={getattr(self, k)!r}" for k, v in outside.items() if v]
-        if bad:
-            raise ValueError(
-                "outside the ported slice under row sharding (one seed over "
-                "--n_devices D: the streaming diffusion tower, last "
-                "aggregator, identity messages from memory, per-position "
-                "lazy updates, link prediction; the pruning strategy, the "
-                "other towers, mean, mlp, embedding-sourced messages, "
-                "lazy_unique_cap and --task node under row sharding are the "
-                "next slice): " + ", ".join(bad))
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "Config":

@@ -14,7 +14,10 @@ Train mode reads memory lazily: every gathered row with a pending message
 passes through the updater cell (:func:`lazy_rows`), without committing.
 
 Each hop queries the adjacency index (``index/neighbor_finder.py``) at the
-neighbors' own edge times. Seed-parallel tables (``offs``, i64 [S]: lane s
+neighbors' own edge times. A recursive tower is two parts: the hop tree
+(:func:`hop_tree`: ids, edge ids, times and valid flags per level) and the
+combine over a function that returns a level's rows (:func:`combine_tree`),
+which one process and a row-sharded block (its fetched rows) share. Seed-parallel tables (``offs``, i64 [S]: lane s
 owns rows [s·N, (s+1)·N)) move the memory gathers into each lane's rows,
 while the adjacency lookups keep raw node ids: the index is shared by the
 lanes. All lanes' roots of a hop take one lookup.
@@ -25,7 +28,7 @@ messages read the zero row 0 instead."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -74,6 +77,98 @@ def _rows(cfg: Config, params, mem: MemoryState, nodes, train: bool, offs):
     return lazy_rows(cfg, params, mem, ids) if train else mem.memory[ids]
 
 
+class Hop(NamedTuple):
+    """One level of a recursive tower's hop tree: level 0 holds the roots,
+    level l the ``n_degree`` most recent neighbors of each node of level
+    l − 1, at that node's time, flat in parent-major order."""
+
+    nodes: torch.Tensor                    # [..., Q_l] node ids
+    times: torch.Tensor                    # [..., Q_l] the nodes' times
+    eidx: Optional[torch.Tensor] = None    # [..., Q_{l-1}, n] the edge from
+                                           # the parent (None at level 0)
+    valid: Optional[torch.Tensor] = None   # [..., Q_{l-1}, n]
+
+
+def hop_tree(cfg: Config, nbr_index: NeighborIndex, nodes: torch.Tensor,
+             times: torch.Tensor) -> List[Hop]:
+    """The ``n_layer`` + 1 levels of the hop tree of roots ``nodes`` at
+    ``times`` ([..., Q], ``times`` broadcast to the roots): each hop
+    queries the adjacency index at the neighbors' own edge times. Invalid
+    slots hold node 0 at time 0."""
+    if nodes.dim() > times.dim():
+        times = times.expand(nodes.shape)
+    n = cfg.n_degree
+    tree = [Hop(nodes, times)]
+    for _ in range(cfg.n_layer):
+        nodes, times = tree[-1].nodes, tree[-1].times
+        hop = nodes.shape + (n,)
+        nbr, eidx, nts, valid = (
+            x.reshape(hop) for x in most_recent_neighbors(
+                nbr_index, nodes.reshape(-1), times.reshape(-1), n)[:4])
+        flat = nodes.shape[:-1] + (-1,)
+        tree.append(Hop(nbr.reshape(flat), nts.reshape(flat), eidx, valid))
+    return tree
+
+
+def combine_tree(cfg: Config, params, edge_feats: torch.Tensor,
+                 tree: Sequence[Hop],
+                 rows: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> torch.Tensor:
+    """graph_attention / graph_sum over a :func:`hop_tree`: ``rows`` maps a
+    level's node ids to their memory rows (gathered level by level from the
+    roots down), then each layer combines a level's rows with its children's
+    embeddings from the deepest level up → the roots' [..., Q, node_dim]."""
+    basis = time_basis(cfg.time_dim, edge_feats.device)
+    last_edge = edge_feats.shape[0] - 1
+    feats = [rows(h.nodes) for h in tree]
+    emb = feats[-1]
+    for d in range(len(tree) - 2, -1, -1):
+        layer = len(tree) - 1 - d
+        parent, child = tree[d], tree[d + 1]
+        hop = child.valid.shape
+        nbr_emb = emb.reshape(emb.shape[:-2] + hop[-2:]
+                              + emb.shape[-1:])               # [.., Q, n, D]
+        te_src = time_encode(torch.zeros_like(parent.times),
+                             basis)                           # [.., Q, Dt]
+        te_nbr = time_encode(parent.times[..., None]
+                             - child.times.reshape(hop), basis)
+        ef = edge_feats[child.eidx.clamp(max=last_edge)]      # [.., Q, n, De]
+        emb = _layer(cfg, params, layer, feats[d], te_src, nbr_emb, te_nbr,
+                     ef, child.valid)
+    return emb
+
+
+def _layer(cfg: Config, params, layer: int, feats, te_src, nbr_emb, te_nbr,
+           ef, valid) -> torch.Tensor:
+    """One recursive layer: a node's row ``feats`` with its neighbors'
+    embeddings."""
+    if cfg.embedding_module == "graph_attention":
+        return attention_layer_apply(
+            params[f"attn_{layer - 1}"], feats, te_src, nbr_emb, te_nbr, ef,
+            valid, cfg.n_head)
+    p1, p2 = params[f"sum_fc1_{layer - 1}"], params[f"sum_fc2_{layer - 1}"]
+    lead = nbr_emb.shape[:-1]
+    nbr_in = torch.cat([nbr_emb.float(),
+                        te_nbr.expand(lead + te_nbr.shape[-1:]),
+                        ef.expand(lead + ef.shape[-1:])], dim=-1)
+    h = add_bias(matmul(nbr_in, p1["w"]), p1["b"])
+    h = torch.where(valid[..., None], h, 0.0)
+    nbr_sum = torch.relu(h.sum(-2))                           # [.., Q, D]
+    src_in = torch.cat([nbr_sum, feats.float(),
+                        te_src.expand(feats.shape[:-1]
+                                      + te_src.shape[-1:])], dim=-1)
+    return add_bias(matmul(src_in, p2["w"]), p2["b"])
+
+
+def tree_embed(cfg: Config, params, mem: MemoryState,
+               edge_feats: torch.Tensor, tree: Sequence[Hop], train: bool,
+               offs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`combine_tree` over the rows of ``mem`` (lazily updated in
+    train mode)."""
+    return combine_tree(cfg, params, edge_feats, tree,
+                        lambda ids: _rows(cfg, params, mem, ids, train, offs))
+
+
 def recursive_embed(cfg: Config, params, mem: MemoryState,
                     edge_feats: torch.Tensor, nbr_index: NeighborIndex,
                     nodes: torch.Tensor, times: torch.Tensor, train: bool,
@@ -81,44 +176,8 @@ def recursive_embed(cfg: Config, params, mem: MemoryState,
     """graph_attention / graph_sum embeddings of ``nodes`` [Q] at ``times``
     [Q] → [Q, node_dim] f32. Seed-parallel (``offs``, stacked params):
     ``nodes`` [S, Q] per lane or [Q] shared, ``times`` [Q] → [S, Q, D]."""
-    basis = time_basis(cfg.time_dim, edge_feats.device)
-    n, last_edge = cfg.n_degree, edge_feats.shape[0] - 1
-
-    def level(nodes, times, layer):
-        feats = _rows(cfg, params, mem, nodes, train, offs)
-        if layer == 0:
-            return feats
-        hop = nodes.shape + (n,)
-        nbr, eidx, nts, valid = (
-            x.reshape(hop) for x in most_recent_neighbors(
-                nbr_index, nodes.reshape(-1), times.reshape(-1), n)[:4])
-        flat = nodes.shape[:-1] + (-1,)
-        nbr_emb = level(nbr.reshape(flat), nts.reshape(flat), layer - 1)
-        nbr_emb = nbr_emb.reshape(nbr_emb.shape[:-2] + hop[-2:]
-                                  + nbr_emb.shape[-1:])      # [.., Q, n, D]
-        te_src = time_encode(torch.zeros_like(times), basis)  # [.., Q, Dt]
-        te_nbr = time_encode(times[..., None] - nts, basis)   # [.., Q, n, Dt]
-        ef = edge_feats[eidx.clamp(max=last_edge)]            # [.., Q, n, De]
-        if cfg.embedding_module == "graph_attention":
-            return attention_layer_apply(
-                params[f"attn_{layer - 1}"], feats, te_src, nbr_emb, te_nbr,
-                ef, valid, cfg.n_head)
-        p1, p2 = params[f"sum_fc1_{layer - 1}"], params[f"sum_fc2_{layer - 1}"]
-        lead = nbr_emb.shape[:-1]
-        nbr_in = torch.cat([nbr_emb.float(),
-                            te_nbr.expand(lead + te_nbr.shape[-1:]),
-                            ef.expand(lead + ef.shape[-1:])], dim=-1)
-        h = add_bias(matmul(nbr_in, p1["w"]), p1["b"])
-        h = torch.where(valid[..., None], h, 0.0)
-        nbr_sum = torch.relu(h.sum(-2))                       # [.., Q, D]
-        src_in = torch.cat([nbr_sum, feats.float(),
-                            te_src.expand(feats.shape[:-1]
-                                          + te_src.shape[-1:])], dim=-1)
-        return add_bias(matmul(src_in, p2["w"]), p2["b"])
-
-    if nodes.dim() > times.dim():
-        times = times.expand(nodes.shape)
-    return level(nodes, times, cfg.n_layer)
+    return tree_embed(cfg, params, mem, edge_feats,
+                      hop_tree(cfg, nbr_index, nodes, times), train, offs)
 
 
 def time_embed(cfg: Config, params, mem: MemoryState, nodes: torch.Tensor,

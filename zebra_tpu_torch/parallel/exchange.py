@@ -16,8 +16,9 @@ exchange offers:
   host and nothing is summed: the packed index rows carry ids as f32 bits,
   which a sum with zeros could change.
 - :meth:`RowExchange.send`: rows written at their owners. Every rank's
-  rows cross in one ``all_gather``; each owner copies in the ones it owns,
-  which the caller names (the write set is known on the host).
+  rows cross in one ``all_gather`` (:meth:`RowExchange.gather_rows`); each
+  owner copies in the ones it owns, which the caller names (the write set
+  is known on the host).
 - :meth:`RowExchange.all_reduce_` of the gradients, and
   :meth:`RowExchange.all_gather` of a phase's scores.
 
@@ -30,7 +31,9 @@ two ranks on one device). Gloo takes the CUDA tensors as they are (torch
 replaced by the other.
 
 Every call counts its bytes (the collective's output on this rank) and its
-host seconds by kind (:attr:`RowExchange.stats`). A collective on CUDA
+host seconds by kind (:attr:`RowExchange.stats`), and a fetch the ids it
+moved beside the ids they stand for where the caller made them distinct
+(:attr:`RowExchange.ids`). A collective on CUDA
 tensors waits for the device work queued before it, and for the slowest
 rank, so those seconds hold both besides the transfer."""
 
@@ -39,7 +42,7 @@ from __future__ import annotations
 import logging
 import socket
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -105,12 +108,14 @@ class RowExchange:
             self.group = None
         # kind → [calls, bytes, seconds]
         self.stats: Dict[str, List[float]] = {}
+        # a fetch's kind → [ids fetched, ids they stand for]
+        self.ids: Dict[str, List[int]] = {}
         logger.info("row exchange: %d ranks on %d host(s), %s backend, "
                     "%d node rows per rank", mesh.size, self.hosts,
                     self.backend, self.rows)
 
     def reset_stats(self) -> None:
-        self.stats = {}
+        self.stats, self.ids = {}, {}
 
     def _count(self, kind: str, nbytes: int, t0: float) -> None:
         s = self.stats.setdefault(kind, [0, 0, 0.0])
@@ -119,12 +124,13 @@ class RowExchange:
         s[2] += time.perf_counter() - t0
 
     def fetch(self, tables: Sequence[torch.Tensor], ids: torch.Tensor,
-              kind: str) -> List[torch.Tensor]:
+              kind: str, named: Optional[int] = None) -> List[torch.Tensor]:
         """This rank's rows of the global node ids ``ids`` from every
         table of ``tables`` (this rank's shards, [N/D, ...] each): ``ids``
         [L] the same on every rank, or [D, L] with rank j's ids in row j
         (this rank's are row ``rank``). Returns one [L, ...] tensor per
-        table."""
+        table. ``named``, where the caller made ``ids`` distinct, is the
+        count of ids it stands for (:attr:`ids`)."""
         t0 = time.perf_counter()
         d = self.mesh.size
         same = ids.dim() == 1
@@ -143,7 +149,22 @@ class RowExchange:
             n, device=ids.device)
         rows = _unpack(out.index_select(0, pick), tables)
         self._count(kind, out.numel(), t0)
+        counts = self.ids.setdefault(kind, [0, 0])
+        counts[0] += ids.numel()
+        counts[1] += ids.numel() if named is None else int(named)
         return rows
+
+    def gather_rows(self, values: Sequence[torch.Tensor],
+                    kind: str) -> List[torch.Tensor]:
+        """Every rank's rows ``values`` ([n, ...] per table, n the same on
+        every rank) → [D·n, ...] per table, in rank order."""
+        t0 = time.perf_counter()
+        buf = _pack(values)
+        out = torch.empty((self.mesh.size * buf.shape[0], buf.shape[1]),
+                          dtype=torch.uint8, device=buf.device)
+        _all_gather(out, buf, group=self.group)
+        self._count(kind, out.numel(), t0)
+        return _unpack(out, values)
 
     def send(self, tables: Sequence[torch.Tensor],
              values: Sequence[torch.Tensor], take: torch.Tensor,
@@ -153,15 +174,9 @@ class RowExchange:
         entries of every rank's rows, flat in rank order (D·n), that this
         rank owns, and ``rows`` [m] their local row ids in ``tables``
         (copied in place, each row once)."""
-        t0 = time.perf_counter()
-        buf = _pack(values)
-        out = torch.empty((self.mesh.size * buf.shape[0], buf.shape[1]),
-                          dtype=torch.uint8, device=buf.device)
-        _all_gather(out, buf, group=self.group)
-        got = _unpack(out.index_select(0, take), tables)
+        got = self.gather_rows(values, kind)
         for t, v in zip(tables, got):
-            t.index_copy_(0, rows, v)
-        self._count(kind, out.numel(), t0)
+            t.index_copy_(0, rows, v.index_select(0, take))
 
     def all_reduce_(self, t: torch.Tensor, kind: str) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; every rank gets the same

@@ -70,8 +70,10 @@ same on every rank. A wave's rows come through the row exchange
 (``parallel/exchange.py``), every rank merges every lane and writes the
 rows it owns; the batches run block by block (``run_phase_rows``: rank r
 takes the events [r·b/D, (r+1)·b/D) of each batch), with the gradients
-summed over the ranks. The index and the memory tables, gathered, are
-those of one process. With owner-aligned waves (``--owner_aligned_waves``;
+summed over the ranks; under pruning and the recursive towers every rank
+holds the adjacency indices whole and searches them for the whole batch.
+Every option of one process runs so. The index and the memory tables,
+gathered, are those of one process. With owner-aligned waves (``--owner_aligned_waves``;
 auto: on where the ranks span more than one host,
 :func:`resolve_owner_aligned`) the scheduler puts an edge in its source
 owner's lane block, and the id interleave (``--interleave_node_ids``;
@@ -122,7 +124,12 @@ from zebra_tpu_torch.index.streaming import (
 )
 from zebra_tpu_torch.index.waves import WavePlan, plan_waves, wave_scan_chunk
 from zebra_tpu_torch.models.memory import MemoryState, init_memory
-from zebra_tpu_torch.train.memory_budget import check_memory_budget
+from zebra_tpu_torch.train.memory_budget import (
+    adjacency_bytes,
+    check_memory_budget,
+    fetch_bytes,
+    replay_bytes,
+)
 from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
@@ -250,7 +257,6 @@ class Trainer:
         self.exchange: Optional[RowExchange] = None
         self._rows = n_nodes
         if mesh.size > 1 and cfg.n_seeds == 1:
-            cfg.check_row_sharded()
             if cfg.bs % mesh.size:
                 raise ValueError(
                     f"bs ({cfg.bs}) must be a multiple of the mesh size "
@@ -374,8 +380,11 @@ class Trainer:
         # validate/test's table backups in host memory, or on the device
         # (host_backup None: the guard decides); the host buffers are
         # pinned on a card, made at the first validate and reused
-        self.host_backup = check_memory_budget(cfg, n_seeds, dev,
-                                               self._rows)
+        world = mesh.size if self.exchange is not None else 1
+        self.host_backup = check_memory_budget(
+            cfg, n_seeds, dev, self._rows,
+            adjacency_bytes(self.train_nbr_index, self.full_nbr_index)
+            + fetch_bytes(cfg, world) + replay_bytes(cfg, world))
         self._host_tables: Dict[str, MemoryState] = {}
         self.host_copy_seconds = 0.0
         self.mem, self.index_state = self._fresh_state()
@@ -432,18 +441,21 @@ class Trainer:
 
     # ---------------------------------------------------------------- helpers
 
-    def _fresh_state(self) -> Tuple[MemoryState, Optional[TpprState]]:
+    def _fresh_state(self, whole: bool = False
+                     ) -> Tuple[MemoryState, Optional[TpprState]]:
         """Zeroed memory (S·N flat rows for S seeds; a row-sharded rank's
-        N/D) and an empty index (None where no T-PPR index is kept: the
-        pruning strategy and the towers other than diffusion)."""
+        N/D, or all N rows of one seed under ``whole``) and an empty index
+        (None where no T-PPR index is kept: the pruning strategy and the
+        towers other than diffusion)."""
         cfg = self.cfg
-        mem = init_memory(self._rows * self._n_seeds, cfg.memory_dim,
-                          cfg.msg_table_dim,
+        rows = cfg.n_nodes if whole else self._rows
+        mem = init_memory(rows * (1 if whole else self._n_seeds),
+                          cfg.memory_dim, cfg.msg_table_dim,
                           torch_dtype(cfg.message_dtype),
                           torch_dtype(cfg.memory_dtype), device=self.device)
         if not cfg.keeps_tppr_index:
             return mem, None
-        return mem, init_tppr_state(cfg.n_tppr, self._rows, cfg.topk,
+        return mem, init_tppr_state(cfg.n_tppr, rows, cfg.topk,
                                     device=self.device)
 
     def _neg_ids(self, negs: np.ndarray) -> np.ndarray:
@@ -577,15 +589,17 @@ class Trainer:
                 plans = self._wave_plans(name, negs, chunks)
             if row_sharded:
                 row_plans = self._row_plans(name, negs, chunks)
-        elif wave_scan:
-            if name not in self._eval_plans:
-                self._eval_plans[name] = self._wave_plans(
-                    name, ps.host["neg"], range(ps.n_chunks))
-                if row_sharded:
+        else:
+            if wave_scan:
+                if name not in self._eval_plans:
+                    self._eval_plans[name] = self._wave_plans(
+                        name, ps.host["neg"], range(ps.n_chunks))
+                plans = self._eval_plans[name]
+            if row_sharded:
+                if name not in self._eval_row_plans:
                     self._eval_row_plans[name] = self._row_plans(
                         name, ps.host["neg"], range(ps.n_chunks))
-            plans = self._eval_plans[name]
-            row_plans = self._eval_row_plans.get(name)
+                row_plans = self._eval_row_plans[name]
         # the wave plans' host time; the BFS calls add theirs below
         t_index = time.perf_counter() - t0 if wave_scan else 0.0
 
@@ -617,7 +631,7 @@ class Trainer:
                     run_cfg, train, self.params, self.optimizer, self.mem,
                     self.edge_feats, cs, queries, batches, row_plans[ci],
                     self.exchange, self._dropout if train else None, marks,
-                    name))
+                    name, bfs_s, nbr_index, overflow))
             else:
                 metrics.append(run_phase(
                     run_cfg, train, self.params, self.optimizer, self.mem,

@@ -32,7 +32,12 @@ A rank of a row-sharded run (one seed over D ranks) holds N/D rows of
 the tables and of the index, and the guard counts those (as the JAX guard
 counts ``ceil(N/D)``, ``zebra_tpu/train/loop.py:607-622``); a batch block
 of b/D events holds about 1/D of a seed's batch activations, which the
-guard still counts whole (not measured per block).
+guard still counts whole (not measured per block). Besides, every rank
+holds whole what the caller counts as ``extra`` bytes: the adjacency
+indices of the pruning strategy and the recursive towers
+(:func:`adjacency_bytes`, one process too), a row-sharded recursive
+tower's per-batch fetch at the largest batch (:func:`fetch_bytes`), and
+``--task node``'s replay at full N (:func:`replay_bytes`).
 
 ``host_backup`` None picks the host protocol when only it fits; a
 protocol that does not fit raises "HBM budget exceeded" (the JAX
@@ -46,7 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from zebra_tpu_torch.config import Config, torch_dtype
+from zebra_tpu_torch.config import RECURSIVE, Config, torch_dtype
 
 logger = logging.getLogger("zebra_tpu_torch")
 
@@ -78,6 +83,33 @@ def index_bytes(cfg: Config, n_rows: Optional[int] = None) -> int:
     return rows * cfg.n_tppr * (4 * cfg.topk + 1) * 4
 
 
+def adjacency_bytes(*indices) -> int:
+    """Device bytes of adjacency indices (``NeighborIndex``; None counts
+    0)."""
+    return sum(x.numel() * x.element_size() for ix in indices
+               if ix is not None
+               for x in (ix.arena, ix.offsets, ix.keys, ix.times))
+
+
+def fetch_bytes(cfg: Config, world: int) -> int:
+    """A row-sharded recursive tower's fetch of one batch at its largest:
+    the packed request and the received rows, D·L rows each, where a block
+    names at most L = 3b/D·(1 + n + … + n^L) distinct ids (0 for one rank
+    or another tower)."""
+    if world <= 1 or cfg.embedding_module not in RECURSIVE:
+        return 0
+    ids = 3 * cfg.bs * sum(cfg.n_degree ** h for h in range(cfg.n_layer + 1))
+    return 2 * ids * row_bytes(cfg)
+
+
+def replay_bytes(cfg: Config, world: int) -> int:
+    """``--task node`` on a row-sharded rank: the replay's fresh tables and
+    index at full N (0 for one rank or link prediction)."""
+    if world <= 1 or cfg.task != "node":
+        return 0
+    return cfg.n_nodes * row_bytes(cfg) + index_bytes(cfg)
+
+
 class Budget(NamedTuple):
     tables: int       # S_local · rows · per_row
     device: float     # the device protocol's estimate
@@ -95,32 +127,34 @@ class Budget(NamedTuple):
 
 
 def budget(cfg: Config, s_local: int, free_bytes: int,
-           n_rows: Optional[int] = None) -> Budget:
+           n_rows: Optional[int] = None, extra: int = 0) -> Budget:
     """The estimates of ``s_local`` lanes of ``n_rows`` rows each (all
-    ``cfg.n_nodes``; a row-sharded rank's N/D) against ``free_bytes`` of
-    device memory."""
+    ``cfg.n_nodes``; a row-sharded rank's N/D), with ``extra`` bytes held
+    throughout, against ``free_bytes`` of device memory."""
     rows = cfg.n_nodes if n_rows is None else n_rows
     tables = s_local * rows * row_bytes(cfg)
     rest = (INDEX_COPIES * index_bytes(cfg, rows) + LANE_BATCH_BYTES * s_local
-            + FLUSH_ROW_BYTES * rows)
+            + FLUSH_ROW_BYTES * rows + extra)
     return Budget(tables, DEVICE_COPIES * tables + rest,
                   HOST_COPIES * tables + rest, USABLE_SHARE * free_bytes)
 
 
 def check_memory_budget(cfg: Config, s_local: int, device,
-                        n_rows: Optional[int] = None) -> bool:
+                        n_rows: Optional[int] = None,
+                        extra: int = 0) -> bool:
     """Whether validate() and test() keep their table backups in host
     memory: ``cfg.host_backup``, or where it is None, whether only the host
     protocol fits. Raises where the protocol chosen does not fit the free
     memory of ``device``; on the CPU returns ``bool(cfg.host_backup)``.
     ``n_rows`` is the node rows of a lane on this device (a row-sharded
-    rank's N/D; all N by default)."""
+    rank's N/D; all N by default), ``extra`` the bytes held whole besides
+    (module docstring)."""
     device = torch.device(device)
     if device.type != "cuda":
         return bool(cfg.host_backup)
     free, total = torch.cuda.mem_get_info(device)
     rows = cfg.n_nodes if n_rows is None else n_rows
-    b = budget(cfg, s_local, free, rows)
+    b = budget(cfg, s_local, free, rows, extra)
     decision = b.decide(cfg.host_backup)
     gib = lambda x: x / 2**30
     if decision == "refused":
@@ -132,7 +166,8 @@ def check_memory_budget(cfg: Config, s_local: int, device,
             f"on {device} ({s_local} seed(s) × {rows} rows × "
             f"{row_bytes(cfg)} B, ×{copies} for the val/test backup "
             f"protocol, + the batches' activations, a flush's scratch and "
-            f"the index ×{INDEX_COPIES})"
+            f"the index ×{INDEX_COPIES}, {gib(extra):.2f} GiB held whole: "
+            f"adjacency, fetch, replay)"
             f" against a usable "
             f"~{gib(b.usable):.1f} GiB of {gib(free):.1f} GiB free "
             f"({gib(total):.1f} GiB on the card). Reduce --parallel_runs, "

@@ -200,15 +200,22 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
     labels and scored by ROC-AUC on all three streams. The replay's index
     waves count into ``trainer.index_waves``; under the pruning strategy,
     and for the recursive towers, the replay queries the train graph on the
-    train stream and the full graph on the val and test streams. A seed-parallel Trainer is
-    refused: the decoder consumes one model's embeddings."""
+    train stream and the full graph on the val and test streams. A
+    row-sharded Trainer replays on every rank at full N from fresh tables,
+    as JAX's replay runs on one device whatever the mesh: the same waves
+    as one process, no exchange, the rank's (permuted, under the
+    interleave) streams and replicated params, so every rank returns the
+    same AUCs. A seed-parallel Trainer is refused: the decoder consumes one
+    model's embeddings."""
     cfg = trainer.cfg
     if cfg.n_seeds > 1:
         raise ValueError(
             "node classification runs on a single-seed Trainer — slice one "
             "seed first (serve.LinkPredictor.from_checkpoint(run_index=...) "
             "semantics)")
-    mem, index_state = trainer._fresh_state()
+    # a row-sharded Trainer's ranks each replay at full N in one process,
+    # with the replicated params: every rank computes the same AUCs
+    mem, index_state = trainer._fresh_state(whole=True)
     nbr_index = {"train": trainer.train_nbr_index,
                  "val": trainer.full_nbr_index,
                  "test": trainer.full_nbr_index}

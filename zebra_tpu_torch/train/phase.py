@@ -27,13 +27,18 @@ dropout masks are drawn lane by lane, from each seed's generator.
 Row-sharded (one seed, its node rows split over D ranks:
 :func:`run_phase_rows`, the counterpart of the JAX package's row-sharded
 phases with ``shard_batch``'s ``P('data')``): rank r takes the event block
-[r·b/D, (r+1)·b/D) of each batch. It fetches the rows its block reads (the
-block's nodes and their T-PPR neighbors) through the row exchange
-(``parallel/exchange.py``) into a small table of its own, runs the towers
-and the memory protocol on that table, and sends the rows whose write it
-wins to their owners. The gradients are summed over the ranks before one
-Adam step, the same on every rank; the scores cross once, at the phase's
-end, where the metrics are computed as in one process."""
+[r·b/D, (r+1)·b/D) of each batch. It fetches the rows its block reads
+through the row exchange (``parallel/exchange.py``) into a small table of
+its own: the block's nodes and their T-PPR neighbors (the streaming
+extraction rows, or one BFS over the whole batch's roots on every rank),
+the distinct ids of the block's hop tree (the recursive towers, the whole
+batch's tree built on every rank), or the block's nodes alone (the
+memory-only towers). It runs the towers and the memory protocol on that
+table and sends the rows whose write it wins to their owners; under
+``mean`` every block's message rows cross whole and each owner adds its
+senders' in batch order. The gradients are summed over the ranks before
+one Adam step, the same on every rank; the scores cross once, at the
+phase's end, where the metrics are computed as in one process."""
 
 from __future__ import annotations
 
@@ -44,21 +49,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.config import RECURSIVE, Config
 from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
 from zebra_tpu_torch.index.pruning import pruned_topk
 from zebra_tpu_torch.index.streaming import TpprQueries, unpack_queries
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import BlockMasks
 from zebra_tpu_torch.ops.metrics import masked_ap, masked_auc, masked_rank_acc
-from zebra_tpu_torch.models.embedding import lane_ids
+from zebra_tpu_torch.models.embedding import (
+    Hop,
+    hop_tree,
+    lane_ids,
+    tree_embed,
+)
 from zebra_tpu_torch.train.step import (
     _commit_pending,
     _forward,
     _masked_mean,
     _scores,
     _store_messages,
+    accumulate_messages,
+    block_lazy_plan,
     eval_protocol,
+    stored_messages,
     train_plan,
 )
 
@@ -309,12 +322,18 @@ class RowPlan(NamedTuple):
                               # distinct node ids, padded with 0
     inv: torch.Tensor         # i64 [n_batches, 3b'] this rank's query rows
                               # → their place among its distinct ids
-    send: torch.Tensor        # i64 [n_batches, 2b'] the places of the rows
-                              # whose write this rank wins (padded with 0)
+    send: torch.Tensor        # i64 [n_batches, 2b'] the block positions
+                              # (src then dst) of the rows whose write this
+                              # rank wins (padded with 0)
     take: torch.Tensor        # i64 [m] the entries of every rank's sent
                               # rows (D·2b' per batch) that this rank owns
     rows: torch.Tensor        # i64 [m] their local row ids
     bounds: Tuple[int, ...]   # batch i: take/rows[bounds[i]:bounds[i + 1]]
+    acc: torch.Tensor         # i64 [a] the batch positions (cat([src, dst])
+                              # order) of the valid messages whose sender
+                              # this rank owns, ascending
+    acc_rows: torch.Tensor    # i64 [a] their senders' local row ids
+    acc_bounds: Tuple[int, ...]  # batch i: acc[acc_bounds[i]:…[i + 1]]
 
 
 def plan_rows(src, dst, neg, valid, b: int, world: int, rank: int,
@@ -324,13 +343,16 @@ def plan_rows(src, dst, neg, valid, b: int, world: int, rank: int,
     and dst of its valid events), each from the last valid position that
     names it (``cat([src, dst])`` order: the last-wins message and, since
     every sender is a committed positive, the row's every column); the
-    rank whose block holds that position sends the row."""
+    rank whose block holds that position sends the row. Under ``mean``
+    every valid message adds into its sender's row at the owner, in batch
+    order (``acc``)."""
     bl = b // world
     n_b = len(src) // b
     uniq = np.zeros((n_b, world, 3 * bl), np.int64)
     inv = np.zeros((n_b, 3 * bl), np.int64)
     send = np.zeros((n_b, 2 * bl), np.int64)
     take, rows, bounds = [], [], [0]
+    acc, acc_rows, acc_bounds = [], [], [0]
     for i in range(n_b):
         sl = slice(i * b, (i + 1) * b)
         s_, d_, n_ = (np.asarray(c[sl], np.int64) for c in (src, dst, neg))
@@ -343,8 +365,8 @@ def plan_rows(src, dst, neg, valid, b: int, world: int, rank: int,
             places.append(iv)
         inv[i] = places[rank]
         snd = np.concatenate([s_, d_])
-        last_first = np.flatnonzero(np.tile(np.asarray(valid[sl], bool),
-                                            2))[::-1]
+        valid2 = np.tile(np.asarray(valid[sl], bool), 2)
+        last_first = np.flatnonzero(valid2)[::-1]
         _, first = np.unique(snd[last_first], return_index=True)
         win = np.sort(last_first[first])
         event, part = win % b, win // b
@@ -355,29 +377,75 @@ def plan_rows(src, dst, neg, valid, b: int, world: int, rank: int,
             mine = sender == j
             slot[mine] = np.arange(mine.sum())
             if j == rank:
-                send[i, : mine.sum()] = places[j][at[mine]]
+                send[i, : mine.sum()] = at[mine]
         gid = snd[win]
         own = gid // rows_per_rank == rank
         take.append(sender[own] * 2 * bl + slot[own])
         rows.append(gid[own] - rank * rows_per_rank)
         bounds.append(bounds[-1] + int(own.sum()))
+        mine = np.flatnonzero(valid2 & (snd // rows_per_rank == rank))
+        acc.append(mine)
+        acc_rows.append(snd[mine] - rank * rows_per_rank)
+        acc_bounds.append(acc_bounds[-1] + len(mine))
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
         device)
     cat = lambda parts: np.concatenate(parts) if parts else np.zeros(0)
     return RowPlan(as_t(uniq), as_t(inv), as_t(send), as_t(cat(take)),
-                   as_t(cat(rows)), tuple(bounds))
+                   as_t(cat(rows)), tuple(bounds), as_t(cat(acc)),
+                   as_t(cat(acc_rows)), tuple(acc_bounds))
 
 
-def block_queries(cfg: Config, rows: torch.Tensor, t: torch.Tensor,
-                  world: int) -> TpprQueries:
-    """A batch's extraction rows [b, 3, F] → every rank's block's queries,
-    fields [D, M, 3b', k] (each block as :func:`batch_queries` lays out a
-    batch)."""
-    b = rows.shape[0]
-    bl, m, k = b // world, cfg.n_tppr, cfg.topk
-    q = unpack_queries(rows, t, m, k)                      # [b, M, 3, k]
-    return TpprQueries(*(x.reshape(world, bl, m, 3, k).permute(0, 2, 3, 1, 4)
+def split_blocks(q: TpprQueries, world: int) -> TpprQueries:
+    """A batch's queries [M, 3b, k] over the roots src‖dst‖neg → every
+    rank's block's, fields [D, M, 3b', k] (rank j's block laid out as
+    :func:`batch_queries` lays out a batch)."""
+    m, n3, k = q.nbr.shape
+    bl = n3 // (3 * world)
+    return TpprQueries(*(x.reshape(m, 3, world, bl, k).permute(2, 0, 1, 3, 4)
                          .reshape(world, m, 3 * bl, k) for x in q))
+
+
+def distinct_blocks(ids: torch.Tensor, n_nodes: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row of ``ids`` [D, T] (rank j's node ids in row j) → its
+    distinct ids ascending, [D, L] padded with 0 to the largest row's count
+    L (one read back), and each id's place in its row, [D, T]."""
+    d = ids.shape[0]
+    lane = torch.arange(d, device=ids.device)
+    key = ids.to(torch.int64) + n_nodes * lane[:, None]
+    u, inv = torch.unique(key, return_inverse=True)
+    blk = torch.div(u, n_nodes, rounding_mode="floor")
+    counts = torch.bincount(blk, minlength=d)
+    place = torch.arange(u.numel(), device=ids.device) - (
+        torch.cumsum(counts, 0) - counts)[blk]
+    out = torch.zeros((d, int(counts.max())), dtype=torch.int64,
+                      device=ids.device)
+    out[blk, place] = u - n_nodes * blk
+    return out, place[inv]
+
+
+def block_tree(tree: Sequence[Hop], world: int, n_nodes: int,
+               rank: int) -> Tuple[torch.Tensor, List[Hop], int]:
+    """A batch's hop tree over the roots src‖dst‖neg (:func:`hop_tree`) →
+    (every rank's block's distinct ids [D, L], this rank's block's tree
+    with its node ids as places among its distinct ids, the count of ids
+    the blocks name with duplicates)."""
+    def part(x, width):
+        # [3b·w] root-major → [D, 3b'·w]: block j's roots and their subtrees
+        return x.reshape(3, world, -1, width).transpose(0, 1).reshape(
+            world, -1)
+    levels = [part(h.nodes, 1) for h in tree]
+    sizes = [x.shape[1] for x in levels]
+    ids = torch.cat(levels, dim=1)
+    uniq, inv = distinct_blocks(ids, n_nodes)
+    local = inv[rank].split(sizes)
+    hops = [Hop(local[0], part(tree[0].times, 1)[rank])]
+    for h, nodes in zip(tree[1:], local[1:]):
+        n = h.eidx.shape[-1]
+        hops.append(Hop(nodes, part(h.times, 1)[rank],
+                        part(h.eidx, n)[rank].view(-1, n),
+                        part(h.valid, n)[rank].view(-1, n)))
+    return uniq, hops, ids.numel()
 
 
 def _all_reduce_grads(params, exchange) -> None:
@@ -390,33 +458,100 @@ def _all_reduce_grads(params, exchange) -> None:
         p.grad.copy_(g.view_as(p.grad))
 
 
+class _Block(NamedTuple):
+    """One rank's block of a row-sharded batch, fetched: its table of rows
+    and how its inputs name them."""
+
+    view: MemoryState             # the fetched rows
+    nodes: torch.Tensor           # i64 [3b'] the query rows' local rows
+    q: Optional[TpprQueries]      # diffusion: the block's queries over the
+                                  # table ([M, 3b', k])
+    every: Optional[TpprQueries]  # diffusion: the whole batch's (global ids)
+    block_nbr: Optional[torch.Tensor]  # diffusion: the block's global ids
+    tree: Optional[List[Hop]]     # recursive towers: the block's hop tree
+                                  # over the table
+
+
+def _fetch_block(cfg: Config, i: int, s: Stream, plan: RowPlan, exchange,
+                 tables, queries, alpha_beta, nbr_index, bfs_s,
+                 marks) -> _Block:
+    """The rows one block reads, fetched (every rank knows every block's
+    ids): the diffusion tower's distinct query nodes and T-PPR neighbors,
+    from the extraction rows or one BFS over the whole batch's roots; the
+    recursive towers' distinct ids of the whole batch's hop tree, per
+    block; the memory-only towers' distinct query nodes."""
+    b, world, rank = cfg.bs, exchange.mesh.size, exchange.mesh.rank
+    bl, m, k = b // world, cfg.n_tppr, cfg.topk
+    roots = torch.cat([s.src, s.dst, s.neg])
+    if not cfg.uses_tppr:
+        if cfg.embedding_module not in RECURSIVE:
+            view = MemoryState(*exchange.fetch(tables, plan.uniq[i],
+                                               "tower_fetch"))
+            return _Block(view, plan.inv[i], None, None, None, None)
+        ids, tree, named = block_tree(
+            hop_tree(cfg, nbr_index, roots, torch.cat([s.t, s.t, s.t])),
+            world, cfg.n_nodes, rank)
+        view = MemoryState(*exchange.fetch(tables, ids, "tower_fetch",
+                                           named))
+        return _Block(view, tree[0].nodes, None, None, None, tree)
+    if isinstance(queries, NeighborIndex):
+        t0 = time.perf_counter()
+        qs = pruned_queries(cfg, queries, alpha_beta, [s.src, s.dst, s.neg],
+                            s.t)
+        if bfs_s is not None:
+            bfs_s.append(time.perf_counter() - t0)
+        _mark(marks, "query")
+    else:
+        qs = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
+    qs = split_blocks(qs, world)
+    q = TpprQueries(*(x[rank] for x in qs))
+    ids = torch.cat([plan.uniq[i], qs.nbr.reshape(world, -1).to(torch.int64)],
+                    dim=1)
+    view = MemoryState(*exchange.fetch(tables, ids, "tower_fetch"))
+    # the neighbors' rows in the fetched table, after the distinct nodes
+    local = 3 * bl + torch.arange(m * 3 * bl * k, device=ids.device).view(
+        m, 3 * bl, k)
+    every = q._replace(nbr=qs.nbr.movedim(0, 1).reshape(m, -1, k))
+    return _Block(view, plan.inv[i], q._replace(nbr=local), every, q.nbr,
+                  None)
+
+
 def run_phase_rows(cfg: Config, train: bool, params, optimizer,
                    mem: MemoryState, edge_feats: torch.Tensor,
-                   stream: Stream, queries: torch.Tensor,
-                   n_valid: Sequence[int], plan: RowPlan, exchange,
-                   generator=None, marks: Optional[List] = None,
-                   phase: str = "train"
+                   stream: Stream, queries, n_valid: Sequence[int],
+                   plan: RowPlan, exchange, generator=None,
+                   marks: Optional[List] = None, phase: str = "train",
+                   bfs_s: Optional[List[float]] = None,
+                   nbr_index: Optional[NeighborIndex] = None,
+                   overflow: Optional[List] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pass of a row-sharded rank over the batches of ``stream`` (the
-    whole batches, the same on every rank) with the chunk's extraction rows
-    ``queries`` [E, 3, F] (every rank holds all of them) and the chunk's
-    :class:`RowPlan`. ``mem`` holds this rank's rows; it changes in place
-    where this rank owns a row a batch writes.
+    whole batches, the same on every rank) and the chunk's
+    :class:`RowPlan`. ``queries`` is what :func:`run_phase` takes: the
+    chunk's extraction rows [E, 3, F] (every rank holds all of them), the
+    adjacency index of the batches' BFS calls (pruning; ``bfs_s`` then
+    receives each call's host seconds), or None for the other towers, the
+    recursive ones searching ``nbr_index``. ``mem`` holds this rank's
+    rows; it changes in place where this rank owns a row a batch writes.
 
     Per batch: one ``exchange.fetch`` of the rows of every rank's block
-    (each rank knows every block's ids: the distinct query nodes from the
-    plan, the T-PPR neighbors from the extraction rows) into a table of
-    3b' + M·3b'·k rows; the towers on this rank's block over that table,
-    with the lazy-update plan made from the global ids and the dropout
-    masks of the whole batch (:class:`BlockMasks`), a query row updating
-    lazily where its node is among the whole batch's selected neighbors;
-    in training the loss
-    as this block's share of the batch's masked means (over the batch's
-    valid count), one backward, the gradients summed over the ranks, one
-    Adam step; the memory protocol of the block on the table; one
-    ``exchange.send`` of the rows this rank's block wins. ``marks`` takes
-    (part, CUDA event) pairs: "fetch", "forward", "backward", "allreduce"
-    and "adam" (train), "protocol", "send".
+    (:func:`_fetch_block`: each rank knows every block's ids) into a table
+    of its own; the towers on this rank's block over that table, with the
+    lazy-update plan made from the global ids and the dropout masks of the
+    whole batch (:class:`BlockMasks`), a query row updating lazily where
+    its node is among the whole batch's selected neighbors
+    (:func:`block_lazy_plan`, whose overflow flag, the whole batch's,
+    ``overflow`` receives); in training the loss as this block's share of
+    the batch's masked means (over the batch's valid count), one backward,
+    the gradients summed over the ranks, one Adam step; the memory
+    protocol of the block on the table, with the block's embeddings in its
+    messages under a message-source flag; one ``exchange.send`` of the
+    rows this rank's block wins. Under ``mean`` the messages cross whole:
+    every block's stored message rows are gathered, and each owner adds
+    the ones of its senders in batch order, as one process does; in eval
+    the owner then commits its senders' rows. ``marks`` takes (part, CUDA
+    event) pairs: "query" (pruning), "fetch", "forward", "backward",
+    "allreduce" and "adam" (train), "protocol", "send".
 
     Returns this block's (pos, neg) probabilities [n_batches, 2, b'] and
     its share of each batch's loss [n_batches] (0 in eval), on the
@@ -426,39 +561,43 @@ def run_phase_rows(cfg: Config, train: bool, params, optimizer,
     bcfg = cfg.single_seed().replace(bs=bl)   # the config of one block
     dev = mem.memory.device
     tables = tuple(mem)
-    m, k = cfg.n_tppr, cfg.topk
+    mean = cfg.aggregator == "mean"
+    alpha_beta = (ensemble_tensors(cfg, dev)
+                  if isinstance(queries, NeighborIndex) else None)
     mine = slice(rank * bl, (rank + 1) * bl)
     ar = torch.arange(bl, device=dev)
     # this block's rows among the batch's 3b query rows (its dropout masks)
     block_rows = torch.cat([rank * bl + ar, b + rank * bl + ar,
                             2 * b + rank * bl + ar])
-    # the neighbors' rows in the fetched table, after the distinct nodes
-    nbr_local = 3 * bl + torch.arange(m * 3 * bl * k, device=dev).view(
-        m, 3 * bl, k)
     probs, losses = [], []
     for i, nv in enumerate(n_valid):
         s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
         blk = Stream(*(x[mine] for x in s))
         valid = None if nv == b else blk.valid
-        qs = block_queries(cfg, queries[i * b: (i + 1) * b], s.t, world)
-        q = TpprQueries(*(x[rank] for x in qs))
-        ids = torch.cat([plan.uniq[i],
-                         qs.nbr.reshape(world, -1).to(torch.int64)], dim=1)
-        view = MemoryState(*exchange.fetch(tables, ids, "tower_fetch"))
+        bb = _fetch_block(cfg, i, s, plan, exchange, tables, queries,
+                          alpha_beta, nbr_index, bfs_s, marks)
+        view, nodes = bb.view, bb.nodes
         _mark(marks, "fetch")
-        nodes = plan.inv[i]
-        local_q = q._replace(nbr=nbr_local)
         src_l, dst_l = nodes[:bl], nodes[bl: 2 * bl]
+        times3 = torch.cat([blk.t, blk.t, blk.t])
+        src_emb = dst_emb = msg = None
         if train:
-            # a query row updates lazily when its node is among the whole
-            # batch's selected neighbors (the one-process membership)
-            every = q._replace(nbr=qs.nbr.movedim(0, 1).reshape(m, -1, k))
-            lazy = train_plan(cfg, every, torch.cat([blk.src, blk.dst,
-                                                     blk.neg]))
+            lazy = None
+            if cfg.uses_tppr:
+                lazy = block_lazy_plan(
+                    cfg, bb.every, torch.cat([blk.src, blk.dst, blk.neg]),
+                    bb.block_nbr, bb.q.nbr)
+                if overflow is not None:
+                    overflow.append(lazy.overflow)
             optimizer.zero_grad(set_to_none=True)
-            emb = _forward(bcfg, params, view, edge_feats, nodes, local_q,
-                           train=True, plan=lazy,
-                           generator=BlockMasks(generator, block_rows, 3 * b))
+            if bb.tree is not None:
+                emb = tree_embed(bcfg, params, view, edge_feats, bb.tree,
+                                 True)
+            else:
+                emb = _forward(
+                    bcfg, params, view, edge_feats, nodes, bb.q, train=True,
+                    plan=lazy, times=times3,
+                    generator=BlockMasks(generator, block_rows, 3 * b))
             pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
             bce = F.binary_cross_entropy_with_logits
             count = max(int(nv), 1)
@@ -474,36 +613,94 @@ def run_phase_rows(cfg: Config, train: bool, params, optimizer,
             _mark(marks, "allreduce")
             optimizer.step()
             _mark(marks, "adam")
+            if cfg.need_emb:
+                emb = emb.detach()
+                src_emb, dst_emb = emb[:bl], emb[bl: 2 * bl]
             _commit_pending(bcfg, params, view, torch.cat([src_l, dst_l]),
                             None if valid is None else torch.cat([valid,
                                                                   valid]))
-            _store_messages(bcfg, params, view, edge_feats, src_l, dst_l,
-                            blk.t, blk.eidx, valid)
+            if mean:
+                msg = stored_messages(bcfg, view, edge_feats, src_l, dst_l,
+                                      blk.t, blk.eidx, None, None, src_emb,
+                                      dst_emb)[-1]
+            else:
+                _store_messages(bcfg, params, view, edge_feats, src_l, dst_l,
+                                blk.t, blk.eidx, valid, None, src_emb,
+                                dst_emb)
             loss = loss.detach()
         else:
             with torch.no_grad():
-                emb = _forward(bcfg, params, view, edge_feats, nodes,
-                               local_q)
+                if bb.tree is not None:
+                    emb = tree_embed(bcfg, params, view, edge_feats, bb.tree,
+                                     False)
+                else:
+                    emb = _forward(bcfg, params, view, edge_feats, nodes,
+                                   bb.q, times=times3)
                 pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
-            eval_protocol(bcfg, params, view, edge_feats, src_l, dst_l,
-                          blk.t, blk.eidx, valid)
+                if cfg.need_emb:
+                    src_emb, dst_emb = emb[:bl], emb[bl: 2 * bl]
+                if mean:
+                    msg = stored_messages(bcfg, view, edge_feats, src_l,
+                                          dst_l, blk.t, blk.eidx, None, None,
+                                          src_emb, dst_emb)[-1]
+                else:
+                    eval_protocol(bcfg, params, view, edge_feats, src_l,
+                                  dst_l, blk.t, blk.eidx, valid, None,
+                                  src_emb, dst_emb)
             loss = torch.zeros((), device=dev)
         _mark(marks, "protocol")
+        if train or not mean:
+            # the rows this block wins, every column, to their owners
+            lo, hi = plan.bounds[i], plan.bounds[i + 1]
+            won = nodes.index_select(0, plan.send[i])
+            exchange.send(tables, [x.index_select(0, won) for x in view],
+                          plan.take[lo:hi], plan.rows[lo:hi], "tower_send")
+        lo, hi = plan.acc_bounds[i], plan.acc_bounds[i + 1]
+        owned = plan.acc_rows[lo:hi]
+        if mean:
+            _add_messages(exchange, mem, msg, plan.acc[lo:hi], owned, s.t,
+                          bl)
+            if not train:
+                # the eval commit reads the sums every block adds to: the
+                # owner commits its senders, over the batch's 2b positions
+                # as one process does (other ranks' rows masked out)
+                snd = torch.cat([s.src, s.dst]).to(torch.int64) - exchange.lo
+                mask = ((snd >= 0) & (snd < exchange.rows)
+                        & torch.cat([s.valid, s.valid]))
+                _commit_pending(bcfg, params, mem,
+                                torch.where(mask, snd, 0), mask)
+        _mark(marks, "send")
         if cfg.debug_nans:
             rows = torch.cat([src_l, dst_l])
+            written = ([mem.memory[owned], mem.messages[owned]] if mean
+                       else [view.memory[rows], view.messages[rows]])
             check_finite(phase, i, loss=loss,
                          logits=[pos_logit.detach(), neg_logit.detach()],
                          params=list(params.parameters()) if train else [],
-                         memory=[view.memory[rows], view.messages[rows]])
-        lo, hi = plan.bounds[i], plan.bounds[i + 1]
-        exchange.send(tables, [x.index_select(0, plan.send[i]) for x in view],
-                      plan.take[lo:hi], plan.rows[lo:hi], "tower_send")
-        _mark(marks, "send")
+                         memory=written)
         with torch.no_grad():
             probs.append(torch.stack([torch.sigmoid(pos_logit),
                                       torch.sigmoid(neg_logit)]))
         losses.append(loss)
     return torch.stack(probs), torch.stack(losses)
+
+
+@torch.no_grad()
+def _add_messages(exchange, mem: MemoryState, msg: torch.Tensor,
+                  acc: torch.Tensor, rows: torch.Tensor, t: torch.Tensor,
+                  bl: int) -> None:
+    """``mean``'s store across the blocks: every rank's stored message rows
+    [2b', W] (its block's src then dst positions) gathered, then the ones
+    at the batch positions ``acc`` (ascending, ``cat([src, dst])`` order)
+    added into this rank's rows ``rows``, in that order
+    (:func:`accumulate_messages`); ``t`` [b] the batch's event times."""
+    got, = exchange.gather_rows([msg], "msg_send")     # [D·2b', W]
+    b = t.shape[0]
+    part, event = torch.div(acc, b, rounding_mode="floor"), acc % b
+    j = torch.div(event, bl, rounding_mode="floor")
+    at = j * 2 * bl + part * bl + event - j * bl      # place in the gather
+    accumulate_messages(mem, rows, got.index_select(0, at),
+                        torch.cat([t, t]).index_select(0, acc))
 
 
 def rows_metrics(exchange, probs: torch.Tensor, losses: torch.Tensor,

@@ -29,7 +29,8 @@ The plan sorts, ranks by a cumsum and bounds the segments by a binary
 search, so every batch has the same shapes and nothing is read back; a
 batch with more distinct nodes than the cap raises the plan's
 ``overflow`` flag on the device, and the Trainer reruns the epoch per
-position.
+position. A row-sharded block plans with the whole batch's membership and
+flag and compacts its own positions (:func:`block_lazy_plan`).
 
 SEED-PARALLEL (``cfg.parallel_runs`` = S > 1; the counterpart of the JAX
 package's ``*_flat`` helpers, ``zebra_tpu/train/step.py:544-718``): the
@@ -235,7 +236,39 @@ def make_lazy_plan(cfg: Config, q: TpprQueries, nodes3) -> LazyPlan:
 
     lead = q.nbr.shape[:-3]
     ids = q.nbr.reshape(-1, n_pos).to(torch.int64)           # [L, P]
-    n_lanes, dev = ids.shape[0], ids.device
+    seg = _compaction(ids, cap)
+    nodes = nodes3.reshape(seg.uniq.shape[0], -1).to(torch.int64)
+    j3 = torch.searchsorted(seg.uniq, nodes).clamp(max=cap - 1)
+    in_sel = seg.uniq.gather(-1, j3) == nodes
+    out = dict(uniq=seg.uniq, gather_ids=torch.where(seg.live, seg.uniq, 0),
+               j3=j3, perm=seg.perm, start_pos=seg.start_pos,
+               end_pos=seg.end_pos)
+    return LazyPlan(
+        in_sel=in_sel.reshape(nodes3.shape),
+        overflow=(seg.n_unique > cap).any().float(),
+        jn=seg.jn.clamp(max=cap - 1).reshape(q.nbr.shape),
+        **{k: v.reshape(lead + v.shape[1:]) for k, v in out.items()})
+
+
+class _Segments(NamedTuple):
+    """The compaction of id lanes [L, P] at a static cap (fields [L, ·])."""
+
+    uniq: torch.Tensor        # i64 [L, cap] sorted distinct ids, BIG-padded
+    live: torch.Tensor        # bool [L, cap] the slots that hold an id
+    n_unique: torch.Tensor    # i64 [L]
+    jn: torch.Tensor          # i64 [L, P] position → slot (unclamped)
+    perm: torch.Tensor        # i64 [L, P] id-sorted positions
+    start_pos: torch.Tensor   # i64 [L, cap] segment starts
+    end_pos: torch.Tensor     # i64 [L, cap] segment ends
+
+
+def _compaction(ids: torch.Tensor, cap: int) -> _Segments:
+    """Each lane's ids sorted, their ranks from a cumsum over the new-id
+    mask, the position → slot map by inverting the sort's permutation, the
+    segment bounds by a binary search of the ranks, and the sorted distinct
+    ids padded to ``cap``."""
+    n_lanes, n_pos = ids.shape
+    dev = ids.device
     flat, perm = torch.sort(ids, dim=-1, stable=True)
     is_new = torch.ones_like(flat, dtype=torch.bool)
     is_new[:, 1:] = flat[:, 1:] != flat[:, :-1]
@@ -250,16 +283,36 @@ def make_lazy_plan(cfg: Config, q: TpprQueries, nodes3) -> LazyPlan:
     big = torch.iinfo(torch.int64).max
     uniq = torch.where(live, flat.gather(-1, start_pos.clamp(max=n_pos - 1)),
                        big)
-    nodes = nodes3.reshape(n_lanes, -1).to(torch.int64)
-    j3 = torch.searchsorted(uniq, nodes).clamp(max=cap - 1)
-    in_sel = uniq.gather(-1, j3) == nodes
-    out = dict(uniq=uniq, gather_ids=torch.where(live, uniq, 0),
-               j3=j3, perm=perm, start_pos=start_pos, end_pos=end_pos)
-    return LazyPlan(
-        in_sel=in_sel.reshape(nodes3.shape),
-        overflow=(n_unique > cap).any().float(),
-        jn=jn.clamp(max=cap - 1).reshape(q.nbr.shape),
-        **{k: v.reshape(lead + v.shape[1:]) for k, v in out.items()})
+    return _Segments(uniq, live, n_unique, jn, perm, start_pos, end_pos)
+
+
+def block_lazy_plan(cfg: Config, every: TpprQueries, nodes,
+                    block_nbr: torch.Tensor,
+                    local_nbr: torch.Tensor) -> LazyPlan:
+    """The lazy plan of one row-sharded block of a train batch. ``every``
+    holds the whole batch's queries (global ids, [M, 3b, k]) and ``nodes``
+    the block's query nodes (global ids, [3b']): the membership that gates
+    a query row's update and the overflow flag are the whole batch's, as
+    one process decides them. Compacted, the block's own selected
+    positions ``block_nbr`` (global ids, [M, 3b', k]) take the whole
+    batch's cap; each distinct id's row is the first of its positions in
+    the block's table (``local_nbr``, the positions' local rows), and the
+    query rows update per position (``j3`` None), since the cell's row of
+    a query node may lie outside the block's positions."""
+    whole = make_lazy_plan(cfg, every, nodes)
+    if whole.uniq is None:
+        return whole
+    cap = whole.uniq.shape[-1]
+    ids = block_nbr.reshape(1, -1).to(torch.int64)
+    seg = _compaction(ids, cap)
+    first = seg.perm.gather(-1, seg.start_pos.clamp(max=ids.shape[1] - 1))
+    rows = torch.where(seg.live, local_nbr.reshape(1, -1).gather(-1, first),
+                       0)
+    return LazyPlan(in_sel=whole.in_sel, overflow=whole.overflow,
+                    uniq=seg.uniq[0], gather_ids=rows[0],
+                    jn=seg.jn.clamp(max=cap - 1).reshape(block_nbr.shape),
+                    perm=seg.perm[0], start_pos=seg.start_pos[0],
+                    end_pos=seg.end_pos[0])
 
 
 def _lane_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -317,6 +370,8 @@ def _train_lazy_rows(cfg: Config, params, mem: MemoryState, nodes3,
                        torch.ones_like(plan.gather_ids, dtype=torch.bool))
     nbr_rows = DedupGather.apply(rows_u, plan.jn, plan.perm, plan.start_pos,
                                  plan.end_pos)
+    if plan.j3 is None:         # a row-sharded block (block_lazy_plan)
+        return lazy_rows(cfg, params, mem, nodes3, plan.in_sel), nbr_rows
     src_rows = torch.where(plan.in_sel[..., None],
                            _lane_gather(rows_u, plan.j3), mem.memory[nodes3])
     return src_rows, nbr_rows
@@ -476,6 +531,39 @@ def _winner_writes(snd, valid2, win):
     return snd[..., keep], keep
 
 
+def stored_messages(cfg: Config, mem: MemoryState, edge_feats, src, dst, t,
+                    eidx, valid=None, offs=None, src_emb=None, dst_emb=None):
+    """This batch's messages as the table stores them, both directions:
+    :func:`_build_messages` with the pending flag (a last column of ones)
+    in ``messages.dtype`` → (snd, t2, valid2, win, rows [2b, msg_table_dim
+    + 1])."""
+    snd, t2, valid2, win, msg = _build_messages(
+        cfg, mem, edge_feats, src, dst, t, eidx, valid, offs, src_emb,
+        dst_emb)
+    one = torch.ones(msg.shape[:-1] + (1,), dtype=msg.dtype,
+                     device=msg.device)
+    msg = torch.cat([msg, one], dim=-1).to(mem.messages.dtype)
+    return snd, t2, valid2, win, msg
+
+
+@torch.no_grad()
+def accumulate_messages(mem: MemoryState, snd, msg, t2) -> MemoryState:
+    """The ``mean`` store of stored message rows ``msg`` [..., n, W] into
+    their senders' rows ``snd`` [..., n], in place: each adds into its row
+    in the table's dtype, ``msg_count`` adds one per message and ``msg_ts``
+    keeps the newest of ``t2`` [n]. The additions of one row run in the
+    order given, on the CPU and (the sort-based ``index_put_``) on the
+    card."""
+    rows = snd.reshape(-1)
+    ones = torch.ones(rows.shape, device=rows.device)
+    mem.messages.index_put_((rows,), msg.reshape(-1, msg.shape[-1]),
+                            accumulate=True)
+    mem.msg_count.index_put_((rows,), ones, accumulate=True)
+    mem.msg_ts.scatter_reduce_(0, rows, t2.expand(snd.shape).reshape(-1),
+                               "amax", include_self=True)
+    return mem
+
+
 @torch.no_grad()
 def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
                     dst, t, eidx, valid=None, offs=None, src_emb=None,
@@ -483,28 +571,15 @@ def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
     """Store this batch's messages, both directions, in place, with the
     pending flag (last column) set. ``last``: the chronologically last per
     sender overwrites its row. ``mean``: every valid message adds into its
-    sender's row in the table's dtype (the flag column counts too),
-    ``msg_count`` adds one per message and ``msg_ts`` keeps the newest
-    time; the additions of one row run in batch order, on the CPU and (the
-    sort-based ``index_put_``) on the card."""
-    snd, t2, valid2, win, msg = _build_messages(
+    sender's row in batch order (:func:`accumulate_messages`)."""
+    snd, t2, valid2, win, msg = stored_messages(
         cfg, mem, edge_feats, src, dst, t, eidx, valid, offs, src_emb,
         dst_emb)
-    one = torch.ones(msg.shape[:-1] + (1,), dtype=msg.dtype,
-                     device=msg.device)
-    msg = torch.cat([msg, one], dim=-1).to(mem.messages.dtype)
     if cfg.aggregator == "mean":
         sel = _selected(valid2)
         if sel is not None:
             snd, msg, t2 = snd[..., sel], msg[..., sel, :], t2[sel]
-        rows = snd.reshape(-1)
-        ones = torch.ones(rows.shape, device=rows.device)
-        mem.messages.index_put_((rows,), msg.reshape(-1, msg.shape[-1]),
-                                accumulate=True)
-        mem.msg_count.index_put_((rows,), ones, accumulate=True)
-        mem.msg_ts.scatter_reduce_(0, rows, t2.expand(snd.shape).reshape(-1),
-                                   "amax", include_self=True)
-        return mem
+        return accumulate_messages(mem, snd, msg, t2)
     rows, take = _winner_writes(snd, valid2, win)
     mem.messages[rows] = msg[..., take, :]
     mem.msg_ts[rows] = t2[take]
