@@ -12,6 +12,14 @@ Phases, in order; any failure exits non-zero:
    - santa_merge at the shapes a serving event and a training wave give it;
    - santa_scan on 200-event chunks of a dense 301-node stream with
      self-loops, invalid events and rows shared with the previous event;
+   - santa_waves on the bench stream's first train superchunk (64,400
+     events, 1,007 waves of at most 64 lanes) with one, five and two
+     negatives per event (R = 3, 7, 4: one seed, phase 9's, a phase 13
+     rank's), and on 2,000 events of that dense stream cut into waves
+     (self-loops, invalid events, lanes that write a row an earlier lane
+     of their wave reads as a negative), against the per-wave santa_merge
+     loop and the plain loop, with the wave chain's time at santa_scan's
+     measured step beside its bound;
 4. serve: the flagship serving configuration at full width (streaming T-PPR,
    top-20, two-member ensemble, diffusion tower, GRU, bf16 tables) on the
    bench stream, through ``LinkPredictor.observe``/``score`` on the card,
@@ -22,16 +30,17 @@ Phases, in order; any failure exits non-zero:
    launch, and the count of live weights that are subnormal;
 7. train: the flagship training configuration at full width on the bench
    stream through ``Trainer`` on the card: two ``train_epoch``s (the first
-   a warm-up), ``validate()`` and ``test()``, one santa_merge launch per
-   index wave and no santa_scan launch; then the first 3,000 events
+   a warm-up), ``validate()`` and ``test()``, one santa_waves launch per
+   superchunk scanned and no santa_merge or santa_scan launch; then the
+   first 3,000 events
    replayed with dropout 0 on the card and on the CPU from the same
    params, one epoch and ``validate()``, and compared;
 8. fit: the whole training run at full width on the bench stream, written
    as ``ml_bench.csv``/``.npy`` into a temporary directory:
    - the CLI (``zebra_tpu_torch.cli.main``): three epochs of ``fit`` with
      state files, the best checkpoint, ``test()``, then ``--task node``;
-     one santa_merge launch per index wave of every phase, none of
-     santa_scan;
+     one santa_waves launch per superchunk scanned in every phase, none
+     of santa_merge or santa_scan;
    - preemption: ``fit`` stopped after its first superchunk by
      ``request_stop`` and resumed from its state file, against an
      uninterrupted ``fit``; the resumed index bit-equal;
@@ -44,8 +53,9 @@ Phases, in order; any failure exits non-zero:
      of src, dst and five negatives (R = 7), bit for bit;
    - ``Trainer(parallel_runs=5)`` on the bench stream: a warm-up epoch, a
      timed epoch (aggregate train events/s), ``validate()`` and ``test()``
-     per seed; one santa_merge launch per wave of the one shared scan, no
-     santa_scan launch; the train-end index bit-equal to the single-seed
+     per seed; one santa_waves launch per superchunk of the one shared
+     scan, no santa_merge or santa_scan launch; the train-end index
+     bit-equal to the single-seed
      Trainer's of phase 7;
    - lanes 0 and 4 of the first 3,000 events against single-seed Trainers
      with seeds 0 and 4 (dropout 0.1: the masks are the same);
@@ -95,7 +105,8 @@ Phases, in order; any failure exits non-zero:
     reference CLI), at full width on the bench stream:
     - ``Trainer``: a warm-up and a timed epoch (train events/s, one train
       batch's device time by CUDA events: the busy share), ``validate()``
-      and ``test()``; one santa_merge launch per wave and no santa_scan;
+      and ``test()``; one santa_waves launch per superchunk and no
+      santa_merge or santa_scan;
       the message table's bytes (872 columns and the flag) and peak
       memory;
     - the first 3,000 events replayed with dropout 0 on the card twice and
@@ -124,8 +135,8 @@ Phases, in order; any failure exits non-zero:
       params, bf16 memory and val metrics within phase 9's lane bars; then
       the bench stream, a warm-up and a timed epoch, ``validate()`` and
       ``test()``: the index bit-equal on both ranks and to the one
-      process, each rank's epoch seconds and santa_merge launches (one per
-      wave of its own scan), and how far the lanes drift from the one
+      process, each rank's epoch seconds and santa_waves launches (one per
+      superchunk of its own scan), and how far the lanes drift from the one
       process's over the epochs (a product's summation order depends on
       the lane grouping; Adam carries it on);
     - (b) the CLI's form on two ranks: a 2-epoch ``fit`` with
@@ -148,7 +159,8 @@ Phases, in order; any failure exits non-zero:
       ``validate()``, dropout 0) at phase 9's lane bars; then the bench
       stream (dropout 0.1), a
       warm-up and a timed epoch (each rank's seconds, waves, santa_merge
-      launches, one per wave of every rank's scan, and the exchange's bytes
+      launches, one per wave of every rank's scan and no santa_waves
+      launch, and the exchange's bytes
       and seconds per kind), ``validate()`` + ``test()`` under the device
       protocol and, from the saved train-end state, under host backups
       (bit-equal, each one's peak device bytes); the index bit-equal on
@@ -183,7 +195,8 @@ Phases, in order; any failure exits non-zero:
     - (h) the CLI's ``--n_devices 2 --task node`` fit on the flagship's
       first 10,000 events: the node AUCs every rank replays at full N equal
       to one process's replay from the state file, which serves bit-equal
-      to that process's predictor;
+      to that process's predictor; each rank's replay scans a superchunk
+      in one santa_waves launch (full N, no exchange);
 15. one ``{"kernels": [...]}`` line;
 16. last line ``{"ok": true, "device": {...}}``.
 
@@ -212,6 +225,8 @@ from zebra_tpu_torch.data.preprocess import write_ml
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.device import resolve_device
 from zebra_tpu_torch.index import merge, pruning, scan
+from zebra_tpu_torch.index.wave_kernel import SANTA_WAVES
+from zebra_tpu_torch.index.waves import plan_waves, wave_scan_reference
 from zebra_tpu_torch.index.neighbor_finder import (
     build_neighbor_index,
     most_recent_neighbors,
@@ -379,6 +394,14 @@ SHARD_FLAGS = ["--bs", "200", "--topk", "20", "--alpha_list", "0.1", "0.1",
                "--time_dim", "100", "--memory_dim", "100", "--patience", "5",
                "--state_every", "1", "--parallel_runs", str(SHARD_SEEDS)]
 BACKUP_SEEDS = SEEDS
+# santa_waves: the negatives per event of the training superchunks it scans
+# (one seed, phase 9's seeds, a phase 13 rank's), and the events of the
+# dense stress chunk
+WAVES_SEEDS = (("train superchunk", 1),
+               ("seed-parallel train superchunk", SEEDS),
+               ("seed-sharded rank's train superchunk",
+                SHARD_SEEDS // SHARD_RANKS))
+WAVES_STRESS_EVENTS = 2000
 GUARD_SEEDS = (2, BACKUP_SEEDS)
 WIKI_TALK_NODES = 1_140_096
 # Phase 14, row sharding: one seed over two ranks on the one card; the
@@ -646,6 +669,135 @@ def scan_phase(card: str):
     return results
 
 
+def waves_work(rows: torch.Tensor, cols, plan, m: int, k: int):
+    """What one wave scan of a chunk must do, from its pre-edge rows
+    [E, R, F] in stream order, its columns (src, dst, neg, ts, eidx, valid)
+    and its plan. Bytes: each distinct row whose pre-chunk value the chunk
+    reads (src, dst and the negatives of the scheduled events) read once,
+    each distinct row written once, the extraction rows [E, R, F] written
+    once, the columns (4 bytes for each of src, dst, eidx, ts and each
+    negative, 1 for valid) and the plan (4 bytes per scheduled event and
+    per wave bound). Operations: the merges of the scheduled events
+    (:func:`merge_work`)."""
+    src, dst, neg = cols[:3]
+    n, r = rows.shape[:2]
+    f = row_width(m, k)
+    order = plan.order
+    read = torch.unique(torch.cat([src[order], dst[order],
+                                   neg[order].reshape(-1)])).numel()
+    written = torch.unique(torch.cat([src[order], dst[order]])).numel()
+    nbytes = ((read + written) * f * 4 + n * r * f * 4
+              + n * (4 * (r + 2) + 1) + 4 * (len(order) + plan.n_waves + 1))
+    _, ops = merge_work(rows[order], m, k)
+    return nbytes, ops
+
+
+def same_wave_write_after_read(plan, src, dst, neg) -> int:
+    """The lanes that write a row which an earlier lane of their wave reads
+    as a negative (host columns): the case that needs santa_waves' first
+    grid barrier."""
+    order = plan.order.cpu().numpy()
+    negs = neg.reshape(len(src), -1)
+    pairs = 0
+    for lo, hi in zip(plan.bounds[:-1], plan.bounds[1:]):
+        read = set()
+        for e in order[lo:hi]:
+            pairs += int(src[e]) in read or int(dst[e]) in read
+            read.update(int(v) for v in negs[e])
+    return pairs
+
+
+def waves_chunks(device: str = "cuda"):
+    """The chunks santa_waves is held on: (what, params, start table,
+    columns on the card, plan). The bench stream's first train superchunk
+    (the flagship Trainer's stream, epoch 0's negatives, cap 64, from the
+    empty index an epoch starts with) with 1, 5 and 2 negatives per event
+    (R = 3, 7, 4; the extra columns are the negatives of the next epochs),
+    and :func:`scan_stream`'s dense 301-node stream with its self-loops,
+    invalid events and rows shared between near events, cut into waves of
+    at most 64."""
+    trainer = Trainer(*flagship_training(seed=0), device=device)
+    cfg, ps = trainer.cfg, trainer._streams["train"]
+    chunk = len(ps.host["src"]) // ps.n_chunks
+    sl = slice(0, chunk)
+    negs = np.stack([trainer._draw_train_negs(e)[sl] for e in range(
+        max(s for _, s in WAVES_SEEDS))], 1)
+    params = trainer._tppr
+    host = {c: ps.host[c][sl] for c in ("src", "dst", "valid")}
+    t, eidx = ps.stream.t[sl], ps.stream.eidx[sl]
+    f = row_width(cfg.n_tppr, cfg.topk)
+    for what, n_neg in WAVES_SEEDS:
+        neg = np.ascontiguousarray(negs[:, 0] if n_neg == 1
+                                   else negs[:, :n_neg])
+        plan = plan_waves(host["src"], host["dst"], neg, host["valid"],
+                          cfg.n_nodes, cfg.wave_cap, device)
+        start = torch.zeros((cfg.n_nodes, f), device=device)
+        cols = _columns(start, host["src"], host["dst"], neg, t, eidx,
+                        host["valid"])
+        yield what, params, start, cols, plan
+    del trainer
+    params, start, cols = scan_stream(WAVES_STRESS_EVENTS, 2, 20, seed=7)
+    h = [c.cpu().numpy() for c in cols]
+    plan = plan_waves(h[0], h[1], h[2], h[5], start.shape[0], WAVE_CAP,
+                      "cuda")
+    yield "dense 301-node stress", params, start, cols, plan
+
+
+def waves_kernel_phase(card: str, scan_us_per_event: float):
+    """santa_waves on each of :func:`waves_chunks`, bit for bit against the
+    per-wave santa_merge loop and the plain loop on the card (the table and
+    the extraction rows in stream order), with its time, the loops' times,
+    the bound and the wave chain's time at santa_scan's measured step."""
+    results = []
+    for what, params, start, cols, plan in waves_chunks():
+        m, k = len(params.alpha), params.k
+        n = cols[0].shape[0]
+        r = 2 + (1 if cols[2].dim() == 1 else cols[2].shape[1])
+        ext = torch.empty((n, r, start.shape[1]), device="cuda")
+        loop = lambda d, mg=None: wave_scan_reference(d, params, *cols[:5],
+                                                      plan, merge=mg)
+        want = start.clone()
+        want_rows = loop(want, merge.merge_both_reference)
+        by_wave = start.clone()
+        merge.SANTA_MERGE.launches = 0
+        by_wave_rows = loop(by_wave)
+        assert merge.SANTA_MERGE.launches == plan.n_waves, (
+            merge.SANTA_MERGE.launches, plan.n_waves)
+        got = start.clone()
+        SANTA_WAVES.launches = 0
+        SANTA_WAVES(got, params, *cols, plan, ext)
+        assert SANTA_WAVES.launches == 1
+        torch.cuda.synchronize()
+        tag = f"santa_waves {what}"
+        err = max(_equal(got, want, tag + " data"),
+                  _equal(ext, want_rows, tag + " rows"),
+                  _equal(by_wave, want, tag + " santa_merge loop data"),
+                  _equal(by_wave_rows, want_rows,
+                         tag + " santa_merge loop rows"))
+        h = [c.cpu().numpy() for c in cols[:3]]
+        war = same_wave_write_after_read(plan, *h)
+        work = start.clone()
+        ms = device_ms(lambda: SANTA_WAVES(work, params, *cols, plan, ext),
+                       n=20, per_round=5, warmup=3)
+        merge_loop_ms = _event_ms(lambda: loop(work))
+        plain_ms = _event_ms(lambda: loop(work, merge.merge_both_reference),
+                             n=1)
+        bound_ms, bound_by = bound(*waves_work(want_rows, cols, plan, m, k))
+        res = dict(shape=what, E=n, scheduled=len(plan.order), R=r, M=m,
+                   k=k, waves=plan.n_waves, widest_wave=plan.width,
+                   grid=SANTA_WAVES.grid, same_wave_write_after_read=war,
+                   launches=1, santa_merge_loop_launches=plan.n_waves,
+                   max_abs_err=err, ms=ms, us_per_wave=1e3 * ms
+                   / max(plan.n_waves, 1), santa_merge_loop_ms=merge_loop_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   chain_ms_at_scan_step=plan.n_waves * scan_us_per_event
+                   / 1e3, library_ms=None, card=card)
+        print("kernel santa_waves " + json.dumps(res), flush=True)
+        results.append(res)
+    assert results[-1]["same_wave_write_after_read"] > 0, results[-1]
+    return results
+
+
 def _drive(pred: LinkPredictor, cols, timed: bool):
     """The serving sequence: warm-up observes, score requests at each batch
     size on the events that follow, one more observe. Returns scores per
@@ -685,7 +837,7 @@ def serve_phase(card: str):
     cpu = LinkPredictor(cfg, params, mem, index, edge_feats, device="cpu")
 
     torch.cuda.reset_peak_memory_stats()
-    scan.SANTA_SCAN.launches = merge.SANTA_MERGE.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     gpu_scores, timing = _drive(gpu, cols, timed=True)
     main_s = time.perf_counter() - t0
@@ -693,8 +845,9 @@ def serve_phase(card: str):
     merge_launches = merge.SANTA_MERGE.launches
     observed = WARM_EVENTS + FINAL_OBSERVE_B
     observe_calls = WARM_EVENTS // OBSERVE_BS + 1
-    assert launches == observe_calls and merge_launches == 0, (
-        launches, merge_launches, observe_calls)
+    assert (launches == observe_calls and merge_launches
+            == SANTA_WAVES.launches == 0), (
+        launches, merge_launches, SANTA_WAVES.launches, observe_calls)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     cpu_scores, _ = _drive(cpu, cols, timed=False)
@@ -809,6 +962,38 @@ def fill_phase(cfg, cols, card: str):
 
 def _reset_counts() -> None:
     merge.SANTA_MERGE.launches = scan.SANTA_SCAN.launches = 0
+    SANTA_WAVES.launches = 0
+
+
+def _counts(trainer: Trainer) -> dict:
+    """This process's santa launches since :func:`_reset_counts` and
+    ``trainer``'s wave counters, for :func:`_hold_counts`."""
+    return dict(santa_merge_launches=merge.SANTA_MERGE.launches,
+                santa_scan_launches=scan.SANTA_SCAN.launches,
+                santa_waves_launches=SANTA_WAVES.launches,
+                index_waves=trainer.index_waves,
+                index_sharded_waves=trainer.index_sharded_waves,
+                index_scans=trainer.index_scans)
+
+
+def _hold_counts(c: dict, cuda: bool, tag) -> None:
+    """:func:`_counts` of a Trainer made after the last
+    :func:`_reset_counts`: on the card one santa_waves launch per
+    superchunk scanned in one piece and one santa_merge launch per
+    row-sharded wave, off it none; no santa_scan launch."""
+    want = (c["index_scans"], c["index_sharded_waves"]) if cuda else (0, 0)
+    assert ((c["santa_waves_launches"], c["santa_merge_launches"]) == want
+            and c["santa_scan_launches"] == 0), (tag, c)
+
+
+def _wave_launches(trainer: Trainer, scans: int, tag) -> int:
+    """santa_waves' launches since :func:`_reset_counts` of a one-process
+    ``trainer`` whose ``index_scans`` was ``scans`` then, held by
+    :func:`_hold_counts`."""
+    c = dict(_counts(trainer), index_scans=trainer.index_scans - scans,
+             index_sharded_waves=0)
+    _hold_counts(c, trainer.device.type == "cuda", tag)
+    return c["santa_waves_launches"]
 
 
 def _metrics(r) -> str:
@@ -827,36 +1012,33 @@ def train_phase(card: str):
     epochs = []
     for e in (1, 2):
         _reset_counts()
+        scans = trainer.index_scans
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = trainer.train_epoch()
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        launches = merge.SANTA_MERGE.launches
-        assert launches == r.waves and scan.SANTA_SCAN.launches == 0, (
-            e, launches, r.waves, scan.SANTA_SCAN.launches)
+        launches = _wave_launches(trainer, scans, e)
         assert np.isfinite(r.per_batch[:, 0]).all(), e
         print(f"train epoch {e}{' (warm-up)' if e == 1 else ''}: {s:.3f} s, "
               f"{n_train / s:.1f} train events/s, index {r.index_seconds:.3f} "
-              f"s of host time, {r.waves} waves, {launches} santa_merge "
+              f"s of host time, {r.waves} waves, {launches} santa_waves "
               f"launches, {_metrics(r)}  ({card})", flush=True)
         epochs.append(dict(seconds=s, events_per_s=n_train / s,
                            index_host_s=r.index_seconds, waves=r.waves,
-                           santa_merge_launches=launches, loss=r.loss,
+                           santa_waves_launches=launches, loss=r.loss,
                            ap=r.ap, auc=r.auc, acc=r.acc))
     # the train-end index depends on the stream alone (seeds phase)
     train_end_index = trainer.index_state.data.clone()
     _reset_counts()
+    scans = trainer.index_scans
     t0 = time.perf_counter()
     val, nn_val = trainer.validate()
     test, nn_test = trainer.test()
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    eval_launches = merge.SANTA_MERGE.launches
+    eval_launches = _wave_launches(trainer, scans, "eval")
     phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
-    assert eval_launches == sum(r.waves for r in phases.values()), (
-        eval_launches, {k: r.waves for k, r in phases.items()})
-    assert scan.SANTA_SCAN.launches == 0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name, r in phases.items():
         print(f"{name:8s} {r.seconds:.3f} s, {r.waves} waves, {_metrics(r)}"
@@ -866,7 +1048,7 @@ def train_phase(card: str):
         epochs[1]["ap"], val.ap, test.ap)
     res = dict(train_events=n_train, n_nodes=trainer.cfg.n_nodes,
                setup_s=setup_s, epochs=epochs, eval_s=eval_s,
-               eval_santa_merge_launches=eval_launches,
+               eval_santa_waves_launches=eval_launches,
                phases={k: dict(seconds=r.seconds, waves=r.waves, ap=r.ap,
                                auc=r.auc, acc=r.acc)
                        for k, r in phases.items()},
@@ -982,9 +1164,7 @@ def cli_fit(root: Path, device: str, card: str):
     if device == "cuda":
         torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = merge.SANTA_MERGE.launches
-    assert launches == trainer.index_waves and scan.SANTA_SCAN.launches == 0, (
-        launches, trainer.index_waves, scan.SANTA_SCAN.launches)
+    launches = _wave_launches(trainer, 0, "fit cli")
     assert _on(trainer, device), "a parameter or table left the card"
     cfg = trainer.cfg
     log = root / "log" / "bench" / cfg.run_name()
@@ -1007,7 +1187,8 @@ def cli_fit(root: Path, device: str, card: str):
               "node_val_auc", "node_test_auc"):
         assert np.isfinite(results[k]), (k, results)
     assert results["test_ap"] > 0.5, results
-    res = dict(cli_s=cli_s, santa_merge_launches=launches,
+    res = dict(cli_s=cli_s, santa_waves_launches=launches,
+               index_scans=trainer.index_scans,
                index_waves=trainer.index_waves,
                santa_scan_launches=scan.SANTA_SCAN.launches,
                state_file_bytes=state.stat().st_size,
@@ -1087,8 +1268,9 @@ def deploy(trainer: Trainer, state: str, edge_feats, device: str, card: str):
         served.observe(te.sources[sl], te.destinations[sl],
                        te.timestamps[sl], te.edge_idxs[sl])
     launches = scan.SANTA_SCAN.launches
-    assert launches == DEPLOY_CALLS and merge.SANTA_MERGE.launches == 0, (
-        launches, merge.SANTA_MERGE.launches)
+    assert (launches == DEPLOY_CALLS
+            and merge.SANTA_MERGE.launches == SANTA_WAVES.launches == 0), (
+        launches, merge.SANTA_MERGE.launches, SANTA_WAVES.launches)
     for c in range(DEPLOY_CALLS):
         sl = slice(c * DEPLOY_OBSERVE_B, (c + 1) * DEPLOY_OBSERVE_B)
         ref.observe(te.sources[sl], te.destinations[sl], te.timestamps[sl],
@@ -1109,7 +1291,7 @@ def deploy(trainer: Trainer, state: str, edge_feats, device: str, card: str):
 def fit_phase(card: str, device: str = "cuda", n_events: int = 120_000,
               preempt_chunk: int = PREEMPT_CHUNK) -> int:
     """The whole training run (see the module docstring, phase 8). Returns
-    santa_merge's launches in the CLI's run."""
+    santa_waves' launches in the CLI's run."""
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
@@ -1132,7 +1314,7 @@ def _per_seed(r) -> str:
 
 def seeds_train(card: str, single_index: torch.Tensor):
     """``Trainer(parallel_runs=SEEDS)`` at full width on the bench stream;
-    returns the Trainer after ``test()`` and santa_merge's launches."""
+    returns the Trainer after ``test()`` and santa_waves' launches."""
     cfg, splits, edge_feats = flagship_training(seed=0, parallel_runs=SEEDS)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, splits, edge_feats, device="cuda")
@@ -1142,39 +1324,37 @@ def seeds_train(card: str, single_index: torch.Tensor):
     epochs, launches_all = [], 0
     for e in (1, 2):
         _reset_counts()
+        scans = trainer.index_scans
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = trainer.train_epoch()
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        launches = merge.SANTA_MERGE.launches
+        launches = _wave_launches(trainer, scans, ("seeds", e))
         launches_all += launches
-        assert launches == r.waves and scan.SANTA_SCAN.launches == 0, (
-            e, launches, r.waves, scan.SANTA_SCAN.launches)
         assert np.isfinite(r.per_batch).all(), e
         rate = SEEDS * n_train / s
         print(f"seeds train epoch {e}{' (warm-up)' if e == 1 else ''}: "
               f"{s:.3f} s, {rate:.1f} train events/s over {SEEDS} seeds "
               f"({n_train / s:.1f} per seed), index {r.index_seconds:.3f} s "
-              f"of host time, {r.waves} waves, {launches} santa_merge "
+              f"of host time, {r.waves} waves, {launches} santa_waves "
               f"launches; {_per_seed(r)}  ({card})", flush=True)
         epochs.append(dict(seconds=s, events_per_s=rate,
                            index_host_s=r.index_seconds, waves=r.waves,
-                           santa_merge_launches=launches,
+                           santa_waves_launches=launches,
                            loss=r.loss.tolist(), ap=r.ap.tolist()))
     index_bitwise = bool(torch.equal(trainer.index_state.data, single_index))
     assert index_bitwise, int((trainer.index_state.data != single_index)
                               .any(1).sum())
     _reset_counts()
+    scans = trainer.index_scans
     t0 = time.perf_counter()
     val, nn_val = trainer.validate()
     test, nn_test = trainer.test()
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
-    eval_launches = merge.SANTA_MERGE.launches
-    assert eval_launches == sum(r.waves for r in phases.values())
-    assert scan.SANTA_SCAN.launches == 0
+    eval_launches = _wave_launches(trainer, scans, "seeds eval")
     launches_all += eval_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name, r in phases.items():
@@ -1187,7 +1367,7 @@ def seeds_train(card: str, single_index: torch.Tensor):
         epochs[1]["ap"], val.ap, test.ap)
     res = dict(seeds=SEEDS, train_events_per_seed=n_train, setup_s=setup_s,
                epochs=epochs, eval_s=eval_s,
-               eval_santa_merge_launches=eval_launches,
+               eval_santa_waves_launches=eval_launches,
                index_bitwise_vs_single_seed=index_bitwise,
                phases={k: dict(seconds=r.seconds, waves=r.waves,
                                ap=r.ap.tolist(), auc=r.auc.tolist())
@@ -1277,8 +1457,9 @@ def seeds_ensemble(trainer: Trainer, card: str):
         served.observe(te.sources[sl], te.destinations[sl],
                        te.timestamps[sl], te.edge_idxs[sl])
     launches = scan.SANTA_SCAN.launches
-    assert launches == ENSEMBLE_CALLS and merge.SANTA_MERGE.launches == 0, (
-        launches, merge.SANTA_MERGE.launches)
+    assert (launches == ENSEMBLE_CALLS
+            and merge.SANTA_MERGE.launches == SANTA_WAVES.launches == 0), (
+        launches, merge.SANTA_MERGE.launches, SANTA_WAVES.launches)
     for c in range(ENSEMBLE_CALLS):
         sl = slice(c * ENSEMBLE_OBSERVE_B, (c + 1) * ENSEMBLE_OBSERVE_B)
         ens.observe(te.sources[sl], te.destinations[sl], te.timestamps[sl],
@@ -1299,15 +1480,15 @@ def seeds_ensemble(trainer: Trainer, card: str):
 
 
 def seeds_phase(card: str, single_index: torch.Tensor):
-    """The seed axis (module docstring, phase 9). Returns the santa_merge
+    """The seed axis (module docstring, phase 9). Returns the santa_waves
     launches of its main path, santa_scan's and the merge's result at the
     seed-parallel shape."""
     merged = seed_merge_phase(card)
-    trainer, merge_launches = seeds_train(card, single_index)
+    trainer, wave_launches = seeds_train(card, single_index)
     scan_launches = seeds_ensemble(trainer, card)
     del trainer
     seeds_replay(card)
-    return merge_launches, scan_launches, merged
+    return wave_launches, scan_launches, merged
 
 
 def entry_err(got, want, rel: float) -> float:
@@ -1557,10 +1738,12 @@ def prune_phase(card: str):
     replay_phase(card, build=mooc_pruning, tag="pruning replay")
     seeds_replay(card, build=mooc_pruning, n_seeds=PRUNE_SEEDS,
                  lanes=PRUNE_LANES, tag="pruning seeds replay")
-    assert merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches == 0, (
-        merge.SANTA_MERGE.launches, scan.SANTA_SCAN.launches)
+    assert (merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches
+            == SANTA_WAVES.launches == 0), (
+        merge.SANTA_MERGE.launches, scan.SANTA_SCAN.launches,
+        SANTA_WAVES.launches)
     print(f"pruning: phase took {time.perf_counter() - t0:.1f} s, 0 "
-          "santa_merge and 0 santa_scan launches", flush=True)
+          "santa_merge, santa_scan and santa_waves launches", flush=True)
 
 
 def _pending_memory(cfg, t_max: float, seed: int) -> MemoryState:
@@ -1760,36 +1943,36 @@ def towers_phase(card: str):
         print(f"towers: {name} took {time.perf_counter() - t1:.1f} s",
               flush=True)
     del trainer
-    assert merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches == 0, (
-        merge.SANTA_MERGE.launches, scan.SANTA_SCAN.launches)
+    assert (merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches
+            == SANTA_WAVES.launches == 0), (
+        merge.SANTA_MERGE.launches, scan.SANTA_SCAN.launches,
+        SANTA_WAVES.launches)
     print(f"towers: phase took {time.perf_counter() - t0:.1f} s, 0 "
-          "santa_merge and 0 santa_scan launches", flush=True)
+          "santa_merge, santa_scan and santa_waves launches", flush=True)
 
 
-def _epochs(trainer: Trainer, tag: str, card: str, check_launches=True):
-    """A warm-up and a timed ``train_epoch``: one santa_merge launch per
-    wave and no santa_scan (``check_launches``). Returns each epoch's
+def _epochs(trainer: Trainer, tag: str, card: str):
+    """A warm-up and a timed ``train_epoch``: one santa_waves launch per
+    superchunk, no santa_merge and no santa_scan. Returns each epoch's
     seconds, train events/s, waves and metrics."""
     n_train = trainer.splits.train.n_interactions
     epochs = []
     for e in (1, 2):
         _reset_counts()
+        scans = trainer.index_scans
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = trainer.train_epoch()
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        launches = merge.SANTA_MERGE.launches
-        if check_launches:
-            assert launches == r.waves and scan.SANTA_SCAN.launches == 0, (
-                tag, e, launches, r.waves, scan.SANTA_SCAN.launches)
+        launches = _wave_launches(trainer, scans, (tag, e))
         assert np.isfinite(r.per_batch).all(), (tag, e)
         print(f"{tag} epoch {e}{' (warm-up)' if e == 1 else ''}: {s:.3f} s, "
               f"{n_train / s:.1f} train events/s, {r.waves} waves, "
-              f"{launches} santa_merge launches, overflow {r.overflow:g}, "
+              f"{launches} santa_waves launches, overflow {r.overflow:g}, "
               f"{_metrics(r)}  ({card})", flush=True)
         epochs.append(dict(seconds=s, events_per_s=n_train / s,
-                           waves=r.waves, santa_merge_launches=launches,
+                           waves=r.waves, santa_waves_launches=launches,
                            overflow=r.overflow, loss=r.loss, ap=r.ap))
     return epochs
 
@@ -1797,7 +1980,7 @@ def _epochs(trainer: Trainer, tag: str, card: str, check_launches=True):
 def options_train(card: str):
     """The options configuration at full width: two epochs, validate, test,
     one batch's device time (the busy share), the message table's size.
-    Returns the Trainer and santa_merge's launches in those phases."""
+    Returns the Trainer and santa_waves' launches in those phases."""
     cfg, splits, edge_feats = flagship_training(seed=0, **OPTIONS)
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, splits, edge_feats, device="cuda")
@@ -1808,16 +1991,15 @@ def options_train(card: str):
           f"input {trainer.cfg.cell_input_dim}  ({card})", flush=True)
     epochs = _epochs(trainer, "options train", card)
     _reset_counts()
+    scans = trainer.index_scans
     t0 = time.perf_counter()
     val, nn_val = trainer.validate()
     test, nn_test = trainer.test()
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     phases = dict(val=val, nn_val=nn_val, test=test, nn_test=nn_test)
-    launches = merge.SANTA_MERGE.launches
-    assert launches == sum(r.waves for r in phases.values())
-    assert scan.SANTA_SCAN.launches == 0
-    launches += sum(e["santa_merge_launches"] for e in epochs)
+    launches = _wave_launches(trainer, scans, "options eval")
+    launches += sum(e["santa_waves_launches"] for e in epochs)
     for name, r in phases.items():
         assert np.isfinite(r.per_batch).all(), name
         print(f"options {name:8s} {r.seconds:.3f} s, {_metrics(r)}  "
@@ -1870,9 +2052,10 @@ def options_serve(trainer: Trainer, card: str) -> int:
                 torch.cuda.synchronize()
                 observe_ms.append(1e3 * (time.perf_counter() - t0))
     assert (scan.SANTA_SCAN.launches == scan.SANTA_SCAN.extracting
-            == OPTIONS_OBSERVE_CALLS and merge.SANTA_MERGE.launches == 0), (
+            == OPTIONS_OBSERVE_CALLS
+            and merge.SANTA_MERGE.launches == SANTA_WAVES.launches == 0), (
         scan.SANTA_SCAN.launches, scan.SANTA_SCAN.extracting,
-        merge.SANTA_MERGE.launches)
+        merge.SANTA_MERGE.launches, SANTA_WAVES.launches)
     lo = OPTIONS_OBSERVE_CALLS * OPTIONS_OBSERVE_B
     score_ms, score_err = {}, 0.0
     for b in SCORE_BS:
@@ -2005,10 +2188,10 @@ def options_nans(card: str):
 
 def options_phase(card: str, per_position_s: float):
     """The model options (module docstring, phase 12). Returns the
-    launches of santa_merge (training) and santa_scan (serving) on the
+    launches of santa_waves (training) and santa_scan (serving) on the
     options path."""
     t0 = time.perf_counter()
-    trainer, merge_launches = options_train(card)
+    trainer, wave_launches = options_train(card)
     scan_launches = options_serve(trainer, card)
     build = functools.partial(flagship_training, **OPTIONS)
     steps = [("replay", lambda: replay_phase(
@@ -2025,7 +2208,7 @@ def options_phase(card: str, per_position_s: float):
               flush=True)
     print(f"options: phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return merge_launches, scan_launches
+    return wave_launches, scan_launches
 
 
 # ------------------------------------------------------------- phase 13
@@ -2069,13 +2252,12 @@ def _shard_replay(trainer: Trainer) -> dict:
                 params={k: x.detach().cpu().clone()
                         for k, x in trainer.params.state_dict().items()},
                 memory=trainer._memory_tables()["memory"].cpu().clone(),
-                val=np.stack([v.ap, v.auc, v.acc]),
-                santa_merge_launches=merge.SANTA_MERGE.launches)
+                val=np.stack([v.ap, v.auc, v.acc]))
 
 
 def _shard_run(trainer: Trainer) -> dict:
     """Two epochs, validate() and test() of a seed-parallel Trainer, with
-    santa_merge's launches counted from 0."""
+    the santa launches counted from 0."""
     dev = trainer.device
     _reset_counts()
     epochs, mem1 = [], None
@@ -2102,8 +2284,7 @@ def _shard_run(trainer: Trainer) -> dict:
         phases={k: dict(per_batch=r.per_batch, waves=r.waves,
                         gather_ms=1e3 * r.gather_seconds)
                 for k, r in phases.items()},
-        santa_merge_launches=merge.SANTA_MERGE.launches,
-        santa_scan_launches=scan.SANTA_SCAN.launches)
+        **_counts(trainer))
 
 
 def _replay_errs(ranks, one, lr: float) -> dict:
@@ -2142,7 +2323,7 @@ def _divergence(got: np.ndarray, want: np.ndarray) -> dict:
 def shard_train(card: str, device: str = "cuda:0",
                 n_events: int = 120_000) -> int:
     """(a): two ranks sharing one card against one process on it. Returns
-    santa_merge's launches of both's full runs."""
+    santa_waves' launches of both's full runs."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         launch(shard_rank, SHARD_RANKS, (tmp, device, n_events),
@@ -2167,16 +2348,13 @@ def shard_train(card: str, device: str = "cuda:0",
         and torch.equal(r["full"]["index_end"], one["index_end"])
         for r in ranks)
     assert index_bitwise, "a rank's index differs from the one-process run"
-    launches = one["santa_merge_launches"]
     cuda = torch.device(device).type == "cuda"
+    _hold_counts(one, cuda, "one process")
+    launches = one["santa_waves_launches"]
     for r in ranks:
         full = r["full"]
-        waves = sum(e["waves"] for e in full["epochs"]) + sum(
-            p["waves"] for p in full["phases"].values())
-        assert full["santa_merge_launches"] == (waves if cuda else 0), (
-            r["rank"], full["santa_merge_launches"], waves)
-        assert full["santa_scan_launches"] == 0
-        launches += full["santa_merge_launches"]
+        _hold_counts(full, cuda, r["rank"])
+        launches += full["santa_waves_launches"]
         for e, ep in enumerate(full["epochs"], 1):
             print(f"shard rank {r['rank']} of {SHARD_RANKS} on {r['device']} "
                   f"(lanes {r['lanes']}) epoch {e}"
@@ -2184,8 +2362,8 @@ def shard_train(card: str, device: str = "cuda:0",
                   f"{ep['waves']} waves, metrics gather "
                   f"{ep['gather_ms']:.3f} ms; the ranks share one card, so "
                   f"this is no scaling figure  ({card})", flush=True)
-        print(f"shard rank {r['rank']}: {full['santa_merge_launches']} "
-              f"santa_merge launches, validate + test "
+        print(f"shard rank {r['rank']}: {full['santa_waves_launches']} "
+              f"santa_waves launches, validate + test "
               f"{full['eval_s']:.3f} s", flush=True)
         aps = [full["phases"][k]["per_batch"][..., 1].mean(0)
                for k in ("val", "test")]
@@ -2206,7 +2384,7 @@ def shard_train(card: str, device: str = "cuda:0",
                rank_epoch_s=[[e["seconds"] for e in r["full"]["epochs"]]
                              for r in ranks],
                one_process_epoch_s=[e["seconds"] for e in one["epochs"]],
-               rank_santa_merge_launches=[r["full"]["santa_merge_launches"]
+               rank_santa_waves_launches=[r["full"]["santa_waves_launches"]
                                           for r in ranks],
                index_bitwise=index_bitwise, lane_replay=replay,
                full_epoch1=_divergence(full0["epochs"][0]["per_batch"],
@@ -2227,7 +2405,7 @@ def shard_train(card: str, device: str = "cuda:0",
 
 def cli_rank(argv, out: str) -> None:
     """(b), one rank of the CLI's run: the CLI's own rank entry, then its
-    results and santa_merge's launches to ``out/<rank>.json``."""
+    results and the santa launches to ``out/<rank>.json``."""
     from zebra_tpu_torch.parallel.distributed import rank
 
     _reset_counts()
@@ -2236,8 +2414,7 @@ def cli_rank(argv, out: str) -> None:
                                          resolve_device(ns.device))
     with open(os.path.join(out, f"{rank()}.json"), "w") as f:
         json.dump(dict(results=results, device=str(trainer.device),
-                       santa_merge_launches=merge.SANTA_MERGE.launches,
-                       index_waves=trainer.index_waves,
+                       **_counts(trainer),
                        epochs=[dict(train_s=e["train_s"], val_s=e["val_s"],
                                     waves=e["waves"], state_s=e["state_s"])
                                for e in trainer.epoch_log]), f)
@@ -2255,8 +2432,7 @@ def _cli_ranks(argv, root: Path, tag: str):
     assert all(r["results"] == ranks[0]["results"] for r in ranks), tag
     cuda = ranks[0]["device"].startswith("cuda")
     for r in ranks:
-        assert r["santa_merge_launches"] == (
-            r["index_waves"] if cuda else 0), (tag, r)
+        _hold_counts(r, cuda, tag)
     return ranks, s
 
 
@@ -2273,7 +2449,7 @@ def _state_bitwise(a: str, b: str) -> bool:
 def shard_cli(card: str, device: str = "cuda:0",
               n_events: int = 120_000) -> int:
     """(b): the CLI's form on two ranks, its resume and its state file
-    served, against one process. Returns santa_merge's launches."""
+    served, against one process. Returns santa_waves' launches."""
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         write_bench_dataset(root, n_events)
@@ -2324,11 +2500,11 @@ def shard_cli(card: str, device: str = "cuda:0",
         assert np.isfinite(got).all() and got.shape == (len(q[0]),)
     launches = 0
     for tag, ranks in (("a", a), ("b1", b1), ("b2", b2)):
-        launches += sum(r["santa_merge_launches"] for r in ranks)
+        launches += sum(r["santa_waves_launches"] for r in ranks)
     res = dict(seeds=SHARD_SEEDS, ranks=SHARD_RANKS, device=device,
                uninterrupted_s=a_s, resumed_s=b2_s,
                rank_epochs=[r["epochs"] for r in a],
-               rank_santa_merge_launches={tag: [r["santa_merge_launches"]
+               rank_santa_waves_launches={tag: [r["santa_waves_launches"]
                                                 for r in ranks]
                                           for tag, ranks in (("a", a),
                                                              ("b1", b1),
@@ -2370,7 +2546,7 @@ def host_backup_phase(card: str, device: str = "cuda",
                       n_events: int = 120_000) -> int:
     """(c): validate() + test() of the flagship at S = BACKUP_SEEDS from
     one train-end state under the device protocol, then under host backups
-    (a Trainer restored from that state). Returns santa_merge's launches."""
+    (a Trainer restored from that state). Returns santa_waves' launches."""
     cfg, splits, edge_feats = flagship_training(
         seed=0, n_events=n_events, parallel_runs=BACKUP_SEEDS)
     _reset_counts()
@@ -2415,7 +2591,8 @@ def host_backup_phase(card: str, device: str = "cuda",
     if torch.device(device).type == "cuda":
         assert on_host["peak_bytes"] < on_dev["peak_bytes"], (
             on_host["peak_bytes"], on_dev["peak_bytes"])
-    return merge.SANTA_MERGE.launches
+    assert merge.SANTA_MERGE.launches == scan.SANTA_SCAN.launches == 0
+    return SANTA_WAVES.launches
 
 
 def guard_constants(cfg, splits, edge_feats, device) -> dict:
@@ -2524,7 +2701,7 @@ def guard_phase(card: str, device: str = "cuda") -> None:
 
 
 def shard_phase(card: str):
-    """Phase 13 (module docstring). Returns santa_merge's launches of its
+    """Phase 13 (module docstring). Returns santa_waves' launches of its
     main path and the merge's result at a rank's wave shape."""
     merged = seed_merge_phase(card, SHARD_MERGE)
     launches = shard_train(card)
@@ -2630,10 +2807,7 @@ def _rows_run(trainer: Trainer, out: str) -> dict:
             for h, m in evals.items()},
         host_backup_bitwise=bitwise,
         params=_cpu_tree(trainer.params.state_dict()),
-        train_waves=waves,
-        santa_merge_launches=merge.SANTA_MERGE.launches,
-        santa_scan_launches=scan.SANTA_SCAN.launches,
-        index_waves=trainer.index_waves)
+        train_waves=waves, **_counts(trainer))
 
 
 def _same_params(a: dict, b: dict) -> bool:
@@ -2713,9 +2887,8 @@ def rows_train(card: str, device: str = "cuda:0",
     launches = 0
     for r, f in zip(ranks, full):
         assert r["backend"] == "gloo", r      # two ranks on one card
-        assert f["santa_merge_launches"] == (
-            f["index_waves"] if cuda else 0), (r["rank"], f)
-        assert f["santa_scan_launches"] == 0
+        _hold_counts(f, cuda, r["rank"])
+        assert f["santa_waves_launches"] == 0, r["rank"]
         assert f["host_backup_bitwise"], r["rank"]
         launches += f["santa_merge_launches"]
         for e, ep in enumerate(f["epochs"], 1):
@@ -2881,8 +3054,7 @@ def rows_align_rank(out: str, device: str, n_events: int) -> None:
                          nn_val_ap=nn_val.ap, index=index.data.cpu().clone(),
                          memory=mem.memory.cpu().clone(), path=path,
                          n_nodes=t.cfg.n_nodes,
-                         santa_merge_launches=merge.SANTA_MERGE.launches,
-                         index_waves=t.index_waves)
+                         **_counts(t))
     torch.save(res, os.path.join(out, f"align{t.mesh.rank}.pt"))
 
 
@@ -2946,8 +3118,8 @@ def rows_align(card: str, device: str = "cuda:0",
     cuda = torch.device(device).type == "cuda"
     for r in ranks:
         for leg in ("plain", "interleaved"):
-            assert r[leg]["santa_merge_launches"] == (
-                r[leg]["index_waves"] if cuda else 0), (leg, r[leg])
+            _hold_counts(r[leg], cuda, leg)
+            assert r[leg]["santa_waves_launches"] == 0, leg
     res = dict(
         ranks=ROWS_RANKS, device=device,
         full_stream_train_waves={k: r0[k]["full_stream_waves"]
@@ -3001,9 +3173,9 @@ class _Scores:
 
 def _rows_leg_run(trainer: Trainer) -> dict:
     """A train epoch, then validate() + test() with the device's
-    allocation peak: per-batch metrics and probabilities, seconds,
-    santa_merge's launches, the exchange's counts (two ranks), the gathered
-    tables and params."""
+    allocation peak: per-batch metrics and probabilities, seconds, the
+    santa launches, the exchange's counts (two ranks), the gathered tables
+    and params."""
     dev = trainer.device
     cuda = dev.type == "cuda"
     _reset_counts()
@@ -3035,9 +3207,7 @@ def _rows_leg_run(trainer: Trainer) -> dict:
     return dict(
         per_batch=[p.per_batch for p in phases], train_s=train_s,
         eval_s=eval_s, eval_peak_above_base=peak - base,
-        waves=[p.waves for p in phases], index_waves=trainer.index_waves,
-        santa_merge_launches=merge.SANTA_MERGE.launches,
-        santa_scan_launches=scan.SANTA_SCAN.launches,
+        waves=[p.waves for p in phases], **_counts(trainer),
         train_exchange=train_exchange, train_ids=train_ids,
         fallback=trainer._lazy_fallback, scores=torch.stack(scores.rows),
         mem={k: v.cpu().clone() for k, v in mem._asdict().items()},
@@ -3107,12 +3277,13 @@ def rows_legs(card: str, device: str = "cuda:0") -> int:
         one = _rows_leg_run(one_t)
         del one_t
         gc.collect()
+        _hold_counts(one, cuda, (name, "one process"))
         rs = [r[name] for r in ranks]
         streaming = cfg.keeps_tppr_index
         for r in rs:
-            want = r["index_waves"] if cuda and streaming else 0
-            assert r["santa_merge_launches"] == want, (name, r["index_waves"])
-            assert r["santa_scan_launches"] == 0, name
+            _hold_counts(r, cuda, name)
+            assert r["santa_waves_launches"] == 0, name
+            assert (r["index_sharded_waves"] > 0) == streaming, name
             launches += r["santa_merge_launches"]
         errs = _leg_errors(rs, one)
         fetched, named = rs[0]["train_ids"]["tower_fetch"]
@@ -3128,7 +3299,7 @@ def rows_legs(card: str, device: str = "cuda:0") -> int:
             train_waves=[r["waves"][0] for r in rs],
             rank_santa_merge_launches=[r["santa_merge_launches"]
                                        for r in rs],
-            one_process_santa_merge_launches=one["santa_merge_launches"],
+            one_process_santa_waves_launches=one["santa_waves_launches"],
             train_exchange=[r["train_exchange"] for r in rs],
             tower_fetch_rows_per_batch=fetched / n_batches / ROWS_RANKS,
             tower_fetch_ids_named_per_batch=named / n_batches / ROWS_RANKS,
@@ -3167,7 +3338,7 @@ def rows_node_cli(card: str, device: str = "cuda:0",
                   n_events: int = ROWS_CLI_EVENTS) -> int:
     """(h): the CLI's ``--n_devices 2 --task node`` fit on two ranks, its
     state file served, and the node AUCs against one process's replay from
-    that file. Returns santa_merge's launches."""
+    that file. Returns the ranks' santa_merge and santa_waves launches."""
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         write_bench_dataset(root, n_events)
@@ -3203,12 +3374,15 @@ def rows_node_cli(card: str, device: str = "cuda:0",
                    serve_bitwise),
                rank_santa_merge_launches=[r["santa_merge_launches"]
                                           for r in ranks],
+               rank_santa_waves_launches=[r["santa_waves_launches"]
+                                          for r in ranks],
                rank_index_waves=[r["index_waves"] for r in ranks],
                card=card)
     print("rows node " + json.dumps(out), flush=True)
     assert all(np.isfinite(v) for v in aucs.values()), out
     assert auc_err <= ROWS_LEG_ATOL and serve_bitwise, out
-    return sum(r["santa_merge_launches"] for r in ranks)
+    return (sum(r["santa_merge_launches"] for r in ranks),
+            sum(r["santa_waves_launches"] for r in ranks))
 
 
 def rows_guard(card: str, device: str = "cuda") -> None:
@@ -3232,19 +3406,21 @@ def rows_guard(card: str, device: str = "cuda") -> None:
         decisions=out, card=card)), flush=True)
 
 
-def rows_phase(card: str) -> int:
+def rows_phase(card: str):
     """Phase 14 (module docstring). Returns santa_merge's launches of its
-    main path (every rank's)."""
+    main path (every rank's) and santa_waves' (the ranks' node replays in
+    (h), which run at full N with no exchange)."""
     t0 = time.perf_counter()
     launches = rows_train(card)
     launches += rows_cli(card)
     launches += rows_align(card)
     rows_guard(card)
     launches += rows_legs(card)
-    launches += rows_node_cli(card)
+    node_merges, node_waves = rows_node_cli(card)
+    launches += node_merges
     print(f"rows phase: {time.perf_counter() - t0:.1f} s  ({card})",
           flush=True)
-    return launches
+    return launches, node_waves
 
 
 def main() -> int:
@@ -3276,17 +3452,18 @@ def main() -> int:
 
     merges = merge_phase(card)
     scans = scan_phase(card)
+    waves = waves_kernel_phase(card, scans[0]["us_per_event"])
     scan_launches, gpu, cols = serve_phase(card)
     wave_phase(gpu, cols, card)
     fill_phase(gpu.cfg, cols, card)
     single_index, flagship_epoch_s = train_phase(card)
-    merge_launches = fit_phase(card)
-    seed_merges, seed_scans, seed_merge = seeds_phase(card, single_index)
+    fit_waves = fit_phase(card)
+    seed_waves, seed_scans, seed_merge = seeds_phase(card, single_index)
     prune_phase(card)
     towers_phase(card)
-    option_merges, option_scans = options_phase(card, flagship_epoch_s)
-    shard_merges, shard_merge = shard_phase(card)
-    row_merges = rows_phase(card)
+    option_waves, option_scans = options_phase(card, flagship_epoch_s)
+    shard_waves, shard_merge = shard_phase(card)
+    row_merges, row_waves = rows_phase(card)
 
     def entry(name, results, main, launches):
         return dict(
@@ -3299,18 +3476,21 @@ def main() -> int:
                                           "bound_by", "library_ms")})
 
     # each kernel at the shape its path gives it: a training wave for
-    # santa_merge (launches: the CLI's fit run, the seed-parallel Trainer's
-    # and the options Trainer's epochs and eval phases, phase 13's ranks,
-    # one-process runs and host-backup leg, and phase 14's row-sharded
-    # ranks), a b = 200 observe
-    # for santa_scan (launches: the serve phase, the ensemble's observe
-    # calls and the options predictor's extracting ones)
+    # santa_merge (launches: phase 14's row-sharded ranks), a b = 200
+    # observe for santa_scan (launches: the serve phase, the ensemble's
+    # observe calls and the options predictor's extracting ones), a train
+    # superchunk for santa_waves (launches: the CLI's fit run, the
+    # seed-parallel Trainer's and the options Trainer's epochs and eval
+    # phases, phase 13's ranks, one-process runs and host-backup leg, and
+    # the node replays of phase 14 (h)'s ranks)
     print(json.dumps({"kernels": [
         entry("santa_merge", merges + [seed_merge, shard_merge], merges[1],
-              merge_launches + seed_merges + option_merges + shard_merges
-              + row_merges),
+              row_merges),
         entry("santa_scan", scans, scans[0],
               scan_launches + seed_scans + option_scans),
+        entry("santa_waves", waves, waves[0],
+              fit_waves + seed_waves + option_waves + shard_waves
+              + row_waves),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 # host C++ (the wave scheduler): no CUDA, so it builds where tests run
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
-SOURCES = ("santa_merge", "santa_scan")
+SOURCES = ("santa_merge", "santa_scan", "santa_waves")
 HOST_SOURCES = ("wave_schedule",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -6,28 +6,32 @@ only on earlier edges that touched its src, dst (rows it writes) or neg (a
 row it reads for extraction). The host scheduler (``csrc/wave_schedule.cc``,
 a copy of the JAX package's C++ one) cuts a chunk of the stream into waves
 of pairwise node-disjoint edges, at most ``cap`` each, such that every
-dependency crosses a wave boundary. A wave is then one batched step (gather
-→ merge → scatter, ``scan.step``): one ``santa_merge`` launch on the card.
-Within a wave all reads precede all writes, so the wave scan is bit-equal
-to the sequential scan (``streaming_scan``).
+dependency crosses a wave boundary. Within a wave all reads precede all
+writes, so the wave scan is bit-equal to the sequential scan
+(``streaming_scan``).
 
 Per chunk the host turns the schedule into a :class:`WavePlan`: the stream
 positions of the scheduled events in wave order, each event's place in that
-order, and where each wave starts. The device gathers the chunk's columns
-into wave order once; each wave is then a contiguous slice, so the loop
-over the waves reads nothing back from the device and passes no validity
-mask. Only the real waves run: the JAX package pads the wave count to few
-distinct values so that XLA compiles few programs, which here would only
-add empty launches.
+order, and where each wave starts, uploaded in one copy. On the card the
+whole chunk is one launch of ``csrc/santa_waves.cu``
+(``wave_kernel.SANTA_WAVES``), as the JAX package runs it as one XLA
+program: its blocks take the lanes of a wave, and two grid barriers per
+wave order the wave's reads before its writes and its writes before the
+next wave; the extraction rows come out in stream order. On the CPU,
+:func:`wave_scan_reference` runs the waves one by one (gather → merge →
+scatter, ``scan.step``): the columns gathered into wave order once, each
+wave a contiguous slice. Only the real waves run: the JAX package pads the
+wave count to few distinct values so that XLA compiles few programs.
 
 Row-sharded (``zebra_tpu_torch/parallel/``), each rank holds a block of
-the index's rows: a wave's W·R rows come through one fetch of the row
-exchange, every rank merges every lane, and each rank writes the new rows
-it owns, which its plan lists (``WavePlan.own_*``, from the host
-columns). Every rank then holds the whole chunk's extraction rows. With
-``n_shards`` > 1 the scheduler aligns the lanes to the owners of the
-sources (``csrc/wave_schedule.cc``); a wave's lanes are laid out compact
-either way, so an aligned wave with an empty block is a narrower
+the index's rows and the waves stay a loop, since a host exchange separates
+them: a wave's W·R rows come through one fetch of the row exchange, every
+rank merges every lane (one ``santa_merge`` launch on the card), and each
+rank writes the new rows it owns, which its plan lists (``WavePlan.own_*``,
+from the host columns). Every rank then holds the whole chunk's extraction
+rows. With ``n_shards`` > 1 the scheduler aligns the lanes to the owners
+of the sources (``csrc/wave_schedule.cc``); a wave's lanes are laid out
+compact either way, so an aligned wave with an empty block is a narrower
 launch."""
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from zebra_tpu_torch import build
 from zebra_tpu_torch.index.layout import TpprParams
 from zebra_tpu_torch.index.scan import sharded_step, step
 from zebra_tpu_torch.index.streaming import TpprState, _columns
+from zebra_tpu_torch.index.wave_kernel import SANTA_WAVES
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,13 +102,15 @@ def wave_flat_index(src, dst, neg, n_nodes: int, cap: int = 64,
 
 
 class WavePlan(NamedTuple):
-    """One chunk's schedule, laid out for the device loop."""
+    """One chunk's schedule, laid out for the device."""
 
     order: torch.Tensor        # i64 [E'] stream positions of the scheduled
                                # events, wave after wave, lanes in order
     inv: torch.Tensor          # i64 [E] each event's place in ``order``;
                                # E' for an unscheduled (invalid) event
     bounds: Tuple[int, ...]    # wave w is order[bounds[w]:bounds[w + 1]]
+    order32: torch.Tensor      # ``order`` and ``bounds`` as i32 on the
+    bounds32: torch.Tensor     # device: what santa_waves reads
     # row-sharded only (None otherwise): the written rows this rank owns,
     # as entries of the [2E'] rows the waves write (src, dst per lane, in
     # order), their local row ids, and wave w's part of both,
@@ -116,14 +123,35 @@ class WavePlan(NamedTuple):
     def n_waves(self) -> int:
         return len(self.bounds) - 1
 
+    @property
+    def width(self) -> int:
+        """The widest wave's lanes (0 without waves)."""
+        return int(np.diff(self.bounds).max()) if self.n_waves else 0
+
+
+def _upload(arrays, device) -> list:
+    """The numpy ``arrays`` on ``device`` through one host-to-device copy:
+    packed into one byte buffer at 8-byte offsets, then sliced and viewed
+    back as their dtypes."""
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // 8) * 8
+    buf = np.zeros(max(total, 8), np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o: o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8)
+    on_dev = torch.from_numpy(buf).to(device)
+    return [on_dev[o: o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            for a, o in zip(arrays, offsets)]
+
 
 def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int, device,
                n_shards: int = 1, rows: Optional[range] = None) -> WavePlan:
     """Schedule the valid events of a chunk (host numpy columns; ``neg``
     [E], or [E, S] with one negative per seed) and lay the schedule out as
-    a :class:`WavePlan` on ``device``. ``n_shards`` aligns the lanes to
-    the sources' owners; ``rows``, the global ids a rank of a row-sharded
-    index holds, adds the rows it writes (``own_*``)."""
+    a :class:`WavePlan` on ``device``, in one upload. ``n_shards`` aligns
+    the lanes to the sources' owners; ``rows``, the global ids a rank of a
+    row-sharded index holds, adds the rows it writes (``own_*``)."""
     valid = np.asarray(valid, bool)
     pos = np.flatnonzero(valid)
     flat, n_waves = wave_flat_index(np.asarray(src)[pos], np.asarray(dst)[pos],
@@ -132,68 +160,117 @@ def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int, device,
     by_slot = np.argsort(flat, kind="stable")
     order = pos[by_slot]
     counts = np.bincount(flat[by_slot] // cap, minlength=n_waves)
-    bounds = np.concatenate([[0], np.cumsum(counts)])
+    bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     inv = np.full(len(valid), len(pos), np.int64)
     inv[order] = np.arange(len(pos))
-    as_t = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)
-    own = {}
+    host = [order.astype(np.int64), inv, order.astype(np.int32),
+            bounds.astype(np.int32)]
+    own_bounds = None
     if rows is not None:
         written = np.stack([np.asarray(src)[order], np.asarray(dst)[order]],
                            axis=1).reshape(-1).astype(np.int64)
         own_pos = np.flatnonzero((written >= rows.start)
                                  & (written < rows.stop))
-        own = dict(own_pos=as_t(own_pos),
-                   own_rows=as_t(written[own_pos] - rows.start),
-                   own_bounds=tuple(int(b) for b in np.searchsorted(
-                       own_pos, 2 * bounds)))
-    return WavePlan(as_t(order), as_t(inv), tuple(int(b) for b in bounds),
-                    **own)
+        host += [own_pos.astype(np.int64),
+                 written[own_pos] - rows.start]
+        own_bounds = tuple(int(b) for b in np.searchsorted(own_pos,
+                                                           2 * bounds))
+    d_order, d_inv, order32, bounds32, *own = _upload(host, device)
+    return WavePlan(d_order, d_inv, tuple(int(b) for b in bounds), order32,
+                    bounds32, *(own or (None, None)), own_bounds)
 
 
-def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
-                    eidx, valid, plan: WavePlan, exchange=None
-                    ) -> Tuple[TpprState, torch.Tensor]:
-    """Scan a chunk wave by wave (one ``santa_merge`` launch per wave on the
-    card). ``neg`` is [E], or [E, S] for the seed-parallel trainer, whose
-    plan must then come from all S columns. Updates ``state`` in place;
-    returns it and the pre-edge rows [E, 2+S, F] in stream order (src, dst,
-    then one negative per seed; [E, 3, F] for one negative), zero for
-    unscheduled events. The merge reads rows 0-1 of each edge and leaves
-    the negatives' rows to the extraction.
-
-    The columns are checked once (``_columns``: one host read), gathered
-    into wave order once, and each wave's extraction rows are gathered
-    straight into its slice of the [E' + 1, 2+S, F] buffer whose last row
-    is the zero row of the unscheduled events. With the row ``exchange``
-    (a row-sharded index: ``state`` holds this rank's rows, the plan its
-    writes) each wave runs :func:`~zebra_tpu_torch.index.scan.sharded_step`
-    and every rank returns the whole chunk's rows."""
-    data = state.data
-    n_nodes = None if exchange is None else exchange.rows * exchange.mesh.size
-    src, dst, neg, t, eidx, _ = _columns(data, src, dst, neg, t, eidx, valid,
-                                         n_nodes)
+def _wave_layout(data, src, dst, neg, t, eidx, plan: WavePlan):
+    """The chunk's columns gathered into wave order once, for a loop over
+    the waves (wave w is the slice ``plan.bounds[w]:plan.bounds[w + 1]``):
+    the row ids [E', 2+S] of each lane (src, dst, negatives), the written
+    rows' ids [2E'], the [E' + 1, 2+S, F] extraction buffer whose last row
+    is the zero row of the unscheduled events, and (src, dst, eidx, t)."""
     order = plan.order
     w_src, w_dst, w_neg, w_t, w_eidx = (
         c.index_select(0, order) for c in (src, dst, neg, t, eidx))
     ids = torch.cat([w_src[:, None], w_dst[:, None],
                      w_neg.view(order.shape[0], -1)], dim=1).to(torch.int64)
-    write_ids = ids[:, :2].reshape(-1)
     n_sched, f = order.shape[0], data.shape[1]
     rows = torch.empty((n_sched + 1, ids.shape[1], f), dtype=data.dtype,
                        device=data.device)
     rows[n_sched] = 0.0
+    return ids, ids[:, :2].reshape(-1), rows, (w_src, w_dst, w_eidx, w_t)
+
+
+def _waves(plan: WavePlan):
+    """(w, lo, hi) of each non-empty wave."""
     bounds = plan.bounds
-    for w, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
-        if hi == lo:
-            continue
-        if exchange is not None:
-            a, b = plan.own_bounds[w], plan.own_bounds[w + 1]
-            sharded_step(data, ids[lo:hi], rows[lo:hi], w_src[lo:hi],
-                         w_dst[lo:hi], w_eidx[lo:hi], w_t[lo:hi], params,
-                         exchange, plan.own_pos[a:b] - 2 * lo,
-                         plan.own_rows[a:b])
-            continue
-        step(data, ids[lo:hi], rows[lo:hi], w_src[lo:hi], w_dst[lo:hi],
-             w_eidx[lo:hi], w_t[lo:hi], None, params,
-             write_ids=write_ids[2 * lo: 2 * hi])
-    return state, rows.index_select(0, plan.inv)
+    return [(w, lo, hi) for w, (lo, hi) in enumerate(zip(bounds[:-1],
+                                                          bounds[1:]))
+            if hi > lo]
+
+
+def wave_scan_reference(data: torch.Tensor, params: TpprParams, src, dst,
+                        neg, t, eidx, plan: WavePlan,
+                        merge=None) -> torch.Tensor:
+    """The plain wave scan, one ``scan.step`` per wave, on the CPU or the
+    card: updates ``data`` [N, F] in place and returns the pre-edge rows
+    [E, 2+S, F] in stream order, zero for unscheduled events. Columns as
+    ``_columns`` gives them. ``merge`` is the step's merge: ``None`` for
+    ``merge.merge_both`` (the plain merge for a CPU tensor, one
+    ``santa_merge`` launch per wave for a CUDA one), or
+    ``merge.merge_both_reference``."""
+    ids, write_ids, rows, cols = _wave_layout(data, src, dst, neg, t, eidx,
+                                              plan)
+    kw = {} if merge is None else dict(merge=merge)
+    for _, lo, hi in _waves(plan):
+        step(data, ids[lo:hi], rows[lo:hi], *(c[lo:hi] for c in cols), None,
+             params, write_ids=write_ids[2 * lo: 2 * hi], **kw)
+    return rows.index_select(0, plan.inv)
+
+
+def _wave_scan_sharded(data: torch.Tensor, params: TpprParams, src, dst,
+                       neg, t, eidx, plan: WavePlan,
+                       exchange) -> torch.Tensor:
+    """:func:`wave_scan_reference` on a row-sharded index: one
+    :func:`~zebra_tpu_torch.index.scan.sharded_step` per wave."""
+    ids, _, rows, cols = _wave_layout(data, src, dst, neg, t, eidx, plan)
+    for w, lo, hi in _waves(plan):
+        a, b = plan.own_bounds[w], plan.own_bounds[w + 1]
+        sharded_step(data, ids[lo:hi], rows[lo:hi],
+                     *(c[lo:hi] for c in cols), params, exchange,
+                     plan.own_pos[a:b] - 2 * lo, plan.own_rows[a:b])
+    return rows.index_select(0, plan.inv)
+
+
+def wave_scan_chunk(state: TpprState, params: TpprParams, src, dst, neg, t,
+                    eidx, valid, plan: WavePlan, exchange=None
+                    ) -> Tuple[TpprState, torch.Tensor]:
+    """Scan a chunk wave by wave. ``neg`` is [E], or [E, S] for the
+    seed-parallel trainer, whose plan must then come from all S columns.
+    Updates ``state`` in place; returns it and the pre-edge rows
+    [E, 2+S, F] in stream order (src, dst, then one negative per seed;
+    [E, 3, F] for one negative), zero for unscheduled events. The merge
+    reads rows 0-1 of each edge and leaves the negatives' rows to the
+    extraction.
+
+    The columns are checked once (``_columns``: one host read). A CUDA
+    tensor is one ``santa_waves`` launch for the chunk; a CPU tensor runs
+    :func:`wave_scan_reference` (no fallback). With the row ``exchange``
+    (a row-sharded index: ``state`` holds this rank's rows, the plan its
+    writes) each wave runs :func:`~zebra_tpu_torch.index.scan.sharded_step`
+    and every rank returns the whole chunk's rows."""
+    data = state.data
+    n_nodes = None if exchange is None else exchange.rows * exchange.mesh.size
+    src, dst, neg, t, eidx, valid = _columns(data, src, dst, neg, t, eidx,
+                                             valid, n_nodes)
+    if exchange is not None:
+        return state, _wave_scan_sharded(data, params, src, dst, neg, t,
+                                         eidx, plan, exchange)
+    if data.device.type == "cpu":
+        return state, wave_scan_reference(data, params, src, dst, neg, t,
+                                          eidx, plan)
+    if data.device.type == "cuda":
+        n_neg = 1 if neg.dim() == 1 else neg.shape[1]
+        ext = torch.empty((src.shape[0], 2 + n_neg, data.shape[1]),
+                          dtype=data.dtype, device=data.device)
+        return state, SANTA_WAVES(data, params, src, dst, neg, t, eidx,
+                                  valid, plan, ext)
+    raise ValueError(f"the wave scan runs on cpu or cuda tensors, not "
+                     f"{data.device}")

@@ -18,7 +18,7 @@ Wikipedia-shaped stream (:func:`wikipedia_attention`, neighbors per hop
 ``--parallel_runs`` is given, and the model options given (the training
 command line's flags), runs a warm-up epoch, then:
 - one epoch with CUDA events between its parts, read after the epoch: the
-  device timeline split into the index wave loop ("index", streaming
+  device timeline split into the index wave scan ("index", streaming
   diffusion) or the batches' BFS calls ("query", pruning diffusion), the
   towers' forward with the loss ("forward": for the recursive towers the
   neighbor lookups, the lazy GRU over every gathered row and the attention
@@ -28,8 +28,9 @@ command line's flags), runs a warm-up epoch, then:
   is the host's enqueue time of that part;
 - one epoch without events, for the epoch's seconds (and, under pruning,
   the BFS calls' host time per batch);
-- one epoch under ``torch.profiler``: the device-busy share and the
-  kernels that take the device time;
+- one epoch under ``torch.profiler``: the device-busy share, the kernels
+  that take the device time and the santa kernels' device seconds (with
+  the epoch's santa_waves and santa_merge launches);
 - under pruning, one train batch's BFS alone: its device time (CUDA
   events) and the aten operations it enqueues; for a recursive tower, one
   train batch's neighbor lookups (one per hop) alone: their host time,
@@ -73,6 +74,7 @@ from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge
 from zebra_tpu_torch.index.neighbor_finder import most_recent_neighbors
 from zebra_tpu_torch.index.streaming import TpprState
+from zebra_tpu_torch.index.wave_kernel import SANTA_WAVES
 from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
 from zebra_tpu_torch.parallel.launch import launch
 from zebra_tpu_torch.profile_serve import device_ops
@@ -293,7 +295,7 @@ def sharded_rank(args) -> None:
                           edge_feats, device=args.device)
         epochs = []
         for _ in range(2):                     # a warm-up, a timed epoch
-            merge.SANTA_MERGE.launches = 0
+            merge.SANTA_MERGE.launches = SANTA_WAVES.launches = 0
             if rows:
                 trainer.exchange.reset_stats()
             torch.cuda.synchronize(trainer.device)
@@ -304,6 +306,7 @@ def sharded_rank(args) -> None:
                                waves=r.waves,
                                santa_merge_launches=merge.SANTA_MERGE
                                .launches,
+                               santa_waves_launches=SANTA_WAVES.launches,
                                gather_ms=1e3 * r.gather_seconds,
                                ap=np.atleast_1d(r.ap).tolist(),
                                exchange=exchange_stats(trainer)))
@@ -357,12 +360,13 @@ def main() -> None:
     marked_s = time.perf_counter() - t0
     parts = split_marks(marks)
 
-    merge.SANTA_MERGE.launches = 0
+    merge.SANTA_MERGE.launches = SANTA_WAVES.launches = 0
     t0 = time.perf_counter()
     plain = trainer.train_epoch()
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     launches = merge.SANTA_MERGE.launches
+    wave_launches = SANTA_WAVES.launches
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -375,8 +379,9 @@ def main() -> None:
     per_kernel = device_ops(prof)
     busy_s = sum(us for _, us in per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:10]
-    merge_s = sum(us for name, (_, us) in per_kernel.items()
-                  if "santa_merge" in name) / 1e6
+    merge_s, waves_s = (sum(us for name, (_, us) in per_kernel.items()
+                            if kernel in name) / 1e6
+                        for kernel in ("santa_merge", "santa_waves"))
 
     batches = int(plain.per_batch.shape[0])
     extra = {}
@@ -420,6 +425,7 @@ def main() -> None:
         n_layer=cfg.n_layer, parallel_runs=cfg.n_seeds, **options,
         train_events=n_train, batches=batches,
         waves=plain.waves, santa_merge_launches=launches,
+        santa_waves_launches=wave_launches,
         epoch_s=epoch_s, train_events_per_s=n_train / epoch_s,
         index_host_s=plain.index_seconds,
         marked_epoch_s=marked_s, marked_parts_s=parts,
@@ -428,7 +434,8 @@ def main() -> None:
         traced_epoch_s=traced_s, device_busy_s=busy_s,
         device_busy_share_traced=busy_s / traced_s,
         device_busy_share_of_epoch=busy_s / epoch_s,
-        santa_merge_device_s=merge_s, **extra,
+        santa_merge_device_s=merge_s, santa_waves_device_s=waves_s,
+        **extra,
         message_table_bytes=trainer.mem.messages.numel()
         * trainer.mem.messages.element_size(),
         device_kernels=sum(n for n, _ in per_kernel.values()),

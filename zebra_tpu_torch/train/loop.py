@@ -5,12 +5,13 @@
 Per epoch: zeroed memory and an empty index, then the train stream in
 superchunks. For each superchunk the host schedules the waves of the index
 scan (this epoch's negatives included, as their rows are read), the device
-runs the wave scan (``index/waves.py``: one ``santa_merge`` launch per wave
-on the card), which extracts every event's T-PPR queries before its
-update, and ``run_phase`` trains over the chunk's batches with them. The
-index state at the end of the train stream is the state validation starts
-from. Under the pruning strategy there is no index state and no wave
-scan: each batch's queries are a bounded BFS over an adjacency index built
+runs the wave scan (``index/waves.py``: one ``santa_waves`` launch per
+superchunk on the card; row-sharded, one ``santa_merge`` launch per wave),
+which extracts every event's T-PPR queries before its update, and
+``run_phase`` trains over the chunk's batches with them. The index state
+at the end of the train stream is the state validation starts from. Under
+the pruning strategy there is no index state and no wave scan: each
+batch's queries are a bounded BFS over an adjacency index built
 once, of the train graph in training and of the full graph in validate
 and test (``index/pruning.py``); a stop request then takes effect at the
 end of the epoch, as in the JAX package. The towers other than diffusion
@@ -196,8 +197,9 @@ class PhaseResult:
     index_seconds: float = 0.0   # host clock in the index: scheduling and
                                  # enqueueing the waves, or the BFS calls
                                  # (the device runs them behind the host)
-    waves: int = 0               # index waves run: one santa_merge launch
-                                 # each on the card
+    waves: int = 0               # index waves run (on the card one
+                                 # santa_waves launch per superchunk, or,
+                                 # row-sharded, one santa_merge per wave)
     gather_seconds: float = 0.0  # host clock in the gather of every
                                  # rank's lanes of the metrics (sharded)
     overflow: float = 0.0        # >0: a train batch overflowed the lazy
@@ -398,8 +400,12 @@ class Trainer:
         self._stop_requested = False
         # the early-stop monitor's fields riding in fit's state files
         self._fit_state: Optional[Dict] = None
-        # index waves run so far: one santa_merge launch each on the card
+        # index waves run so far; of them the row-sharded scans' waves, one
+        # exchange and one santa_merge launch each on the card; and the
+        # superchunks scanned in one piece, one santa_waves launch each
         self.index_waves = 0
+        self.index_sharded_waves = 0
+        self.index_scans = 0
         # set once a batch overflowed the lazy compaction's cap: training
         # then runs per position for the rest of the run
         self._lazy_fallback = False
@@ -606,7 +612,7 @@ class Trainer:
         chunk = stream.src.shape[0] // ps.n_chunks
         per_chunk = chunk // cfg.bs
         n_valid = ps.n_valid()
-        metrics, waves, bfs_s, overflow = [], 0, [], []
+        metrics, waves, scans, bfs_s, overflow = [], 0, 0, [], []
         nbr_index = self.train_nbr_index if train else self.full_nbr_index
         _mark(marks, "start")
         for ci in chunks:
@@ -621,6 +627,7 @@ class Trainer:
                     torch.cuda.synchronize(self.device)
                 t_index += time.perf_counter() - ti
                 waves += plans[ci].n_waves
+                scans += 1
                 _mark(marks, "index")
             else:
                 # the BFS's index, or none for a tower without T-PPR
@@ -643,6 +650,10 @@ class Trainer:
                 if wave_scan and self._agree_stop():
                     break
         self.index_waves += waves
+        if row_sharded:
+            self.index_sharded_waves += waves
+        else:
+            self.index_scans += scans
         t_gather = time.perf_counter()
         if row_sharded:
             # every rank's block scores, once; the metrics of whole batches

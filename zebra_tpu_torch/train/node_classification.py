@@ -5,8 +5,8 @@
    evaluation protocol for memory and index) that emits each event's
    source embedding. Destinations stand in the negative slot, as in the
    reference's call. The streaming index runs through the Trainer's wave
-   path (``plan_waves`` + ``wave_scan_chunk``: one ``santa_merge`` launch
-   per wave on the card); under the pruning strategy each batch's src‖dst
+   path (``plan_waves`` + ``wave_scan_chunk``: one ``santa_waves`` launch
+   per superchunk on the card); under the pruning strategy each batch's src‖dst
    roots take one BFS over an adjacency index. The towers other than
    diffusion read no T-PPR query: the recursive ones search the adjacency
    index at the events' times. Each batch's memory protocol stores then
@@ -198,9 +198,11 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
     params in eval mode, emitting each event's source embedding; the
     decoder is fit on the train stream's embeddings against the event
     labels and scored by ROC-AUC on all three streams. The replay's index
-    waves count into ``trainer.index_waves``; under the pruning strategy,
-    and for the recursive towers, the replay queries the train graph on the
-    train stream and the full graph on the val and test streams. A
+    waves count into ``trainer.index_waves`` and its superchunks, each
+    scanned in one piece, into ``trainer.index_scans``; under the pruning
+    strategy, and for the recursive towers, the replay queries the train
+    graph on the train stream and the full graph on the val and test
+    streams. A
     row-sharded Trainer replays on every rank at full N from fresh tables,
     as JAX's replay runs on one device whatever the mesh: the same waves
     as one process, no exchange, the rank's (permuted, under the
@@ -226,6 +228,8 @@ def run_node_classification(trainer, n_steps: int = 500, lr: float = 1e-3,
             cfg, trainer.params, mem, index_state, trainer.edge_feats,
             trainer._streams[name], nbr_index[name])
         trainer.index_waves += waves
+        if cfg.keeps_tppr_index:
+            trainer.index_scans += trainer._streams[name].n_chunks
         embs[name] = e[: data.n_interactions]   # padding trails the events
         labels[name] = torch.as_tensor(data.labels, dtype=torch.float32,
                                        device=trainer.device)
