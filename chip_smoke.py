@@ -15,11 +15,15 @@ Phases, in order; any failure exits non-zero:
    - santa_waves on the bench stream's first train superchunk (64,400
      events, 1,007 waves of at most 64 lanes) with one, five and two
      negatives per event (R = 3, 7, 4: one seed, phase 9's, a phase 13
-     rank's), and on 2,000 events of that dense stream cut into waves
-     (self-loops, invalid events, lanes that write a row an earlier lane
-     of their wave reads as a negative), against the per-wave santa_merge
-     loop and the plain loop, with the wave chain's time at santa_scan's
-     measured step beside its bound;
+     rank's) and planned at wave_cap 256 (730 waves of up to 256 lanes:
+     several passes of the cluster per wave), and on 2,000 events of that
+     dense stream cut into waves (self-loops, invalid events, lanes that
+     write a row an earlier lane of their wave reads as a negative) at
+     (M, k) = (2, 20) and (3, 40), against the per-wave santa_merge loop
+     and the plain loop, untraced and traced; with the cluster's size, its
+     lanes per block, the redirected negatives, the traced µs per wave of
+     each part, the time beside the cooperative design's and the wave
+     chain's time at santa_scan's measured step beside its bound;
 4. serve: the flagship serving configuration at full width (streaming T-PPR,
    top-20, two-member ensemble, diffusion tower, GRU, bf16 tables) on the
    bench stream, through ``LinkPredictor.observe``/``score`` on the card,
@@ -225,8 +229,12 @@ from zebra_tpu_torch.data.preprocess import write_ml
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.device import resolve_device
 from zebra_tpu_torch.index import merge, pruning, scan
-from zebra_tpu_torch.index.wave_kernel import SANTA_WAVES
-from zebra_tpu_torch.index.waves import plan_waves, wave_scan_reference
+from zebra_tpu_torch.index.wave_kernel import SANTA_WAVES, TRACE_PARTS
+from zebra_tpu_torch.index.waves import (
+    plan_waves,
+    redirects,
+    wave_scan_reference,
+)
 from zebra_tpu_torch.index.neighbor_finder import (
     build_neighbor_index,
     most_recent_neighbors,
@@ -395,13 +403,28 @@ SHARD_FLAGS = ["--bs", "200", "--topk", "20", "--alpha_list", "0.1", "0.1",
                "--state_every", "1", "--parallel_runs", str(SHARD_SEEDS)]
 BACKUP_SEEDS = SEEDS
 # santa_waves: the negatives per event of the training superchunks it scans
-# (one seed, phase 9's seeds, a phase 13 rank's), and the events of the
-# dense stress chunk
+# (one seed, phase 9's seeds, a phase 13 rank's); the wider cap the one-seed
+# superchunk is planned at besides (waves wider than the cluster holds at
+# once); the events of the dense stress chunk and its (M, k)
 WAVES_SEEDS = (("train superchunk", 1),
                ("seed-parallel train superchunk", SEEDS),
                ("seed-sharded rank's train superchunk",
                 SHARD_SEEDS // SHARD_RANKS))
+WAVES_WIDE_CAP = 256
 WAVES_STRESS_EVENTS = 2000
+WAVES_STRESS_SHAPES = ((2, 20), (3, 40))
+# santa_waves' device ms at those chunks in its cooperative-grid design (a
+# grid of the widest wave's blocks, two software grid barriers per wave, a
+# global stage): scripts/trace_coop_waves.py on an NVIDIA H100 80GB HBM3
+# at 700.00 W
+WAVES_COOP_MS = {
+    "train superchunk": 7.937903881072998,
+    "seed-parallel train superchunk": 10.209728240966797,
+    "seed-sharded rank's train superchunk": 8.553823947906494,
+    f"train superchunk at wave_cap {WAVES_WIDE_CAP}": 5.7934558391571045,
+    "dense 301-node stress, M = 2, k = 20": 1.031711995601654,
+    "dense 301-node stress, M = 3, k = 40": 1.7480159997940063,
+}
 GUARD_SEEDS = (2, BACKUP_SEEDS)
 WIKI_TALK_NODES = 1_140_096
 # Phase 14, row sharding: one seed over two ranks on the one card; the
@@ -537,14 +560,14 @@ def realistic_rows(w: int, m: int, k: int, seed: int):
     return params, rows, cuda(src), cuda(dst), cuda(eidx), cuda(ts)
 
 
-def scan_stream(n: int, m: int, k: int, seed: int):
+def scan_stream(n: int, m: int, k: int, seed: int, device: str = "cuda"):
     """:func:`warm_stream`'s index on the card and its next ``n`` events,
     with the cases where a fused scan most easily differs from the loop:
     self-loops (every 9th event), invalid events (every 7th), neg equal to
     the previous event's src (every 5th) or dst (every 6th), and src equal
     to the previous dst (every 8th). The 301-node stream shares nodes
     between near events all the time besides. Returns (params, data,
-    columns on the card)."""
+    columns on ``device``)."""
     params, data, (src, dst, neg, ts, eidx) = warm_stream(m, k, seed, n)
     valid = np.ones(n, bool)
     valid[3::7] = False
@@ -552,7 +575,7 @@ def scan_stream(n: int, m: int, k: int, seed: int):
         i = np.arange(step // 4, n, step)
         col[i] = prev[i - 1]
     dst[::9] = src[::9]
-    data = data.cuda()
+    data = data.to(device)
     return params, data, _columns(data, src, dst, neg, ts, eidx, valid)
 
 
@@ -692,6 +715,31 @@ def waves_work(rows: torch.Tensor, cols, plan, m: int, k: int):
     return nbytes, ops
 
 
+def sm_clock_mhz(fn, n: int) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while ``n`` calls of
+    ``fn``, enqueued first, keep the card busy."""
+    for _ in range(n):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    return float(out.stdout.split()[0])
+
+
+def trace_split(stamps: torch.Tensor, mhz: float, parts) -> dict:
+    """µs per wave of each part of a wave from a traced launch's clock64
+    stamps [n_waves, len(parts)] (thread 0 of block 0, at the end of each
+    part): part 0 runs from the previous wave's last stamp, so the first
+    wave is left out."""
+    t = stamps.cpu().double()
+    if t.shape[0] < 2:
+        return {}
+    flat = t.reshape(-1)
+    steps = (flat[1:] - flat[:-1])[len(parts) - 1:].reshape(-1, len(parts))
+    return {p: float(steps[:, i].mean()) / mhz for i, p in enumerate(parts)}
+
+
 def same_wave_write_after_read(plan, src, dst, neg) -> int:
     """The lanes that write a row which an earlier lane of their wave reads
     as a negative (host columns): the case that needs santa_waves' first
@@ -726,28 +774,38 @@ def waves_chunks(device: str = "cuda"):
     host = {c: ps.host[c][sl] for c in ("src", "dst", "valid")}
     t, eidx = ps.stream.t[sl], ps.stream.eidx[sl]
     f = row_width(cfg.n_tppr, cfg.topk)
-    for what, n_neg in WAVES_SEEDS:
+    shapes = [(what, n_neg, cfg.wave_cap) for what, n_neg in WAVES_SEEDS]
+    shapes.append((f"train superchunk at wave_cap {WAVES_WIDE_CAP}", 1,
+                   WAVES_WIDE_CAP))
+    for what, n_neg, cap in shapes:
         neg = np.ascontiguousarray(negs[:, 0] if n_neg == 1
                                    else negs[:, :n_neg])
         plan = plan_waves(host["src"], host["dst"], neg, host["valid"],
-                          cfg.n_nodes, cfg.wave_cap, device)
+                          cfg.n_nodes, cap, device)
         start = torch.zeros((cfg.n_nodes, f), device=device)
         cols = _columns(start, host["src"], host["dst"], neg, t, eidx,
                         host["valid"])
         yield what, params, start, cols, plan
     del trainer
-    params, start, cols = scan_stream(WAVES_STRESS_EVENTS, 2, 20, seed=7)
-    h = [c.cpu().numpy() for c in cols]
-    plan = plan_waves(h[0], h[1], h[2], h[5], start.shape[0], WAVE_CAP,
-                      "cuda")
-    yield "dense 301-node stress", params, start, cols, plan
+    for m, k in WAVES_STRESS_SHAPES:
+        params, start, cols = scan_stream(WAVES_STRESS_EVENTS, m, k, 7,
+                                          device)
+        h = [c.cpu().numpy() for c in cols]
+        plan = plan_waves(h[0], h[1], h[2], h[5], start.shape[0], WAVE_CAP,
+                          device)
+        yield f"dense 301-node stress, M = {m}, k = {k}", params, start, \
+            cols, plan
 
 
 def waves_kernel_phase(card: str, scan_us_per_event: float):
     """santa_waves on each of :func:`waves_chunks`, bit for bit against the
     per-wave santa_merge loop and the plain loop on the card (the table and
-    the extraction rows in stream order), with its time, the loops' times,
-    the bound and the wave chain's time at santa_scan's measured step."""
+    the extraction rows in stream order), untraced and traced, with its
+    geometry, the redirected negatives (and the host ms of their list), its
+    time beside the cooperative design's (:data:`WAVES_COOP_MS`), the
+    loops' times, the bound, the wave chain's time at santa_scan's measured
+    step, and the traced launch's µs per wave of each part at the SM clock
+    nvidia-smi reads."""
     results = []
     for what, params, start, cols, plan in waves_chunks():
         m, k = len(params.alpha), params.k
@@ -763,38 +821,63 @@ def waves_kernel_phase(card: str, scan_us_per_event: float):
         by_wave_rows = loop(by_wave)
         assert merge.SANTA_MERGE.launches == plan.n_waves, (
             merge.SANTA_MERGE.launches, plan.n_waves)
-        got = start.clone()
-        SANTA_WAVES.launches = 0
-        SANTA_WAVES(got, params, *cols, plan, ext)
-        assert SANTA_WAVES.launches == 1
-        torch.cuda.synchronize()
+        trace = torch.zeros((plan.n_waves, len(TRACE_PARTS)),
+                            dtype=torch.int64, device="cuda")
         tag = f"santa_waves {what}"
-        err = max(_equal(got, want, tag + " data"),
-                  _equal(ext, want_rows, tag + " rows"),
-                  _equal(by_wave, want, tag + " santa_merge loop data"),
+        err = max(_equal(by_wave, want, tag + " santa_merge loop data"),
                   _equal(by_wave_rows, want_rows,
                          tag + " santa_merge loop rows"))
+        for tr in (None, trace):
+            got = start.clone()
+            ext.fill_(float("nan"))
+            SANTA_WAVES.launches = 0
+            SANTA_WAVES(got, params, *cols, plan, ext, trace=tr)
+            assert SANTA_WAVES.launches == 1
+            torch.cuda.synchronize()
+            traced = " traced" if tr is not None else ""
+            err = max(err, _equal(got, want, tag + traced + " data"),
+                      _equal(ext, want_rows, tag + traced + " rows"))
+        geom = SANTA_WAVES.geom
         h = [c.cpu().numpy() for c in cols[:3]]
         war = same_wave_write_after_read(plan, *h)
+        order = plan.order.cpu().numpy()
+        t0 = time.perf_counter()
+        redirects(*h, order, plan.bounds, start.shape[0])
+        redirect_host_ms = 1e3 * (time.perf_counter() - t0)
         work = start.clone()
-        ms = device_ms(lambda: SANTA_WAVES(work, params, *cols, plan, ext),
-                       n=20, per_round=5, warmup=3)
+        run = lambda tr=None: SANTA_WAVES(work, params, *cols, plan, ext,
+                                          trace=tr)
+        ms = device_ms(run, n=20, per_round=5, warmup=3)
+        traced_ms = device_ms(lambda: run(trace), n=20, per_round=5,
+                              warmup=3)
+        mhz = sm_clock_mhz(lambda: run(trace), max(50, int(2000 / ms)))
         merge_loop_ms = _event_ms(lambda: loop(work))
         plain_ms = _event_ms(lambda: loop(work, merge.merge_both_reference),
                              n=1)
         bound_ms, bound_by = bound(*waves_work(want_rows, cols, plan, m, k))
         res = dict(shape=what, E=n, scheduled=len(plan.order), R=r, M=m,
                    k=k, waves=plan.n_waves, widest_wave=plan.width,
-                   grid=SANTA_WAVES.grid, same_wave_write_after_read=war,
-                   launches=1, santa_merge_loop_launches=plan.n_waves,
-                   max_abs_err=err, ms=ms, us_per_wave=1e3 * ms
-                   / max(plan.n_waves, 1), santa_merge_loop_ms=merge_loop_ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   cluster=geom.cluster, lanes_per_block=geom.lanes,
+                   smem_bytes=geom.smem_bytes,
+                   redirected=int(plan.redirect.shape[0]),
+                   redirect_host_ms=redirect_host_ms,
+                   same_wave_write_after_read=war, launches=1,
+                   santa_merge_loop_launches=plan.n_waves, max_abs_err=err,
+                   ms=ms, cooperative_ms=WAVES_COOP_MS.get(what),
+                   us_per_wave=1e3 * ms / max(plan.n_waves, 1),
+                   traced_ms=traced_ms, sm_mhz=mhz,
+                   stamped_mhz_by_events=float(trace[-1, -1] - trace[0, 0])
+                   / traced_ms / 1e3,
+                   traced_us_per_wave=trace_split(trace, mhz, TRACE_PARTS),
+                   santa_merge_loop_ms=merge_loop_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
                    chain_ms_at_scan_step=plan.n_waves * scan_us_per_event
                    / 1e3, library_ms=None, card=card)
         print("kernel santa_waves " + json.dumps(res), flush=True)
         results.append(res)
-    assert results[-1]["same_wave_write_after_read"] > 0, results[-1]
+    for res in results:
+        if res["shape"].startswith("dense"):
+            assert res["same_wave_write_after_read"] > 0, res
     return results
 
 

@@ -12,12 +12,15 @@ writes, so the wave scan is bit-equal to the sequential scan
 
 Per chunk the host turns the schedule into a :class:`WavePlan`: the stream
 positions of the scheduled events in wave order, each event's place in that
-order, and where each wave starts, uploaded in one copy. On the card the
-whole chunk is one launch of ``csrc/santa_waves.cu``
-(``wave_kernel.SANTA_WAVES``), as the JAX package runs it as one XLA
-program: its blocks take the lanes of a wave, and two grid barriers per
-wave order the wave's reads before its writes and its writes before the
-next wave; the extraction rows come out in stream order. On the CPU,
+order, where each wave starts, and the redirect list (:func:`redirects`:
+each negative that a lane reads from a row its wave writes, and the lane
+that writes it), uploaded in one copy. On the card the whole chunk is one
+launch of ``csrc/santa_waves.cu`` (``wave_kernel.SANTA_WAVES``), as the
+JAX package runs it as one XLA program: one thread-block cluster whose
+lanes take a wave's events; a redirected negative's pre-wave row comes from
+its writer, so the merge writes straight into the table, and one cluster
+barrier per wave orders its writes before the next wave's reads; the
+extraction rows come out in stream order. On the CPU,
 :func:`wave_scan_reference` runs the waves one by one (gather → merge →
 scatter, ``scan.step``): the columns gathered into wave order once, each
 wave a contiguous slice. Only the real waves run: the JAX package pads the
@@ -111,6 +114,15 @@ class WavePlan(NamedTuple):
     bounds: Tuple[int, ...]    # wave w is order[bounds[w]:bounds[w + 1]]
     order32: torch.Tensor      # ``order`` and ``bounds`` as i32 on the
     bounds32: torch.Tensor     # device: what santa_waves reads
+    # the redirect list (:func:`redirects`), what santa_waves reads too:
+    # i32 [n, 4] rows (writer's place in ``order``, reader's stream
+    # position, negative slot, 0 if the writer's src row is the one read
+    # or 1 for its dst row) sorted by writer; i32 [E' + 1] where each
+    # writer's rows start; u8 [E', S] 1 where the reader at that place
+    # skips the negative
+    redirect: Optional[torch.Tensor] = None
+    redirect_start: Optional[torch.Tensor] = None
+    redirect_mask: Optional[torch.Tensor] = None
     # row-sharded only (None otherwise): the written rows this rank owns,
     # as entries of the [2E'] rows the waves write (src, dst per lane, in
     # order), their local row ids, and wave w's part of both,
@@ -132,17 +144,61 @@ class WavePlan(NamedTuple):
 def _upload(arrays, device) -> list:
     """The numpy ``arrays`` on ``device`` through one host-to-device copy:
     packed into one byte buffer at 8-byte offsets, then sliced and viewed
-    back as their dtypes."""
+    back as their dtypes and shapes."""
     offsets, total = [], 0
     for a in arrays:
         offsets.append(total)
         total += -(-a.nbytes // 8) * 8
     buf = np.zeros(max(total, 8), np.uint8)
     for a, o in zip(arrays, offsets):
-        buf[o: o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8)
+        buf[o: o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
     on_dev = torch.from_numpy(buf).to(device)
     return [on_dev[o: o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-            for a, o in zip(arrays, offsets)]
+            .view(a.shape) for a, o in zip(arrays, offsets)]
+
+
+@functools.lru_cache(maxsize=None)
+def _redirect_lister():
+    """``zt_wave_redirects`` of the host library, built at first use."""
+    i32p, i64p = (ctypes.POINTER(t) for t in (ctypes.c_int32, ctypes.c_int64))
+    fn = build.load("wave_schedule").zt_wave_redirects
+    fn.argtypes = [i32p, i32p, i32p, ctypes.c_int32, i64p, ctypes.c_int64,
+                   i64p, ctypes.c_int32, ctypes.c_int64, i32p, i32p,
+                   ctypes.POINTER(ctypes.c_uint8)]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def redirects(src, dst, neg, order, bounds, n_nodes: int):
+    """Every same-wave write after read of a schedule: a negative that a
+    lane reads from a row which a lane of its wave writes (a later lane, or
+    the lane itself; the schedule forbids an earlier one). Host columns
+    (``neg`` [E] or [E, S]), ``order`` and ``bounds`` as :class:`WavePlan`
+    holds them. Returns (list [n, 4] i32: writer's place in ``order``,
+    reader's stream position, negative slot, 0 for the writer's src row or
+    1 for its dst row (src for a self-loop), sorted by writer, then reader,
+    then slot; start [E' + 1] i32, where each writer's rows start; mask
+    [E', S] u8, 1 where the reader at that place skips the negative).
+    Built by ``zt_wave_redirects`` (``csrc/wave_schedule.cc``) in one pass
+    over the waves."""
+    src, dst = (np.ascontiguousarray(c, np.int32) for c in (src, dst))
+    negs = np.ascontiguousarray(np.asarray(neg, np.int32).reshape(len(src),
+                                                                  -1))
+    order = np.ascontiguousarray(order, np.int64)
+    bounds = np.ascontiguousarray(bounds, np.int64)
+    n_sched, n_neg = len(order), negs.shape[1]
+    rows = np.empty((n_sched * n_neg, 4), np.int32)
+    start = np.empty(n_sched + 1, np.int32)
+    mask = np.empty((n_sched, n_neg), np.uint8)
+    ptr = lambda a, t=ctypes.c_int32: a.ctypes.data_as(ctypes.POINTER(t))
+    n = _redirect_lister()(
+        ptr(src), ptr(dst), ptr(negs), n_neg, ptr(order, ctypes.c_int64),
+        n_sched, ptr(bounds, ctypes.c_int64), len(bounds) - 1, int(n_nodes),
+        ptr(rows), ptr(start), ptr(mask, ctypes.c_uint8))
+    if n < 0:
+        raise ValueError(f"redirects: node id out of range [0, {n_nodes})")
+    return rows[:n].copy(), start, mask
 
 
 def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int, device,
@@ -164,7 +220,8 @@ def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int, device,
     inv = np.full(len(valid), len(pos), np.int64)
     inv[order] = np.arange(len(pos))
     host = [order.astype(np.int64), inv, order.astype(np.int32),
-            bounds.astype(np.int32)]
+            bounds.astype(np.int32),
+            *redirects(src, dst, neg, order, bounds, n_nodes)]
     own_bounds = None
     if rows is not None:
         written = np.stack([np.asarray(src)[order], np.asarray(dst)[order]],
@@ -175,9 +232,10 @@ def plan_waves(src, dst, neg, valid, n_nodes: int, cap: int, device,
                  written[own_pos] - rows.start]
         own_bounds = tuple(int(b) for b in np.searchsorted(own_pos,
                                                            2 * bounds))
-    d_order, d_inv, order32, bounds32, *own = _upload(host, device)
+    d_order, d_inv, order32, bounds32, *rest = _upload(host, device)
     return WavePlan(d_order, d_inv, tuple(int(b) for b in bounds), order32,
-                    bounds32, *(own or (None, None)), own_bounds)
+                    bounds32, *rest[:3], *(rest[3:] or (None, None)),
+                    own_bounds)
 
 
 def _wave_layout(data, src, dst, neg, t, eidx, plan: WavePlan):
