@@ -1,6 +1,10 @@
 """Drive the PyTorch port (zebra_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent`` names an unpacked ``git archive`` of a commit with the serial
+santa_scan (one block, the events in stream order): the scan and fill
+phases then time it beside the cluster design, bit for bit too.
 
 Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
@@ -10,8 +14,15 @@ Phases, in order; any failure exits non-zero:
    for bit, with its time, the plain version's time and the least time the
    card could take:
    - santa_merge at the shapes a serving event and a training wave give it;
-   - santa_scan on 200-event chunks of a dense 301-node stream with
-     self-loops, invalid events and rows shared with the previous event;
+   - santa_scan on a b = 200 observe chunk of the bench stream and on
+     chunks of a dense 301-node stream with self-loops, invalid events and
+     rows shared with the previous event: 200 events at (M, k) = (2, 20),
+     (3, 40) and (4, 20), one event, and 2,048 events across a tile
+     boundary; untraced and traced, with and without extraction, its
+     levels held equal to ``scan.scan_levels``; with the cluster, the
+     depth, the widest level and the passes, ms per chunk, per event and
+     per level, the traced µs of the plan and of each part of a level,
+     the bound, and the serial design's time under ``--parent``;
    - santa_waves on the bench stream's first train superchunk (64,400
      events, 1,007 waves of at most 64 lanes) with one, five and two
      negatives per event (R = 3, 7, 4: one seed, phase 9's, a phase 13
@@ -23,7 +34,7 @@ Phases, in order; any failure exits non-zero:
      and the plain loop, untraced and traced; with the cluster's size, its
      lanes per block, the redirected negatives, the traced µs per wave of
      each part, the time beside the cooperative design's and the wave
-     chain's time at santa_scan's measured step beside its bound;
+     chain's time at santa_scan's measured µs per level beside its bound;
 4. serve: the flagship serving configuration at full width (streaming T-PPR,
    top-20, two-member ensemble, diffusion tower, GRU, bf16 tables) on the
    bench stream, through ``LinkPredictor.observe``/``score`` on the card,
@@ -31,7 +42,10 @@ Phases, in order; any failure exits non-zero:
 5. waves: ``edge_step`` on waves of node-disjoint events of the same stream
    (the santa_merge path), against ``fill_scan`` of the same events;
 6. fill: the whole 120,000-event bench stream through ``fill_scan`` in one
-   launch, and the count of live weights that are subnormal;
+   launch: its seconds, the kernel's ms, depth and traced split, the index
+   bit-equal to the stream in 200-event launches (and to the serial
+   design's launch under ``--parent``), and the count of live weights that
+   are subnormal;
 7. train: the flagship training configuration at full width on the bench
    stream through ``Trainer`` on the card: two ``train_epoch``s (the first
    a warm-up), ``validate()`` and ``test()``, one santa_waves launch per
@@ -280,13 +294,20 @@ from zebra_tpu_torch.utils.profiling import device_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-ALPHA = (0.1, 0.1, 0.0)
-BETA = (0.05, 0.95, 0.5)
+ALPHA = (0.1, 0.1, 0.0, 0.2)
+BETA = (0.05, 0.95, 0.5, 0.8)
 # (what gives the kernel this shape, W edges, M members, top-k)
 MERGE_SHAPES = [("serving observe", 1, 2, 20), ("training wave", 64, 2, 20),
                 ("large k", 64, 3, 40)]
-# (what gives the scan this shape, E events, M members, top-k)
-SCAN_SHAPES = [("serving observe", 200, 2, 20), ("large k", 200, 3, 40)]
+# (what gives the scan this shape, E events, M members, top-k): chunks of
+# the dense 301-node stress stream (scan_stream); the scan phase puts a
+# b = 200 observe chunk of the bench stream first, its events
+# [SCAN_BENCH_WARM, SCAN_BENCH_WARM + 200) with random negatives on the
+# index a plain fill of the events before them leaves
+SCAN_SHAPES = [("serving observe", 200, 2, 20), ("large k", 200, 3, 40),
+               ("one event", 1, 2, 20), ("tile boundary", 2048, 2, 20),
+               ("ensemble of four", 200, 4, 20)]
+SCAN_BENCH_WARM = 2000
 WAVE_EVENTS, WAVE_CAP = 2000, 64
 FLT_MIN = 1.17549435e-38
 
@@ -651,41 +672,186 @@ def _event_ms(fn, n: int = 3) -> float:
     return float(np.median(times))
 
 
-def scan_phase(card: str):
-    """santa_scan against scan_reference on the card, with and without
-    extraction; bit for bit in the table and the extraction rows."""
-    results = []
+def scan_chunks(device: str = "cuda"):
+    """The chunks santa_scan is held on: (what, params, start table, columns
+    on ``device``). First a b = 200 observe chunk of the bench stream (the
+    flagship's (α, β) and top-20; random negatives), then
+    :data:`SCAN_SHAPES`' chunks of :func:`scan_stream`."""
+    data, _ = synthetic_stream(120_000, 20_000, 20_000, seed=0)
+    src, dst = data.sources, data.destinations
+    n_nodes = int(max(src.max(), dst.max())) + 1
+    neg = np.random.RandomState(0).randint(0, n_nodes, len(src))
+    ts, eidx = data.timestamps.astype(np.float32), data.edge_idxs
+    ones = np.ones(len(src), bool)
+    params = TpprParams.create(ALPHA[:2], BETA[:2], 20)
+    w = slice(0, SCAN_BENCH_WARM)
+    start = fill_scan(init_tppr_state(2, n_nodes, 20, device="cpu"), params,
+                      src[w], dst[w], ts[w], eidx[w], ones[w]).data.to(device)
+    sl = slice(SCAN_BENCH_WARM, SCAN_BENCH_WARM + OBSERVE_BS)
+    yield "bench observe", params, start, _columns(
+        start, src[sl], dst[sl], neg[sl], ts[sl], eidx[sl], ones[sl])
     for what, n, m, k in SCAN_SHAPES:
-        params, start, cols = scan_stream(n, m, k, seed=n + k)
-        f = row_width(m, k)
+        yield (what,) + scan_stream(n, m, k, seed=n + k, device=device)
+
+
+def parent_scan(archive: Path):
+    """The serial santa_scan of an unpacked ``git archive`` of a commit
+    before the cluster design (4881985: one block, the events in stream
+    order), built with the port's nvcc flags into ``archive/_parent_build``.
+    Returns ``run(data, params, cols, ext=None)``, which launches it on the
+    current stream."""
+    import ctypes
+
+    from zebra_tpu_torch.index.merge import host_coefficients
+
+    csrc = Path(archive).resolve() / "zebra_tpu_torch" / "csrc"
+    out = csrc.parents[1] / "_parent_build" / "libsanta_scan_serial.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(csrc),
+                    "-o", str(out), str(csrc / "santa_scan.cu")], check=True,
+                   capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).santa_scan
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ptr]
+    fn.restype = ctypes.c_int
+
+    def run(data, params, cols, ext=None):
+        src, dst, neg, ts, eidx, valid = cols
+        alpha, beta = host_coefficients(params)
+        rc = fn(data.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                neg.data_ptr(), eidx.data_ptr(), ts.data_ptr(),
+                valid.data_ptr(), ctypes.addressof(alpha),
+                ctypes.addressof(beta), None if ext is None else
+                ext.data_ptr(), src.shape[0], len(params.alpha), params.k,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"serial santa_scan: cudaError {rc}")
+
+    return run
+
+
+def scan_trace_split(stamps: torch.Tensor, mhz: float) -> dict:
+    """µs of each part of a traced santa_scan launch from its clock64
+    stamps [E + 1, 5] (``scan.TRACE_PARTS``; thread 0 of block 0): each
+    stamp ends the span since the one before it in time, which counts to
+    its part. The plan per tile, the other parts per level, and the
+    launch's stamped µs in all."""
+    t = stamps.cpu().numpy()
+    depth, tiles = int(t[0, 1]), int(t[0, 2])
+    marks = sorted([(t[0, 0], -1)] + [
+        (v, p) for row in t[1: 1 + depth] for p, v in enumerate(row) if v])
+    total = np.zeros(len(scan.TRACE_PARTS))
+    for (a, _), (b, p) in zip(marks, marks[1:]):
+        total[p] += b - a
+    per = [max(tiles, 1)] + [max(depth, 1)] * (len(scan.TRACE_PARTS) - 1)
+    split = {part: float(total[i] / per[i] / mhz)
+             for i, part in enumerate(scan.TRACE_PARTS)}
+    plan_end = t[1, 0] if depth else t[0, 4]
+    first_plan = np.diff([t[0, 0], t[0, 3], t[0, 4], plan_end]) / mhz
+    return dict(split, levels=depth, tiles=tiles,
+                first_plan=dict(zip(("slots", "walk", "rank"),
+                                    first_plan.tolist())),
+                stamped_us=float((marks[-1][0] - marks[0][0]) / mhz))
+
+
+def _level_widths(levels: np.ndarray, per_pass: int) -> dict:
+    widths = np.bincount(levels[levels >= 0])
+    return dict(depth=len(widths), widest_level=int(widths.max(initial=0)),
+                passes=int(np.ceil(widths / per_pass).sum()))
+
+
+def scan_phase(card: str, parent=None):
+    """santa_scan on each of :func:`scan_chunks` against scan_reference on
+    the card, with and without extraction, untraced and traced: bit for bit
+    in the table and the extraction rows (filled with NaN first), its levels
+    equal to ``scan.scan_levels``. Per chunk: the geometry, the depth, the
+    widest level and the cluster's passes, ms and µs per event and per
+    level, the traced split at the SM clock nvidia-smi reads, the plain
+    scan's time, the bound, and with ``parent`` (:func:`parent_scan`) the
+    serial design's time, checked bit for bit too."""
+    results = []
+    for what, params, start, cols in scan_chunks():
+        m, k = len(params.alpha), params.k
+        n, f = cols[0].shape[0], start.shape[1]
         want = start.clone()
         want_rows = scan.scan_reference(want, params, *cols)
         cpu = start.to("cpu", copy=True)
         cpu_rows = scan.scan_reference(cpu, params, *(c.cpu() for c in cols))
         plain_cpu_same = bool(torch.equal(want.cpu(), cpu)
                               and torch.equal(want_rows.cpu(), cpu_rows))
+        host = [c.cpu() for c in cols]
+        want_levels = {x: scan.scan_levels(host[0], host[1], host[2],
+                                           host[5], x) for x in (True, False)}
+        levels = torch.empty(n, dtype=torch.int32, device="cuda")
+        trace = torch.zeros((n + 1, len(scan.TRACE_PARTS)), dtype=torch.int64,
+                            device="cuda")
         err = 0.0
         for extract in (True, False):
-            got = start.clone()
-            ext = torch.empty((n, 3, f), device="cuda") if extract else None
-            scan.SANTA_SCAN(got, params, *cols, ext=ext)
-            tag = f"santa_scan {what} extract={extract}"
-            err = max(err, _equal(got, want, tag + " data"))
-            if extract:
-                err = max(err, _equal(ext, want_rows, tag + " rows"))
+            for tr in (None, trace):
+                got = start.clone()
+                ext = (torch.full((n, 3, f), float("nan"), device="cuda")
+                       if extract else None)
+                levels.fill_(-2)
+                scan.SANTA_SCAN(got, params, *cols, ext=ext, levels=levels,
+                                trace=tr)
+                torch.cuda.synchronize()
+                tag = (f"santa_scan {what} extract={extract}"
+                       + (" traced" if tr is not None else ""))
+                err = max(err, _equal(got, want, tag + " data"))
+                if extract:
+                    err = max(err, _equal(ext, want_rows, tag + " rows"))
+                assert np.array_equal(levels.cpu().numpy(),
+                                      want_levels[extract]), tag + " levels"
+        geom = scan.SANTA_SCAN.geom
         work = start.clone()
         ext = torch.empty((n, 3, f), device="cuda")
-        run = lambda e=None: scan.SANTA_SCAN(work, params, *cols, ext=e)
+        run = lambda e=None, tr=None: scan.SANTA_SCAN(work, params, *cols,
+                                                      ext=e, trace=tr)
         ms = device_ms(run, n=20, per_round=20)
         ms_extract = device_ms(lambda: run(ext), n=20, per_round=20)
+        traced_ms = device_ms(lambda: run(None, trace), n=20, per_round=20)
+        mhz = sm_clock_mhz(lambda: run(None, trace), max(50, int(2000 / ms)))
+        splits = {}
+        for extract in (False, True):
+            trace.zero_()
+            run(ext if extract else None, trace)
+            splits[extract] = scan_trace_split(trace, mhz)
+        serial = {}
+        if parent is not None:
+            for extract in (True, False):
+                got = start.clone()
+                pext = (torch.full((n, 3, f), float("nan"), device="cuda")
+                        if extract else None)
+                parent(got, params, cols, pext)
+                torch.cuda.synchronize()
+                tag = f"serial santa_scan {what} extract={extract}"
+                _equal(got, want, tag + " data")
+                if extract:
+                    _equal(pext, want_rows, tag + " rows")
+            serial = dict(
+                serial_ms=device_ms(lambda: parent(work, params, cols),
+                                    n=20, per_round=20),
+                serial_ms_extract=device_ms(
+                    lambda: parent(work, params, cols, ext), n=20,
+                    per_round=20))
         plain_ms = _event_ms(lambda: scan.scan_reference(
-            work.clone(), params, *cols, extract=False))
+            work.clone(), params, *cols, extract=False), n=1 if n > 1000 else 3)
         bound_ms, bound_by = bound(*scan_work(want_rows, cols, m, k, False))
         bound_ext_ms, _ = bound(*scan_work(want_rows, cols, m, k, True))
-        res = dict(shape=what, E=n, M=m, k=k,
+        shape = _level_widths(want_levels[False], geom.per_pass)
+        shape_ext = _level_widths(want_levels[True], geom.per_pass)
+        res = dict(shape=what, E=n, M=m, k=k, cluster=geom.cluster,
+                   lanes_per_block=geom.lanes, tile=geom.tile,
+                   smem_bytes=geom.smem_bytes, **shape,
+                   **{f"{key}_extract": v for key, v in shape_ext.items()},
                    max_abs_err=err, plain_cuda_equals_plain_cpu=plain_cpu_same,
-                   ms=ms, us_per_event=1e3 * ms / n, ms_extract=ms_extract,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   ms=ms, us_per_event=1e3 * ms / n,
+                   us_per_level=1e3 * ms / max(shape["depth"], 1),
+                   ms_extract=ms_extract, **serial, traced_ms=traced_ms,
+                   sm_mhz=mhz, traced_us=splits[False],
+                   traced_us_extract=splits[True], plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
                    bound_extract_ms=bound_ext_ms, library_ms=None, card=card)
         print("kernel santa_scan " + json.dumps(res), flush=True)
         results.append(res)
@@ -797,14 +963,14 @@ def waves_chunks(device: str = "cuda"):
             cols, plan
 
 
-def waves_kernel_phase(card: str, scan_us_per_event: float):
+def waves_kernel_phase(card: str, scan_us_per_level: float):
     """santa_waves on each of :func:`waves_chunks`, bit for bit against the
     per-wave santa_merge loop and the plain loop on the card (the table and
     the extraction rows in stream order), untraced and traced, with its
     geometry, the redirected negatives (and the host ms of their list), its
     time beside the cooperative design's (:data:`WAVES_COOP_MS`), the
     loops' times, the bound, the wave chain's time at santa_scan's measured
-    step, and the traced launch's µs per wave of each part at the SM clock
+    µs per level, and the traced launch's µs per wave of each part at the SM clock
     nvidia-smi reads."""
     results = []
     for what, params, start, cols, plan in waves_chunks():
@@ -871,7 +1037,7 @@ def waves_kernel_phase(card: str, scan_us_per_event: float):
                    traced_us_per_wave=trace_split(trace, mhz, TRACE_PARTS),
                    santa_merge_loop_ms=merge_loop_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
-                   chain_ms_at_scan_step=plan.n_waves * scan_us_per_event
+                   chain_ms_at_scan_level=plan.n_waves * scan_us_per_level
                    / 1e3, library_ms=None, card=card)
         print("kernel santa_waves " + json.dumps(res), flush=True)
         results.append(res)
@@ -1017,26 +1183,72 @@ def wave_phase(gpu: LinkPredictor, cols, card: str):
     return launches
 
 
-def fill_phase(cfg, cols, card: str):
+def fill_phase(cfg, cols, card: str, parent=None):
     """The whole bench stream through ``fill_scan`` in one launch, from an
-    empty index; counts the live weights that are subnormal
-    (0 < w < 2^-126), which the XLA reference flushes to zero and the port
-    keeps."""
+    empty index: its seconds, the kernel's device ms (onto the filled
+    index), depth (its levels equal to ``scan.scan_levels``) and bound, the
+    traced split, the index bit-equal to the same stream in 200-event
+    ``fill_scan`` calls, to an extracting launch and, with ``parent``, to
+    the serial design's launch, with its ms; counts the live weights that
+    are subnormal (0 < w < 2^-126), which the XLA reference flushes to zero
+    and the port keeps."""
     src, dst, ts, eidx = cols
-    state = init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk, device="cuda")
-    valid = np.ones(len(src), bool)
-    cols = [torch.as_tensor(c).cuda() for c in (src, dst, ts, eidx, valid)]
+    n = len(src)
+    params = TpprParams.create(cfg.alpha_list, cfg.beta_list, cfg.topk)
+    fresh = lambda: init_tppr_state(cfg.n_tppr, cfg.n_nodes, cfg.topk,
+                                    device="cuda")
+    valid = np.ones(n, bool)
+    dev_cols = [torch.as_tensor(c).cuda() for c in (src, dst, ts, eidx, valid)]
+    state = fresh()
+    launches = scan.SANTA_SCAN.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fill_scan(state, TpprParams.create(cfg.alpha_list, cfg.beta_list,
-                                       cfg.topk), *cols)
+    fill_scan(state, params, *dev_cols)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
+    assert scan.SANTA_SCAN.launches == launches + 1
+    chunked = fresh()
+    for lo in range(0, n, OBSERVE_BS):
+        fill_scan(chunked, params, *(c[lo: lo + OBSERVE_BS] for c in dev_cols))
+    _equal(chunked.data, state.data, "fill: one launch vs 200-event launches")
+    del chunked
+    kcols = _columns(state.data, src, dst, src, ts, eidx, valid)
+    levels = torch.empty(n, dtype=torch.int32, device="cuda")
+    trace = torch.zeros((n + 1, len(scan.TRACE_PARTS)), dtype=torch.int64,
+                        device="cuda")
+    again = fresh().data
+    scan.SANTA_SCAN(again, params, *kcols, levels=levels, trace=trace)
+    _equal(again, state.data, "fill: traced launch")
+    want_levels = scan.scan_levels(src, dst, src, valid, extract=False)
+    assert np.array_equal(levels.cpu().numpy(), want_levels), "fill levels"
     m, k = cfg.n_tppr, cfg.topk
+    rows = torch.empty((n, 3, state.data.shape[1]), device="cuda")
+    again = fresh().data
+    scan.SANTA_SCAN(again, params, *kcols, ext=rows)
+    _equal(again, state.data, "fill: extracting launch")
+    bound_ms, bound_by = bound(*scan_work(rows, kcols, m, k, False))
+    del rows
+    work = again
+    run = lambda tr=None: scan.SANTA_SCAN(work, params, *kcols, trace=tr)
+    kernel_ms = _event_ms(run)
+    mhz = sm_clock_mhz(lambda: run(trace), max(50, int(2000 / kernel_ms)))
+    trace.zero_()
+    run(trace)
+    split = scan_trace_split(trace, mhz)
+    serial = {}
+    if parent is not None:
+        old = fresh().data
+        parent(old, params, kcols)
+        _equal(old, state.data, "fill: serial launch")
+        serial = dict(serial_ms=_event_ms(lambda: parent(old, params, kcols)))
     w = state.data[:, : 4 * m * k].reshape(-1, m, 4, k)[:, :, 0]
     assert bool(torch.isfinite(state.data).all())
-    res = dict(events=len(src), nodes=cfg.n_nodes, fill_s=fill_s,
-               us_per_event=1e6 * fill_s / len(src),
+    res = dict(events=n, nodes=cfg.n_nodes, fill_s=fill_s,
+               us_per_event=1e6 * fill_s / n, kernel_ms=kernel_ms, **serial,
+               bound_ms=bound_ms, bound_by=bound_by,
+               depth=int(want_levels.max()) + 1, tiles=split["tiles"],
+               geometry=scan.geometry(n, m, k)._asdict(), sm_mhz=mhz,
+               traced_us=split, index_bitwise_vs_200_event_launches=True,
                live_entries=int((w > 0).sum()),
                subnormal_live_entries=int(((w > 0) & (w < FLT_MIN)).sum()),
                min_live_weight=float(w[w > 0].min()), card=card)
@@ -3507,6 +3719,14 @@ def rows_phase(card: str):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an unpacked git archive of a commit with the "
+                    "serial santa_scan (4881985): time it beside the "
+                    "cluster design in the scan and fill phases")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
               "GPU", file=sys.stderr)
@@ -3533,12 +3753,13 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    parent = None if args.parent is None else parent_scan(args.parent)
     merges = merge_phase(card)
-    scans = scan_phase(card)
-    waves = waves_kernel_phase(card, scans[0]["us_per_event"])
+    scans = scan_phase(card, parent)
+    waves = waves_kernel_phase(card, scans[0]["us_per_level"])
     scan_launches, gpu, cols = serve_phase(card)
     wave_phase(gpu, cols, card)
-    fill_phase(gpu.cfg, cols, card)
+    fill_phase(gpu.cfg, cols, card, parent)
     single_index, flagship_epoch_s = train_phase(card)
     fit_waves = fit_phase(card)
     seed_waves, seed_scans, seed_merge = seeds_phase(card, single_index)

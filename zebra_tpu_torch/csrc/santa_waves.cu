@@ -81,51 +81,22 @@
 // pass), and when the wait is over.
 
 #include "santa_merge.cuh"
+#include "santa_sync.cuh"
 
 namespace {
 
 using santa::Coefs;
+using santa::cluster_arrive;
+using santa::cluster_wait;
+using santa::cp_async4;
+using santa::cp_async_commit;
+using santa::cp_async_wait_all;
+using santa::cp_async_wait_older;
+using santa::lane_sync;
 
 constexpr int kMaxThreads = 512;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxSmem = 232448;  // 227 KB a block may use
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest group are in
-__device__ __forceinline__ void cp_async_wait_older() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The 64M threads of lane slot l of the block (named barrier 1 + l).
-__device__ __forceinline__ void lane_sync(int l, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + l), "r"(threads) : "memory");
-}
-
-// Every thread of the cluster arrives before any waits past the barrier:
-// the arrive releases the thread's earlier writes (and completed reads),
-// the wait acquires every arrived thread's, across the cluster's SMs (the
-// wait invalidates the SM's L1).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // A lane's metadata record (i32): the fields, then its negatives' ids, -1
 // for a redirected one.

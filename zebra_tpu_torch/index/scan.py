@@ -1,18 +1,23 @@
 """The streaming scan of a chunk of events in stream order: the CUDA kernel
-``csrc/santa_scan.cu`` (one launch per chunk) and its plain PyTorch version
-(counterpart of the ``lax.scan`` in ``zebra_tpu/index/streaming.py``).
+``csrc/santa_scan.cu`` (one launch of one thread-block cluster per chunk)
+and its plain PyTorch version (counterpart of the ``lax.scan`` in
+``zebra_tpu/index/streaming.py``).
 
 Per event the scan reads the pre-edge rows of src and dst (and neg when it
 extracts them for queries), merges them (``merge.py``) and, for a valid
 event, writes both new rows back into ``data`` in place. :func:`scan`
 dispatches: a CPU tensor runs :func:`scan_reference`, a CUDA tensor launches
-the kernel once (:data:`SANTA_SCAN` counts the launches) or raises."""
+the kernel once (:data:`SANTA_SCAN` counts the launches) or raises. The
+kernel runs the events of a chunk in levels of events that share no row
+one of them writes; :func:`scan_levels` is the plain version of the levels
+it computes, :func:`geometry` sizes its cluster."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from zebra_tpu_torch.build import Kernel
@@ -23,6 +28,7 @@ from zebra_tpu_torch.index.merge import (
     merge_both,
     merge_both_reference,
 )
+from zebra_tpu_torch.index.wave_kernel import MAX_CLUSTER, MAX_THREADS
 
 
 def step(data, ids, rows, src, dst, e_idx, e_ts, valid, params,
@@ -83,23 +89,122 @@ def scan_reference(data: torch.Tensor, params: TpprParams, src, dst, neg,
     return rows if extract else None
 
 
+MAX_TILE = 2_000       # events per tile: 6,000 touches in 8,192 hash slots
+LANE_ROWS = 3          # a lane's rows in shared memory: src, dst, neg
+# what a traced launch's stamps end: a tile's plan (the prologue), a level's
+# rows in shared memory (first pass), its merges (last pass), the cluster
+# barrier's arrive and its wait
+TRACE_PARTS = ("plan", "rows_in", "merge", "arrive", "wait")
+
+
+def scan_levels(src, dst, neg, valid, extract: bool = True,
+                tile: int = MAX_TILE) -> np.ndarray:
+    """The level of each event in the kernel's order, numbered across the
+    chunk's tiles of ``tile`` events (i64 [E]; -1 for an invalid event
+    without extraction, which does nothing). Within a tile, an event's level
+    is one more than the largest level of the earlier events that write a
+    row it reads or writes (src, dst, and neg when ``extract``), and, when
+    it writes (valid), of the earlier events that read a row it writes; a
+    tile's levels follow the previous tile's. Running the levels in order,
+    the events of a level in any order, equals the stream order."""
+    cols = [np.asarray(torch.as_tensor(c).cpu()) for c in (src, dst, neg,
+                                                            valid)]
+    s, d, n = (c.astype(np.int64).tolist() for c in cols[:3])
+    v = cols[3].astype(bool).tolist()
+    levels = np.full(len(s), -1, np.int64)
+    base = 0
+    for lo in range(0, len(s), tile):
+        wrote, read = {}, {}  # row -> (last write's, highest read's) level+1
+        depth = 0
+        for e in range(lo, min(lo + tile, len(s))):
+            if not (extract or v[e]):
+                continue
+            rows = (s[e], d[e], n[e]) if extract else (s[e], d[e])
+            up = max(wrote.get(r, 0) for r in rows)
+            if v[e]:
+                up = max(up, read.get(s[e], 0), read.get(d[e], 0))
+            up += 1
+            for r in rows:
+                read[r] = max(read.get(r, 0), up)
+            if v[e]:
+                wrote[s[e]] = wrote[d[e]] = up
+            levels[e] = base + up - 1
+            depth = max(depth, up)
+        base += depth
+    return levels
+
+
+class ScanGeometry(NamedTuple):
+    """One launch's shape: ``cluster`` blocks of ``lanes`` lanes (a lane is
+    2M warps), tiles of ``tile`` events, a hash table of ``hash`` slots,
+    ``smem_bytes`` of shared memory per block."""
+
+    cluster: int
+    lanes: int
+    tile: int
+    hash: int
+    smem_bytes: int
+
+    @property
+    def per_pass(self) -> int:
+        """The events of a level the cluster runs at once."""
+        return self.cluster * self.lanes
+
+
+def smem_bytes(lanes: int, f: int, tile: int, hash_slots: int) -> int:
+    """``santa_scan.cu:smem_size``: per lane its rows; the plan's hash keys
+    and touch and write keys, five i32 columns of the tile, its level
+    bounds, i16 touch slots and u8 valid flags."""
+    return (4 * (lanes * LANE_ROWS * f + 3 * hash_slots + 6 * tile + 1)
+            + 2 * 3 * tile + tile)
+
+
+def geometry(n_events: int, m: int, k: int) -> ScanGeometry:
+    """The cluster for a chunk of ``n_events`` events with ``m`` members and
+    top-``k`` rows: tiles of up to :data:`MAX_TILE` events, a hash of the
+    next power of two of at least four slots per event (three touches per
+    event, at most three quarters full), one block per SM up to 16 and as
+    many lanes per block as a level of the chunk could fill, up to 512
+    threads. A chunk of E events has no level wider than E, so a small
+    chunk takes min(16, E) blocks: every block computes the plan and the
+    cluster barrier waits for the slowest, so a block without lanes would
+    only add to each barrier (a 1-event chunk runs on one block)."""
+    check_limits("santa_scan", m, k)
+    n = max(int(n_events), 1)
+    tile = min(MAX_TILE, n)
+    hash_slots = 1 << (4 * tile - 1).bit_length()
+    cluster = min(MAX_CLUSTER, n)
+    lanes = min(MAX_THREADS // (64 * m), -(-n // cluster))
+    return ScanGeometry(cluster, lanes, tile, hash_slots,
+                        smem_bytes(lanes, row_width(m, k), tile, hash_slots))
+
+
 class SantaScanKernel(Kernel):
     """ctypes binding of ``csrc/santa_scan.cu``: builds at first call,
-    launches one block on the current stream, does not synchronise, counts
-    its launches (``launches``) and among them those that extract the
-    pre-edge rows (``extracting``)."""
+    launches one cluster (:func:`geometry`) on the current stream, does not
+    synchronise, counts its launches (``launches``) and among them those
+    that extract the pre-edge rows (``extracting``), and keeps the last
+    launch's geometry (``geom``)."""
 
     def __init__(self):
         p, i = ctypes.c_void_p, ctypes.c_int
         super().__init__("santa_scan", [p, p, p, p, p, p, p, p, p, p,
-                                        ctypes.c_longlong, i, i, p])
+                                        ctypes.c_longlong, i, i, p,
+                                        i, i, i, i, i, p, p])
         self.extracting = 0
+        self.geom: Optional[ScanGeometry] = None
 
     def __call__(self, data, params: TpprParams, src, dst, neg, e_ts, e_idx,
-                 valid, ext: Optional[torch.Tensor] = None
+                 valid, ext: Optional[torch.Tensor] = None,
+                 levels: Optional[torch.Tensor] = None,
+                 trace: Optional[torch.Tensor] = None
                  ) -> Optional[torch.Tensor]:
         """Scan the events into ``data`` in place; fills ``ext``
-        [E, 3, F] with the pre-edge rows when given and returns it."""
+        [E, 3, F] with the pre-edge rows when given and returns it.
+        ``levels``, an i32 [E] tensor, receives each event's level
+        (:func:`scan_levels`); ``trace``, a zeroed i64 [E + 1, 5] tensor,
+        runs the traced build, which stamps a tile's plan and each level's
+        parts (:data:`TRACE_PARTS`) in SM clock cycles."""
         m, k = len(params.alpha), params.k
         check_limits(self.name, m, k)
         f = row_width(m, k)
@@ -129,19 +234,32 @@ class SantaScanKernel(Kernel):
                 f"ext must be a contiguous f32 [{n}, 3, {f}] on {dev}, got "
                 f"{ext.dtype} {tuple(ext.shape)} on {ext.device}"
             )
+        for name, t, dt, shape in (
+                ("levels", levels, torch.int32, (n,)),
+                ("trace", trace, torch.int64, (n + 1, len(TRACE_PARTS)))):
+            if t is not None and (t.dtype != dt or tuple(t.shape) != shape
+                                  or t.device != dev
+                                  or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name} must be a contiguous {dt} {list(shape)} on "
+                    f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if dev.type != "cuda":
             raise ValueError(f"santa_scan runs on cuda tensors, not {dev}")
         if n == 0:
             return ext
+        geom = geometry(n, m, k)
         alpha, beta = host_coefficients(params)
-        self.launch(
-            data.data_ptr(), src.data_ptr(), dst.data_ptr(), neg.data_ptr(),
-            e_idx.data_ptr(), e_ts.data_ptr(), valid.data_ptr(),
-            ctypes.addressof(alpha), ctypes.addressof(beta),
-            None if ext is None else ext.data_ptr(), n, m, k,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        ptr = lambda t: None if t is None else t.data_ptr()
+        with torch.cuda.device(dev):
+            self.launch(
+                data.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                neg.data_ptr(), e_idx.data_ptr(), e_ts.data_ptr(),
+                valid.data_ptr(), ctypes.addressof(alpha),
+                ctypes.addressof(beta), ptr(ext), n, m, k,
+                torch.cuda.current_stream(dev).cuda_stream, *geom,
+                ptr(levels), ptr(trace))
         self.extracting += ext is not None
+        self.geom = geom
         return ext
 
 

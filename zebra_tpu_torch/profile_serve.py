@@ -10,7 +10,8 @@ command line's flags), warms it with 2,000 observed events, then splits
 one b = 200 observe into its two parts, timed apart with the host clock
 around synchronized calls:
 - the index scan (one ``santa_scan`` launch: ``fill_scan``, or
-  ``streaming_scan`` with extraction under a message-source flag), and the
+  ``streaming_scan`` with extraction under a message-source flag), the
+  chunk's levels (``scan.scan_levels``) and the kernel's cluster, and the
   host cost of one scan-wrapper call (``SANTA_SCAN``, no
   synchronisation);
 - the memory protocol (``LinkPredictor._updated_mem``: under a
@@ -163,6 +164,10 @@ def main() -> None:
         protocol_ms=_median_s(protocol) * 1e3,
         state_clone_ms=_median_s(clone_only) * 1e3,
         scan_wrapper_host_us=scan_host_us,
+        scan_depth=int(index_scan.scan_levels(
+            src, dst, dst if cfg.need_emb else src, valid,
+            cfg.need_emb).max()) + 1,
+        scan_cluster=index_scan.SANTA_SCAN.geom._asdict(),
     )
     parts = {"scan": res["scan_ms"], "protocol": res["protocol_ms"]}
     res["paced_by"] = max(parts, key=parts.get)
