@@ -33,6 +33,7 @@ from zebra_tpu_torch.index.layout import (  # noqa: F401  (re-exported)
     split_rows,
 )
 from zebra_tpu_torch.index.scan import scan, step
+from zebra_tpu_torch.utils.profiling import READ_IDS, span
 
 # ids are held as f32 values: exact below 2^24
 ID_LIMIT = 1 << 24
@@ -89,9 +90,10 @@ def _columns(data, src, dst, neg, e_ts, e_idx, valid,
              n_nodes: Optional[int] = None):
     """The event columns on ``data``'s device: i32 ids, f32 times, bool
     valid, contiguous (``neg`` [E], or [E, S] with one negative per seed).
-    One host read checks, on the ids as given (before they narrow to i32),
-    that node ids lie in [0, N) and edge ids below 2^24. N is ``data``'s
-    rows, or ``n_nodes`` where ``data`` holds a rank's block of them."""
+    One host read (the ``zebra.read_ids`` span) checks, on the ids as given
+    (before they narrow to i32), that node ids lie in [0, N) and edge ids
+    below 2^24. N is ``data``'s rows, or ``n_nodes`` where ``data`` holds a
+    rank's block of them."""
     dev = data.device
     n_nodes = data.shape[0] if n_nodes is None else n_nodes
     as_t = lambda x, dt: torch.as_tensor(x).to(device=dev,
@@ -101,9 +103,10 @@ def _columns(data, src, dst, neg, e_ts, e_idx, valid,
     e_ts = as_t(e_ts, torch.float32)
     valid = as_t(valid, torch.bool)
     if e_idx.numel():
-        ids = torch.cat([src, dst, neg.reshape(-1)])
-        lo, hi, e_max = torch.stack([ids.min(), ids.max(),
-                                     e_idx.max()]).tolist()
+        with span(READ_IDS):
+            ids = torch.cat([src, dst, neg.reshape(-1)])
+            lo, hi, e_max = torch.stack([ids.min(), ids.max(),
+                                         e_idx.max()]).tolist()
         check_id_width(n_edges=e_max + 1)
         if lo < 0 or hi >= n_nodes:
             raise ValueError(

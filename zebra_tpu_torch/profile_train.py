@@ -17,20 +17,19 @@ Wikipedia-shaped stream (:func:`wikipedia_attention`, neighbors per hop
 ``--n_degree``, hops ``--n_layer``), with S seeds in one pass when
 ``--parallel_runs`` is given, and the model options given (the training
 command line's flags), runs a warm-up epoch, then:
-- one epoch with CUDA events between its parts, read after the epoch: the
-  device timeline split into the index wave scan ("index", streaming
-  diffusion) or the batches' BFS calls ("query", pruning diffusion), the
-  towers' forward with the loss ("forward": for the recursive towers the
-  neighbor lookups, the lazy GRU over every gathered row and the attention
-  or sum layers), "backward", "adam", the memory protocol ("protocol") and
-  the per-batch metrics ("metrics"), each the sum of the gaps that end at
-  its marks. Where the host enqueues slower than the device runs, a gap
-  is the host's enqueue time of that part;
-- one epoch without events, for the epoch's seconds (and, under pruning,
-  the BFS calls' host time per batch);
+- one epoch untraced, for the epoch's seconds (and, under pruning, the
+  BFS calls' host time per batch);
 - one epoch under ``torch.profiler``: the device-busy share, the kernels
   that take the device time and the santa kernels' device seconds (with
-  the epoch's santa_waves and santa_merge launches);
+  the epoch's santa_waves and santa_merge launches), and the epoch split
+  by the program's spans (``utils/profiling.py``): ``spans`` holds each
+  span's calls, host ms and the device ms of the work launched inside it
+  (``zebra.wave_plan`` and ``zebra.wave_scan`` under streaming diffusion,
+  then per batch ``zebra.query``, the BFS under pruning, ``zebra.forward``,
+  for the recursive towers with the neighbor lookups, the lazy GRU over
+  every gathered row and the attention or sum layers, ``zebra.backward``,
+  ``zebra.adam``, ``zebra.protocol`` and ``zebra.metrics``);
+  ``parts_device_share`` is each part's device ms over the busy ms;
 - under pruning, one train batch's BFS alone: its device time (CUDA
   events) and the aten operations it enqueues; for a recursive tower, one
   train batch's neighbor lookups (one per hop) alone: their host time,
@@ -86,10 +85,12 @@ from zebra_tpu_torch.train.phase import (
     run_phase,
 )
 from zebra_tpu_torch.utils.profiling import (
+    PARENTS,
     add_option_args,
     count_ops,
     device_ms,
     option_overrides,
+    span_table,
 )
 
 # MOOC (BASELINE.md:66): 7,144 nodes, 411,749 events, 4 edge features
@@ -224,15 +225,6 @@ def bfs_roots(trainer: Trainer, i: int = 0):
              *torch.from_numpy(negs).to(trainer.device)], s.t[sl])
 
 
-def split_marks(marks) -> dict:
-    """Seconds of device time per part: each gap between consecutive marks
-    goes to the part of the mark that ends it."""
-    out: dict = {}
-    for (_, a), (name, b) in zip(marks[:-1], marks[1:]):
-        out[name] = out.get(name, 0.0) + a.elapsed_time(b) / 1e3
-    return out
-
-
 def eval_and_state(trainer: Trainer, path: str) -> dict:
     """validate() + test() from the trainer's train-end state, then a
     ``save_state`` to ``path``: seconds, device bytes and the gathers."""
@@ -353,13 +345,6 @@ def main() -> None:
     trainer.train_epoch()                               # warm-up
     torch.cuda.synchronize()
 
-    marks: list = []
-    t0 = time.perf_counter()
-    marked = trainer.train_epoch(marks=marks)
-    torch.cuda.synchronize()
-    marked_s = time.perf_counter() - t0
-    parts = split_marks(marks)
-
     merge.SANTA_MERGE.launches = SANTA_WAVES.launches = 0
     t0 = time.perf_counter()
     plain = trainer.train_epoch()
@@ -378,6 +363,7 @@ def main() -> None:
         traced_s = time.perf_counter() - t0
     per_kernel = device_ops(prof)
     busy_s = sum(us for _, us in per_kernel.values()) / 1e6
+    spans = span_table(prof)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:10]
     merge_s, waves_s = (sum(us for name, (_, us) in per_kernel.items()
                             if kernel in name) / 1e6
@@ -428,9 +414,10 @@ def main() -> None:
         santa_waves_launches=wave_launches,
         epoch_s=epoch_s, train_events_per_s=n_train / epoch_s,
         index_host_s=plain.index_seconds,
-        marked_epoch_s=marked_s, marked_parts_s=parts,
-        marked_parts_share={k: v / sum(parts.values())
-                            for k, v in parts.items()},
+        spans=spans,
+        parts_device_share={name: row["device_ms"] / 1e3 / busy_s
+                            for name, row in spans.items()
+                            if name not in PARENTS},
         traced_epoch_s=traced_s, device_busy_s=busy_s,
         device_busy_share_traced=busy_s / traced_s,
         device_busy_share_of_epoch=busy_s / epoch_s,
@@ -444,7 +431,6 @@ def main() -> None:
         top_device_ops=[(name[:60], n, round(us / 1e3, 3))
                         for name, (n, us) in top],
         loss=mean(plain.loss), ap=mean(plain.ap),
-        marked_loss=mean(marked.loss),
         peak_device_gib=peak_gib,
         card=torch.cuda.get_device_name(0),
     )))

@@ -42,7 +42,14 @@ A seed-parallel training run (``--parallel_runs``) serves one seed,
 ``LinkPredictor.from_checkpoint(path, run_index=s)``, or all of them as a
 deep ensemble, :class:`EnsemblePredictor` (``from_checkpoint(path,
 ensemble=True)`` or ``EnsemblePredictor.from_trainer``): the mean member
-probability from one batched pass."""
+probability from one batched pass.
+
+Under a ``torch.profiler`` each call runs in a span
+(``utils/profiling.py``): ``zebra.observe`` holds ``zebra.request`` (the id
+check, the id map and the uploads; under pruning and the recursive towers
+the adjacency fold too), ``zebra.scan`` (with its ``zebra.read_ids``) and
+``zebra.protocol``; ``zebra.score`` holds ``zebra.request``,
+``zebra.query``, ``zebra.forward`` and ``zebra.readback``."""
 
 from __future__ import annotations
 
@@ -74,6 +81,17 @@ from zebra_tpu_torch.parallel.sharding import interleave_permutation
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import _forward, eval_protocol
+from zebra_tpu_torch.utils.profiling import (
+    FORWARD,
+    OBSERVE,
+    PROTOCOL,
+    QUERY,
+    READBACK,
+    REQUEST,
+    SCAN,
+    SCORE,
+    span,
+)
 
 logger = logging.getLogger("zebra_tpu_torch")
 
@@ -333,34 +351,47 @@ class LinkPredictor:
         the adjacency index; None for a tower that reads no T-PPR query."""
         if not self.cfg.uses_tppr:
             return None
-        cols = [src, dst] + ([dst] if with_neg else [])
-        if self.cfg.tppr_strategy == "pruning":
-            return pruned_queries(self.cfg, self.nbr_index, self._alpha_beta,
-                                  cols, t)
-        q = read_topk(self.index_state, torch.stack(cols, dim=1), t,
-                      self.cfg.n_tppr, self.cfg.topk)       # [B, M, nb, k]
-        m, k = self.cfg.n_tppr, self.cfg.topk
-        return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(m, -1, k)
-                             for x in q))
+        with span(QUERY):
+            cols = [src, dst] + ([dst] if with_neg else [])
+            if self.cfg.tppr_strategy == "pruning":
+                return pruned_queries(self.cfg, self.nbr_index,
+                                      self._alpha_beta, cols, t)
+            q = read_topk(self.index_state, torch.stack(cols, dim=1), t,
+                          self.cfg.n_tppr, self.cfg.topk)   # [B, M, nb, k]
+            m, k = self.cfg.n_tppr, self.cfg.topk
+            return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(m, -1, k)
+                                 for x in q))
 
     def score(self, src, dst, t) -> np.ndarray:
         """P(interaction) for each (src, dst) candidate at its timestamp."""
-        with torch.no_grad():
-            return self._probs(*self._request(src, dst, t)).cpu().numpy()
+        return self._scored(src, dst, t)
 
-    def _probs(self, src, dst, t) -> torch.Tensor:
+    def _scored(self, src, dst, t, mean: bool = False) -> np.ndarray:
+        """``score``'s path, one ``zebra.score`` span: the request, the
+        probabilities (their member mean under ``mean``) and the host read
+        of them."""
+        with span(SCORE), torch.no_grad():
+            with span(REQUEST):
+                cols = self._request(src, dst, t)
+            p = self._probs(*cols, mean=mean)
+            with span(READBACK):
+                return p.cpu().numpy()
+
+    def _probs(self, src, dst, t, mean: bool = False) -> torch.Tensor:
         """Link probabilities on the device: [B], or [S, B] for the members
-        of an ensemble."""
+        of an ensemble ([B], their mean, under ``mean``)."""
         b = src.shape[0]
         q = self._queries(src, dst, t, with_neg=False)
-        nodes2 = torch.cat([src, dst])
-        times = None if self.cfg.uses_tppr else torch.cat([t, t])
-        emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
-                       nodes2, q, offs=self._offs, times=times,
-                       nbr_index=self.nbr_index)
-        logit = affinity_score(self.params, emb[..., :b, :], emb[..., b:, :],
-                               self.cfg.mxu_dtype)
-        return torch.sigmoid(logit)
+        with span(FORWARD):
+            nodes2 = torch.cat([src, dst])
+            times = None if self.cfg.uses_tppr else torch.cat([t, t])
+            emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
+                           nodes2, q, offs=self._offs, times=times,
+                           nbr_index=self.nbr_index)
+            logit = affinity_score(self.params, emb[..., :b, :],
+                                   emb[..., b:, :], self.cfg.mxu_dtype)
+            p = torch.sigmoid(logit)
+            return p.mean(0) if mean else p
 
     def observe(self, src, dst, t, eidx) -> None:
         """Ingest observed interactions: fold them into the adjacency index
@@ -372,29 +403,32 @@ class LinkPredictor:
         forward at [src; dst; dst], after the fold (an event's recursive
         query sees the earlier events of the call) and on the pre-edge
         T-PPR queries."""
-        with torch.no_grad():
-            cols = self._request(src, dst, t)
-            self._append_events(self._map_ids(src), self._map_ids(dst), t,
-                                eidx)
-            src, dst, t = cols
-            eidx = torch.as_tensor(np.asarray(eidx, np.int32)).to(self.device)
-            valid = torch.ones(src.shape[0], dtype=torch.bool,
-                               device=self.device)
+        with span(OBSERVE), torch.no_grad():
+            with span(REQUEST):
+                cols = self._request(src, dst, t)
+                self._append_events(self._map_ids(src), self._map_ids(dst),
+                                    t, eidx)
+                src, dst, t = cols
+                eidx = torch.as_tensor(np.asarray(eidx, np.int32)).to(
+                    self.device)
+                valid = torch.ones(src.shape[0], dtype=torch.bool,
+                                   device=self.device)
             q = None
             if self.index_state is not None:
-                if self.cfg.need_emb:
-                    # the scan's extraction is pre-edge: the queries an eval
-                    # forward at these events reads
-                    self.index_state, q = streaming_scan(
-                        self.index_state, self._tppr, src, dst, dst, t, eidx,
-                        valid)
-                    m, k = self.cfg.n_tppr, self.cfg.topk
-                    q = TpprQueries(*(x.permute(1, 2, 0, 3).reshape(m, -1, k)
-                                      for x in q))
-                else:
-                    self.index_state = fill_scan(self.index_state,
-                                                 self._tppr, src, dst, t,
-                                                 eidx, valid)
+                with span(SCAN):
+                    if self.cfg.need_emb:
+                        # the scan's extraction is pre-edge: the queries an
+                        # eval forward at these events reads
+                        self.index_state, q = streaming_scan(
+                            self.index_state, self._tppr, src, dst, dst, t,
+                            eidx, valid)
+                        m, k = self.cfg.n_tppr, self.cfg.topk
+                        q = TpprQueries(*(x.permute(1, 2, 0, 3).reshape(
+                            m, -1, k) for x in q))
+                    else:
+                        self.index_state = fill_scan(self.index_state,
+                                                     self._tppr, src, dst, t,
+                                                     eidx, valid)
             elif self.cfg.need_emb:
                 q = self._queries(src, dst, t)
             self.mem = self._updated_mem(q, src, dst, t, eidx, valid)
@@ -404,17 +438,18 @@ class LinkPredictor:
         """Eval-protocol memory update for observe(), every member of an
         ensemble at once; under a message-source flag with the embeddings
         of an eval forward over the queries ``q`` (src‖dst‖dst blocks)."""
-        src_emb = dst_emb = None
-        if self.cfg.need_emb:
-            b = src.shape[0]
-            emb = _forward(self.cfg, self.params, self.mem, self.edge_feats,
-                           torch.cat([src, dst, dst]), q, offs=self._offs,
-                           times=torch.cat([t, t, t]),
-                           nbr_index=self.nbr_index)
-            src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
-        return eval_protocol(self.cfg, self.params, self.mem, self.edge_feats,
-                             src, dst, t, eidx, valid, self._offs, src_emb,
-                             dst_emb)
+        with span(PROTOCOL):
+            src_emb = dst_emb = None
+            if self.cfg.need_emb:
+                b = src.shape[0]
+                emb = _forward(self.cfg, self.params, self.mem,
+                               self.edge_feats, torch.cat([src, dst, dst]), q,
+                               offs=self._offs, times=torch.cat([t, t, t]),
+                               nbr_index=self.nbr_index)
+                src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
+            return eval_protocol(self.cfg, self.params, self.mem,
+                                 self.edge_feats, src, dst, t, eidx, valid,
+                                 self._offs, src_emb, dst_emb)
 
 
 class EnsemblePredictor(LinkPredictor):
@@ -455,11 +490,8 @@ class EnsemblePredictor(LinkPredictor):
 
     def score(self, src, dst, t) -> np.ndarray:
         """The mean member probability for each (src, dst) candidate."""
-        with torch.no_grad():
-            return self._probs(*self._request(src, dst, t)).mean(0).cpu(
-            ).numpy()
+        return self._scored(src, dst, t, mean=True)
 
     def member_scores(self, src, dst, t) -> np.ndarray:
         """Per-member probabilities [S, B] (``score`` is their mean)."""
-        with torch.no_grad():
-            return self._probs(*self._request(src, dst, t)).cpu().numpy()
+        return self._scored(src, dst, t)

@@ -19,6 +19,12 @@ keep no index state and run no wave scan and no BFS under either strategy
 (``Config.uses_tppr``); the recursive ones search those adjacency indices,
 and a stop request takes effect at the end of the epoch.
 
+Under a ``torch.profiler`` the epoch's host work lands in the program's
+spans (``utils/profiling.py``): ``zebra.reset``, ``zebra.negatives``, per
+superchunk ``zebra.wave_plan`` and ``zebra.wave_scan`` (with the columns'
+``zebra.read_ids`` inside), ``run_phase``'s ``zebra.batch`` spans, then
+``zebra.readback``; evaluation's phases take the same spans.
+
 validate: flush pending messages (the train→eval transition), run the
 transductive val stream from (train-end memory, train-end index), keep that
 val-end state, run the inductive val stream from the unflushed train-end
@@ -152,7 +158,16 @@ from zebra_tpu_torch.train.step import (
     make_optimizer,
     resolve_lazy_cap,
 )
-from zebra_tpu_torch.utils.profiling import PhaseTimers, trace_context
+from zebra_tpu_torch.utils.profiling import (
+    NEGATIVES,
+    READBACK,
+    RESET,
+    WAVE_PLAN,
+    WAVE_SCAN,
+    PhaseTimers,
+    span,
+    trace_context,
+)
 
 logger = logging.getLogger("zebra_tpu_torch")
 
@@ -534,10 +549,11 @@ class Trainer:
             self.mesh.rank, self._rows)
         for ci in chunks:
             sl = slice(ci * chunk, (ci + 1) * chunk)
-            plans[ci] = plan_waves(host["src"][sl], host["dst"][sl], negs[sl],
-                                   host["valid"][sl], self.cfg.n_nodes,
-                                   self.cfg.wave_cap, self.device,
-                                   self._wave_shards, rows)
+            with span(WAVE_PLAN):
+                plans[ci] = plan_waves(
+                    host["src"][sl], host["dst"][sl], negs[sl],
+                    host["valid"][sl], self.cfg.n_nodes, self.cfg.wave_cap,
+                    self.device, self._wave_shards, rows)
         return plans
 
     def _row_plans(self, name: str, negs: np.ndarray,
@@ -588,9 +604,12 @@ class Trainer:
         plans = row_plans = None
         row_sharded = self.exchange is not None
         if train:
-            # [E], or [E, S]: the phases' layout of one negative per seed
-            negs = np.ascontiguousarray(self._draw_train_negs(self._epoch_id).T)
-            stream = stream._replace(neg=torch.from_numpy(negs).to(self.device))
+            with span(NEGATIVES):
+                # [E], or [E, S]: the phases' layout of one negative per seed
+                negs = np.ascontiguousarray(
+                    self._draw_train_negs(self._epoch_id).T)
+                stream = stream._replace(
+                    neg=torch.from_numpy(negs).to(self.device))
             if wave_scan:
                 plans = self._wave_plans(name, negs, chunks)
             if row_sharded:
@@ -619,12 +638,13 @@ class Trainer:
             cs = Stream(*(x[ci * chunk: (ci + 1) * chunk] for x in stream))
             if wave_scan:
                 ti = time.perf_counter()
-                index_state, queries = wave_scan_chunk(
-                    index_state, self._tppr, *cs, plans[ci], self.exchange)
-                if cfg.profile and self.device.type == "cuda":
-                    # the index's share covers the device's work, at the
-                    # cost of the overlap with the towers
-                    torch.cuda.synchronize(self.device)
+                with span(WAVE_SCAN):
+                    index_state, queries = wave_scan_chunk(
+                        index_state, self._tppr, *cs, plans[ci], self.exchange)
+                    if cfg.profile and self.device.type == "cuda":
+                        # the index's share covers the device's work, at
+                        # the cost of the overlap with the towers
+                        torch.cuda.synchronize(self.device)
                 t_index += time.perf_counter() - ti
                 waves += plans[ci].n_waves
                 scans += 1
@@ -655,27 +675,29 @@ class Trainer:
         else:
             self.index_scans += scans
         t_gather = time.perf_counter()
-        if row_sharded:
-            # every rank's block scores, once; the metrics of whole batches
-            ran = slice(start_chunk * chunk, start_chunk * chunk
-                        + len(metrics) * chunk)
-            per_batch = rows_metrics(
-                self.exchange, torch.cat([p for p, _ in metrics]),
-                torch.cat([loss for _, loss in metrics]),
-                stream.valid[ran]).cpu().numpy()
-        else:
-            # [n_batches, 4], or [n_batches, S, 4]: every lane's, on every
-            # rank
-            per_batch = all_gather_lanes(self.mesh,
-                                         torch.cat(metrics).cpu().numpy())
-        t_gather = time.perf_counter() - t_gather
-        # a window that starts at chunk c holds the real batches from
-        # c·per_chunk on
-        real = max(1, min(len(per_batch),
-                          ps.real_batches - start_chunk * per_chunk))
-        per_batch = per_batch[:real]
-        overflowed = agree_max(self.mesh, float(
-            torch.stack(overflow[:real]).max()) if overflow else 0.0)
+        with span(READBACK):
+            if row_sharded:
+                # every rank's block scores, once; the metrics of whole
+                # batches
+                ran = slice(start_chunk * chunk, start_chunk * chunk
+                            + len(metrics) * chunk)
+                per_batch = rows_metrics(
+                    self.exchange, torch.cat([p for p, _ in metrics]),
+                    torch.cat([loss for _, loss in metrics]),
+                    stream.valid[ran]).cpu().numpy()
+            else:
+                # [n_batches, 4], or [n_batches, S, 4]: every lane's, on
+                # every rank
+                per_batch = all_gather_lanes(self.mesh,
+                                             torch.cat(metrics).cpu().numpy())
+            t_gather = time.perf_counter() - t_gather
+            # a window that starts at chunk c holds the real batches from
+            # c·per_chunk on
+            real = max(1, min(len(per_batch),
+                              ps.real_batches - start_chunk * per_chunk))
+            per_batch = per_batch[:real]
+            overflowed = agree_max(self.mesh, float(
+                torch.stack(overflow[:real]).max()) if overflow else 0.0)
         # [4], or [S, 4] seed-parallel
         mean = per_batch.mean(axis=0)
         if not self._stacked:
@@ -717,7 +739,8 @@ class Trainer:
                 and self._lazy_compaction_active()):
             snapshot = self._snapshot()
         if start_chunk == 0:
-            self.mem, self.index_state = self._fresh_state()
+            with span(RESET):
+                self.mem, self.index_state = self._fresh_state()
         self.index_state, result = self._phase(
             "train", True, self.index_state, marks, start_chunk, max_chunks)
         if result.overflow > 0 and not self._lazy_fallback:
@@ -729,7 +752,8 @@ class Trainer:
                     "switching to it for the rest of the run "
                     "(set --lazy_unique_cap to resize)", self._epoch_id)
                 self._restore_snapshot(snapshot)
-                self.mem, self.index_state = self._fresh_state()
+                with span(RESET):
+                    self.mem, self.index_state = self._fresh_state()
                 self.index_state, result = self._phase(
                     "train", True, self.index_state, marks)
             else:

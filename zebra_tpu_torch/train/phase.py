@@ -74,6 +74,16 @@ from zebra_tpu_torch.train.step import (
     stored_messages,
     train_plan,
 )
+from zebra_tpu_torch.utils import profiling
+from zebra_tpu_torch.utils.profiling import (
+    ADAM,
+    BACKWARD,
+    BATCH,
+    FORWARD,
+    PROTOCOL,
+    QUERY,
+    span,
+)
 
 METRICS = ("loss", "ap", "auc", "acc")
 
@@ -165,6 +175,18 @@ def check_finite(phase: str, batch: int, **parts) -> None:
             "(--debug_nans)")
 
 
+def _roots(cfg: Config, s: Stream, offs, per_lane: bool):
+    """A batch's query roots src‖dst‖neg ([S, 3b] raw ids per lane, which
+    the forward moves into the lane's rows) and, for a tower that reads no
+    T-PPR query, their times (else None)."""
+    times3 = None if cfg.uses_tppr else torch.cat([s.t, s.t, s.t])
+    if per_lane:
+        n = offs.shape[0]
+        return torch.cat([s.src.expand(n, -1), s.dst.expand(n, -1), s.neg.T],
+                         dim=1), times3
+    return torch.cat([s.src, s.dst, s.neg]), times3
+
+
 def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
               edge_feats: torch.Tensor, stream: Stream,
               queries: Union[torch.Tensor, NeighborIndex, None],
@@ -204,7 +226,10 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     caller with the metrics. ``marks``, a list, receives a (part, CUDA
     event) pair after each part of each batch: "query" (the BFS, pruning
     only), "forward" (queries, towers, loss), "backward", "adam" (train
-    only), "protocol" (the memory protocol), "metrics". Under
+    only), "protocol" (the memory protocol), "metrics". Each batch is a
+    ``zebra.batch`` span of the parts' spans (``utils/profiling.py``):
+    query, forward (the queries' roots, the towers, the scores and the
+    loss), backward, adam, protocol and metrics. Under
     ``cfg.debug_nans`` each batch ends with a host read of whether its
     loss, logits, updated parameters and written memory rows are finite
     (:func:`check_finite`, naming ``phase``); without it nothing is
@@ -220,93 +245,107 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                   else _lane_blocks(n_l, offs.device))
     out = []
     for i, nv in enumerate(n_valid):
-        s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
-        valid = None if nv == b else s.valid
-        if queries is None:
+        with span(BATCH):
+            s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+            valid = None if nv == b else s.valid
             q = None
-        elif index is not None:
-            t0 = time.perf_counter()
-            negs = list(s.neg.T) if per_lane else [s.neg]
-            q = pruned_queries(cfg, index, alpha_beta, [s.src, s.dst, *negs],
-                               s.t)
-            if per_lane:
-                # lane s: the shared src and dst roots and its own negatives
-                q = TpprQueries(*(x[:, blocks].movedim(1, 0) for x in q))
-            if bfs_s is not None:
-                bfs_s.append(time.perf_counter() - t0)
-            _mark(marks, "query")
-        elif per_lane:
-            rows = queries[i * b: (i + 1) * b]
-            q = batch_queries(cfg, rows[:, blocks].transpose(0, 1), s.t)
-        else:
-            q = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
-        times3 = None if cfg.uses_tppr else torch.cat([s.t, s.t, s.t])
-        if per_lane:
-            # raw ids per lane; the forward moves them into the lane's rows
-            nodes3 = torch.cat([s.src.expand(offs.shape[0], b),
-                                s.dst.expand(offs.shape[0], b), s.neg.T],
-                               dim=1)
-        else:
-            nodes3 = torch.cat([s.src, s.dst, s.neg])
-        src_emb = dst_emb = None
-        if train:
-            plan = train_plan(cfg, q, nodes3, offs)
-            if overflow is not None and plan is not None:
-                overflow.append(plan.overflow)
-            optimizer.zero_grad(set_to_none=True)
-            emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                           train=True, generator=generator, offs=offs,
-                           times=times3, nbr_index=nbr_index, plan=plan)
-            pos_logit, neg_logit = _scores(cfg, params, emb, b)
-            bce = F.binary_cross_entropy_with_logits
-            loss = (
-                _masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
-                                 reduction="none"), s.valid)
-                + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
-                                   reduction="none"), s.valid))
-            _mark(marks, "forward")
-            # the lanes share no parameter: the sum's gradient is each
-            # lane's own
-            (loss if offs is None else loss.sum()).backward()
-            _mark(marks, "backward")
-            optimizer.step()
-            _mark(marks, "adam")
-            if cfg.need_emb:
-                emb = emb.detach()
-                src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
-            # commit earlier batches' messages with the updated parameters,
-            # then store this batch's (one-batch staleness)
-            _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
-                            None if valid is None else torch.cat([valid, valid]),
-                            offs)
-            _store_messages(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                            s.eidx, valid, offs, src_emb, dst_emb)
-            loss = loss.detach()
-        else:
-            with torch.no_grad():
-                emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                               offs=offs, times=times3, nbr_index=nbr_index)
-                pos_logit, neg_logit = _scores(cfg, params, emb, b)
-            _mark(marks, "forward")
-            if cfg.need_emb:
-                src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
-            eval_protocol(cfg, params, mem, edge_feats, s.src, s.dst, s.t,
-                          s.eidx, valid, offs, src_emb, dst_emb)
-            loss = torch.zeros(pos_logit.shape[:-1], device=emb.device)
-        _mark(marks, "protocol")
-        if cfg.debug_nans:
-            rows = lane_ids(torch.cat([s.src, s.dst]).to(torch.int64), offs)
-            check_finite(phase, i, loss=loss,
-                         logits=[pos_logit.detach(), neg_logit.detach()],
-                         params=list(params.parameters()) if train else [],
-                         memory=[mem.memory[rows], mem.messages[rows]])
-        with torch.no_grad():
-            pos_p, neg_p = torch.sigmoid(pos_logit), torch.sigmoid(neg_logit)
-            out.append(torch.stack([
-                loss, masked_ap(pos_p, neg_p, s.valid),
-                masked_auc(pos_p, neg_p, s.valid),
-                masked_rank_acc(pos_p, neg_p, s.valid)], dim=-1))
-        _mark(marks, "metrics")
+            if index is not None:
+                with span(QUERY):
+                    t0 = time.perf_counter()
+                    negs = list(s.neg.T) if per_lane else [s.neg]
+                    q = pruned_queries(cfg, index, alpha_beta,
+                                       [s.src, s.dst, *negs], s.t)
+                    if per_lane:
+                        # lane s: the shared src and dst roots and its own
+                        # negatives
+                        q = TpprQueries(*(x[:, blocks].movedim(1, 0)
+                                          for x in q))
+                    if bfs_s is not None:
+                        bfs_s.append(time.perf_counter() - t0)
+                _mark(marks, "query")
+            elif queries is not None:
+                with span(QUERY):
+                    rows = queries[i * b: (i + 1) * b]
+                    q = batch_queries(cfg, rows[:, blocks].transpose(0, 1)
+                                      if per_lane else rows, s.t)
+            src_emb = dst_emb = None
+            if train:
+                with span(FORWARD):
+                    nodes3, times3 = _roots(cfg, s, offs, per_lane)
+                    plan = train_plan(cfg, q, nodes3, offs)
+                    if overflow is not None and plan is not None:
+                        overflow.append(plan.overflow)
+                    optimizer.zero_grad(set_to_none=True)
+                    emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
+                                   train=True, generator=generator, offs=offs,
+                                   times=times3, nbr_index=nbr_index,
+                                   plan=plan)
+                    pos_logit, neg_logit = _scores(cfg, params, emb, b)
+                    bce = F.binary_cross_entropy_with_logits
+                    loss = (
+                        _masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
+                                         reduction="none"), s.valid)
+                        + _masked_mean(bce(neg_logit,
+                                           torch.zeros_like(neg_logit),
+                                           reduction="none"), s.valid))
+                _mark(marks, "forward")
+                with span(BACKWARD):
+                    # the lanes share no parameter: the sum's gradient is
+                    # each lane's own
+                    (loss if offs is None else loss.sum()).backward()
+                _mark(marks, "backward")
+                with span(ADAM):
+                    optimizer.step()
+                _mark(marks, "adam")
+                with span(PROTOCOL):
+                    if cfg.need_emb:
+                        emb = emb.detach()
+                        src_emb, dst_emb = (emb[..., :b, :],
+                                            emb[..., b: 2 * b, :])
+                    # commit earlier batches' messages with the updated
+                    # parameters, then store this batch's (one-batch
+                    # staleness)
+                    _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
+                                    None if valid is None
+                                    else torch.cat([valid, valid]), offs)
+                    _store_messages(cfg, params, mem, edge_feats, s.src, s.dst,
+                                    s.t, s.eidx, valid, offs, src_emb, dst_emb)
+                    loss = loss.detach()
+            else:
+                with span(FORWARD), torch.no_grad():
+                    nodes3, times3 = _roots(cfg, s, offs, per_lane)
+                    emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
+                                   offs=offs, times=times3,
+                                   nbr_index=nbr_index)
+                    pos_logit, neg_logit = _scores(cfg, params, emb, b)
+                    loss = torch.zeros(pos_logit.shape[:-1],
+                                       device=emb.device)
+                _mark(marks, "forward")
+                with span(PROTOCOL):
+                    if cfg.need_emb:
+                        src_emb, dst_emb = (emb[..., :b, :],
+                                            emb[..., b: 2 * b, :])
+                    eval_protocol(cfg, params, mem, edge_feats, s.src, s.dst,
+                                  s.t, s.eidx, valid, offs, src_emb, dst_emb)
+            _mark(marks, "protocol")
+            with span(profiling.METRICS):
+                if cfg.debug_nans:
+                    rows = lane_ids(torch.cat([s.src, s.dst]).to(torch.int64),
+                                    offs)
+                    check_finite(phase, i, loss=loss,
+                                 logits=[pos_logit.detach(),
+                                         neg_logit.detach()],
+                                 params=(list(params.parameters()) if train
+                                         else []),
+                                 memory=[mem.memory[rows], mem.messages[rows]])
+                with torch.no_grad():
+                    pos_p = torch.sigmoid(pos_logit)
+                    neg_p = torch.sigmoid(neg_logit)
+                    out.append(torch.stack([
+                        loss, masked_ap(pos_p, neg_p, s.valid),
+                        masked_auc(pos_p, neg_p, s.valid),
+                        masked_rank_acc(pos_p, neg_p, s.valid)], dim=-1))
+            _mark(marks, "metrics")
     return torch.stack(out)
 
 

@@ -1,6 +1,10 @@
-"""Observability: phase timers and device tracing (counterpart of
-``zebra_tpu/utils/profiling.py``).
+"""Observability: phase timers, the program's spans and device tracing
+(counterpart of ``zebra_tpu/utils/profiling.py``).
 
+- ``span``: a named range of the program (``SPANS``) that lands in a
+  ``torch.profiler`` trace beside the aten operations and kernels it
+  encloses, and costs one flag read when no profiler records;
+  ``span_table`` reads a profile's spans back by name.
 - ``PhaseTimers``: named wall-clock accumulators with an event counter,
   which give the per-epoch log line (tppr/train/val seconds) and the
   events/s rate.
@@ -20,6 +24,9 @@ import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, Optional
 
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
+
 # the single-device model options a profiler run may turn on, under the
 # training command line's names and defaults
 OPTION_FLAGS = {
@@ -29,6 +36,101 @@ OPTION_FLAGS = {
     "use_destination_embedding_in_message": dict(action="store_true"),
     "lazy_unique_cap": dict(type=int, default=0),
 }
+
+
+# The program's spans. A parent holds parts; a part encloses all the host
+# work of its layer in one call, the Python between its operations too.
+# Training and serving share the part names; the parent tells them apart.
+RESET = "zebra.reset"            # a train epoch's zeroed memory and index
+NEGATIVES = "zebra.negatives"    # the epoch's train negatives, drawn, uploaded
+WAVE_PLAN = "zebra.wave_plan"    # one superchunk's host wave plan and upload
+WAVE_SCAN = "zebra.wave_scan"    # one superchunk's wave scan
+READ_IDS = "zebra.read_ids"      # the host read of the columns' id range
+BATCH = "zebra.batch"            # parent: one batch of a phase
+QUERY = "zebra.query"            # T-PPR queries: the BFS, or the index rows
+FORWARD = "zebra.forward"        # towers, scores and loss
+BACKWARD = "zebra.backward"
+ADAM = "zebra.adam"
+PROTOCOL = "zebra.protocol"      # the memory protocol
+METRICS = "zebra.metrics"        # a batch's metrics on the device
+READBACK = "zebra.readback"      # the host reads of metrics or scores
+OBSERVE = "zebra.observe"        # parent: LinkPredictor.observe
+SCORE = "zebra.score"            # parent: LinkPredictor.score
+REQUEST = "zebra.request"        # host columns checked, mapped and uploaded
+SCAN = "zebra.scan"              # serving's index scan
+PARENTS = (BATCH, OBSERVE, SCORE)
+SPANS = (RESET, NEGATIVES, WAVE_PLAN, WAVE_SCAN, READ_IDS, BATCH, QUERY,
+         FORWARD, BACKWARD, ADAM, PROTOCOL, METRICS, READBACK, OBSERVE,
+         SCORE, REQUEST, SCAN)
+
+
+class _NoSpan:
+    """The span of a run that no profiler records: enters and exits."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """``with span(QUERY): ...``: a ``record_function`` range named
+    ``name`` while a ``torch.profiler`` records, else the shared
+    ``NO_SPAN``. Adds no device operation and no synchronisation."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return NO_SPAN
+
+
+def span_table(prof) -> Dict[str, Dict[str, float]]:
+    """The spans of a finished ``torch.profiler`` run by name: calls, host
+    ms (the ranges' summed durations) and device ms (the kernels and
+    copies whose runtime call lies in a range of the name, the innermost
+    span owning it; matched by correlation id, so the autograd thread's
+    launches count under the ``backward`` range that waits for them, and a
+    launch from outside any aten operation counts too). A span's host ms
+    hold the spans nested in it: a batch its parts, a scan its id read."""
+    from bisect import bisect_right
+
+    spans, launch, kernels = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        t = e.start_ns()
+        if e.device_type().name == "CUDA":
+            if not e.is_user_annotation():
+                kernels.append((e.correlation_id(), t, e.duration_ns()))
+            continue
+        name = e.name()
+        if name in SPANS:
+            spans.append((t, t + e.duration_ns(), name))
+        elif name.startswith("cu"):
+            launch[e.correlation_id()] = t     # a runtime or driver call
+    spans.sort(key=lambda x: (x[0], -x[1]))
+    parent, stack = [], []
+    for i, (t0, t1, _) in enumerate(spans):
+        while stack and spans[stack[-1]][1] < t1:
+            stack.pop()
+        parent.append(stack[-1] if stack else -1)
+        stack.append(i)
+    out: Dict[str, Dict[str, float]] = {}
+    for t0, t1, name in spans:
+        row = out.setdefault(name, dict(calls=0, host_ms=0.0, device_ms=0.0))
+        row["calls"] += 1
+        row["host_ms"] += (t1 - t0) / 1e6
+    starts = [x[0] for x in spans]
+    for corr, t, dur in kernels:
+        at = launch.get(corr, t) if corr else t
+        i = bisect_right(starts, at) - 1
+        while i >= 0 and spans[i][1] < at:
+            i = parent[i]
+        if i >= 0:
+            out[spans[i][2]]["device_ms"] += dur / 1e6
+    return out
 
 
 class PhaseTimers:
