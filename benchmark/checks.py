@@ -17,19 +17,20 @@ def rel_gap(got: Iterable[float], ref: Iterable[float]) -> float:
     return float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-30)))
 
 
-def leaf_gap(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
-             leave_out: Iterable[str] = ()) -> float:
-    """The worst leaf's gap between the two sides' norms, over the larger
-    of the reference leaf's norm and the median leaf's."""
+def leaf_gaps(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+              leave_out: Iterable[str] = ()) -> Dict[str, float]:
+    """Each leaf's gap between the two sides' norms, over the larger of the
+    reference leaf's norm and the median leaf's."""
     norms_r = {k: float(v.double().norm()) for k, v in ref.items()}
     med = float(np.median(list(norms_r.values())))
-    worst = 0.0
-    for k, v in ref.items():
-        if k in leave_out:
-            continue
-        g = float(got[k].double().norm())
-        worst = max(worst, abs(g - norms_r[k]) / max(norms_r[k], med, 1e-30))
-    return worst
+    return {k: abs(float(got[k].double().norm()) - n) / max(n, med, 1e-30)
+            for k, n in norms_r.items() if k not in leave_out}
+
+
+def leaf_gap(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+             leave_out: Iterable[str] = ()) -> float:
+    """The worst leaf's gap (``leaf_gaps``)."""
+    return max(leaf_gaps(got, ref, leave_out).values(), default=0.0)
 
 
 def quiet_leaves(grads: Dict[str, torch.Tensor]) -> set:

@@ -6,7 +6,8 @@ epoch's first superchunk through the window's own call while it records
 what the check compares (each of the first three steps' loss from the
 phase's metrics, Adam's first moment after step 1, the parameters and the
 memory table as step 3's Adam leaves them, the index after the superchunk's
-wave scan, or the first three batches' BFS answers under pruning), then
+wave scan and the answers it gave the first three batches, or those
+batches' BFS answers under pruning), then
 warms the epoch's last superchunk, whose padded batch takes the masked
 protocol. The window runs whole superchunks from a fresh epoch, a new epoch
 after the last, until ``seconds`` have passed, and ends where the phase's
@@ -42,8 +43,9 @@ class State:
 
 
 def _record(st, steps: int) -> None:
-    """Wrap the optimizer's step (and under pruning the BFS) to record the
-    first ``steps`` steps; undone by ``_unrecord``."""
+    """Wrap the optimizer's step and the T-PPR answers (the wave scan's, or
+    under pruning the BFS's) to record the first ``steps`` steps; undone by
+    ``_unrecord``."""
     tr = st.trainer
     opt = tr.optimizer
     orig = opt.step
@@ -72,14 +74,25 @@ def _record(st, steps: int) -> None:
             return q
 
         phase.pruned_queries = queries
-        st.undo_q = (phase, orig_q)
+        st.undo = (phase, "pruned_queries", orig_q)
+    else:
+        import zebra_tpu_torch.train.loop as loop
+        orig_w = loop.wave_scan_chunk
+        n = steps * st.cfg.bs
+
+        def waves(*a, **kw):
+            state, rows = orig_w(*a, **kw)
+            if not hasattr(st, "rows"):
+                st.rows = rows[:n].detach().clone()
+            return state, rows
+
+        loop.wave_scan_chunk = waves
+        st.undo = (loop, "wave_scan_chunk", orig_w)
 
 
 def _unrecord(st) -> None:
     del st.trainer.optimizer.step
-    if hasattr(st, "undo_q"):
-        phase, orig_q = st.undo_q
-        phase.pruned_queries = orig_q
+    setattr(*st.undo)
 
 
 def setup(h, warm: bool = True) -> State:
@@ -260,6 +273,7 @@ def reference(st, prec: Prec, device) -> Dict:
         ext = idx.scan(tr.src[:e0], tr.dst[:e0], tr.t[:e0].astype(np.float32),
                        tr.eidx[:e0], negs, extract=True)
         out["index"] = idx
+        out["answers"] = {f: ext[f][: n * b] for f in ("w", "nbr", "eidx")}
         t = tr.t.astype(np.float32)
 
         def q_of(g, i):
@@ -343,6 +357,12 @@ def program_side(st) -> Dict:
             st.index0[:n_real], st.cfg.alpha_list, st.cfg.beta_list,
             st.cfg.topk)
         out["index_rest"] = float(np.abs(st.index0[n_real:]).sum())
+        m, k = len(st.cfg.alpha_list), st.cfg.topk
+        rows = st.rows.cpu().numpy()
+        fields = rows[..., : 4 * m * k].reshape(rows.shape[:-1] + (m, 4, k))
+        out["answers"] = dict(w=fields[..., 0, :],
+                              nbr=fields[..., 1, :].astype(np.int64),
+                              eidx=fields[..., 2, :].astype(np.int64))
     if st.bfs:
         out["bfs"] = {}
         b = st.cfg.bs
@@ -359,10 +379,13 @@ def program_side(st) -> Dict:
 def numbers(got: Dict, ref: Dict) -> Dict[str, float]:
     """The compared numbers: got (the program, or the control) against the
     reference."""
-    out = dict(loss_gap=0.0, grad_gap=0.0, change_gap=0.0, memory_gap=0.0)
+    out = dict(loss_gap=0.0, first_loss_gap=0.0, grad_gap=0.0,
+               change_gap=0.0, memory_gap=0.0)
     for gl, rl in zip(got["lanes"], ref["lanes"]):
         out["loss_gap"] = max(out["loss_gap"],
                               checks.rel_gap(gl["losses"], rl["losses"]))
+        out["first_loss_gap"] = max(out["first_loss_gap"], checks.rel_gap(
+            gl["losses"][:1], rl["losses"][:1]))
         out["grad_gap"] = max(out["grad_gap"], checks.leaf_gap(
             {k: v.cpu() for k, v in gl["grads"].items()},
             {k: v.cpu() for k, v in rl["grads"].items()}))
@@ -376,6 +399,8 @@ def numbers(got: Dict, ref: Dict) -> Dict[str, float]:
     if "index" in ref:
         out["index_gap"] = santa.gap(ref["index"], got["index"]) + float(
             got.get("index_rest", 0.0))
+    if "answers" in got:
+        out["answer_gap"] = bfs.gap(ref["answers"], got["answers"])
     if "bfs" in ref:
         out["bfs_gap"] = max(bfs.gap(ref["bfs"][key], got["bfs"][key])
                              for key in ref["bfs"])

@@ -10,11 +10,14 @@ import contextlib
 import numpy as np
 import pytest
 
-from conftest import harness
+from conftest import ROOT, harness
 
 from benchmark import calibrate, run
 
 TRAIN = ["wikipedia.train", "mooc-pruning.train", "wikipedia.train-s5"]
+# seeds at which a ReLU of the link head tipped in one lane of the first
+# step, so the first gradient read 1.8e-4 and 7.8e-5 against the reference
+TIPPED_S5 = [5000213842, 7000316763]
 
 
 @contextlib.contextmanager
@@ -103,3 +106,15 @@ def test_control_is_not_correct(tiny, workload):
     else:
         nums = calibrate.serve_readings(h, "control", 0.5)
     assert not verdict(nums, h.limits)["correct"], nums
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("seed", TIPPED_S5)
+def test_tipped_seed_is_correct(card, seed):
+    """At the cell's real size, a seed whose first step tips a ReLU is
+    within the cell's limits."""
+    from benchmark.checks import verdict
+
+    h = harness(ROOT, "wikipedia.train-s5", seed=seed, device=card)
+    nums = calibrate.train_readings(h, "program")
+    assert verdict(nums, h.limits)["correct"], nums
