@@ -3470,9 +3470,12 @@ def _rows_leg_run(trainer: Trainer) -> dict:
     """A train epoch, then validate() + test() with the device's
     allocation peak: per-batch metrics and probabilities, seconds, the
     santa launches, the exchange's counts (two ranks), the gathered tables
-    and params."""
+    and params. The one-process Trainer runs its batches eagerly: the
+    scores' spy reads every batch in Python, which a batch replayed from
+    the CUDA graphs (``train/graphs.py``) does not pass through."""
     dev = trainer.device
     cuda = dev.type == "cuda"
+    trainer._graphs = None
     _reset_counts()
     ex = trainer.exchange
     if ex is not None:

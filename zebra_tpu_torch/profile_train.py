@@ -39,6 +39,9 @@ command line's flags), runs a warm-up epoch, then:
   their seconds, the peak device bytes (``max_memory_allocated``) and the
   bytes allocated before them, the host copies' seconds under
   ``--host_backup``; then a ``save_state``'s seconds and bytes.
+- the train batch's CUDA-graph counters over the three epochs
+  (``train/graphs.py``): ``graph_captures``, ``graph_batches`` (full
+  batches replayed) and ``eager_batches`` (train batches run eagerly).
 Prints one JSON line; train events/s count every seed's events. Needs a
 CUDA device.
 
@@ -430,6 +433,9 @@ def main() -> None:
             n for n, _ in per_kernel.values()) / batches,
         top_device_ops=[(name[:60], n, round(us / 1e3, 3))
                         for name, (n, us) in top],
+        graph_captures=trainer.graph_captures,
+        graph_batches=trainer.graph_batches,
+        eager_batches=trainer.eager_batches,
         loss=mean(plain.loss), ap=mean(plain.ap),
         peak_device_gib=peak_gib,
         card=torch.cuda.get_device_name(0),

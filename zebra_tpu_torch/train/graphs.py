@@ -1,0 +1,209 @@
+"""CUDA graphs of the full streaming train batch.
+
+A full train batch of the streaming diffusion path has static shapes and
+reads nothing back (``train/step.py``: a full batch passes no mask, so no
+``nonzero``), so it enqueues the same fixed sequence of a few hundred
+small operations every time, and the host's enqueue, not the card, sets
+its pace. Here its parts are captured once as four CUDA graphs that share
+one memory pool, and each later full batch replays them:
+
+- forward: the queries from the batch's extraction rows, the towers, the
+  scores and the loss;
+- backward: the loss's backward, which writes the parameters' gradients
+  into tensors the graph owns;
+- protocol: the memory protocol, commit then store;
+- metrics: the batch's row of :data:`~zebra_tpu_torch.train.phase.METRICS`.
+
+The part functions are ``train/phase.py``'s own, captured as they run
+eagerly. Adam's step stays an eager call between the backward and the
+protocol replays, so it reads the gradients the backward graph wrote and
+anything wrapping ``optimizer.step`` sees every step. The dropout
+generators are registered with the forward graph, so a replay draws the
+masks an eager batch draws and advances each generator as far.
+
+A graph keeps the addresses it was captured with: the parameters, the
+memory tables, the edge features, the lane offsets and the generators.
+:meth:`BatchGraphs.bind` replays only while the caller passes those very
+objects and the batch shape is the captured one, and captures anew
+otherwise (``Trainer.set_params``, a restored state file); the Trainer's
+epoch reset zeroes the captured tables in place (:meth:`tables`), so a
+new epoch keeps its graphs. Capture starts with one eager batch on the
+capture stream (lazy library set-up must not fall inside a capture), and
+puts the memory tables and the generators back as they were after it."""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from zebra_tpu_torch.config import Config
+from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.utils.profiling import CAPTURE, span
+
+
+def replays(cfg: Config, train: bool, device: torch.device, queries,
+            full: bool) -> bool:
+    """Whether a batch runs from the graphs: a full (``full``, no padding)
+    train batch on a CUDA ``device`` whose ``queries`` are a superchunk's
+    extraction-row tensor (the streaming diffusion path; the BFS's index
+    or None for the other towers is not), on a path that is not
+    row-sharded (``cfg.n_devices`` > 1 with one seed) and without
+    ``cfg.debug_nans``'s per-batch host read. Every other batch runs
+    eagerly."""
+    row_sharded = cfg.n_devices > 1 and cfg.n_seeds == 1
+    return (device.type == "cuda" and train and full
+            and isinstance(queries, torch.Tensor) and not row_sharded
+            and not cfg.debug_nans)
+
+
+class Parts(NamedTuple):
+    """The parts of a train batch as functions of its inputs: ``forward``
+    (batch columns, extraction rows) → its outputs, with ``loss`` and
+    ``plan`` (the lazy plan, or None) among their fields; ``backward``,
+    ``protocol`` (columns, outputs) → None; ``metrics`` (columns,
+    outputs) → the batch's metrics row."""
+
+    forward: Callable
+    backward: Callable
+    protocol: Callable
+    metrics: Callable
+
+
+class Bound(NamedTuple):
+    """What a capture is bound to: the objects whose storage its graphs
+    read or write."""
+
+    cfg: Config
+    params: torch.nn.Module
+    mem: MemoryState
+    edge_feats: torch.Tensor
+    generator: object           # a generator, or a list of one per lane
+    offs: Optional[torch.Tensor]
+
+
+class _Capture(NamedTuple):
+    bound: Bound
+    shapes: Tuple
+    parts: Parts                # kept: its closures hold what the graphs
+                                # read (a phase's lane blocks, say)
+    batch: tuple                # the static batch columns (a Stream)
+    rows: torch.Tensor          # the static extraction rows
+    out: tuple                  # the forward's static outputs
+    row: torch.Tensor           # the metrics graph's static row
+    grads: List[Tuple[torch.Tensor, torch.Tensor]]  # (param, static grad)
+    graphs: Tuple[torch.cuda.CUDAGraph, ...]  # forward, backward,
+                                              # protocol, metrics
+
+
+def _detached(x):
+    """``x`` (a tensor, a NamedTuple of them or None) without autograd
+    history, on the same storage."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, tuple):
+        return type(x)(*(_detached(v) for v in x))
+    return x
+
+
+def _generators(generator) -> list:
+    return list(generator) if isinstance(generator, (list, tuple)) else [
+        generator]
+
+
+class BatchGraphs:
+    """The captured graphs of one Trainer's full train batches, and how
+    often they ran: ``captures`` (each captures all four parts),
+    ``replays`` (batches replayed) and ``eager`` (train batches that ran
+    eagerly)."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self.eager = 0
+        self._c: Optional[_Capture] = None
+
+    def tables(self) -> Optional[MemoryState]:
+        """The memory tables the graphs are bound to (None before a
+        capture)."""
+        return None if self._c is None else self._c.bound.mem
+
+    def bind(self, bound: Bound, parts: Parts, batch: tuple,
+             rows: torch.Tensor) -> "_Capture":
+        """The graphs of this batch's shape on the state ``bound`` names,
+        captured first (from ``parts``, warmed up on ``batch`` and
+        ``rows``) unless the ones held were captured on the same objects;
+        the parameters' ``.grad`` set to the backward graph's gradients
+        (an eager batch drops them)."""
+        c = self._c
+        shapes = (tuple(rows.shape),) + tuple(tuple(x.shape) for x in batch)
+        if c is None or shapes != c.shapes or not _same(c.bound, bound):
+            self._c = None      # free the old graphs and their pool first
+            with span(CAPTURE):
+                c = self._c = _capture(bound, shapes, parts, batch, rows)
+            self.captures += 1
+        for p, g in c.grads:
+            if p.grad is not g:
+                p.grad = g
+        return c
+
+
+def _same(a: Bound, b: Bound) -> bool:
+    return (a.params is b.params and a.mem is b.mem
+            and a.edge_feats is b.edge_feats and a.generator is b.generator
+            and a.offs is b.offs and (a.cfg is b.cfg or a.cfg == b.cfg))
+
+
+def load(c: _Capture, batch: tuple, rows: torch.Tensor) -> None:
+    """Copy a batch's columns and extraction rows into the static inputs
+    of the forward graph."""
+    for dst, src in zip(c.batch, batch):
+        dst.copy_(src)
+    c.rows.copy_(rows)
+
+
+def _capture(bound: Bound, shapes, parts: Parts, batch: tuple,
+             rows: torch.Tensor) -> _Capture:
+    """One eager batch on the capture stream, the memory tables and the
+    generators put back, then the four parts captured in order into one
+    pool (they replay in that order, so one part's scratch may reuse
+    another's)."""
+    gens = _generators(bound.generator)
+    params = list(bound.params.parameters())
+    batch = type(batch)(*(x.clone() for x in batch))
+    rows = rows.clone()
+    saved = [x.clone() for x in bound.mem]
+    states = [g.get_state() for g in gens]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = parts.forward(batch, rows)
+        parts.backward(out)
+        parts.protocol(batch, out)
+        parts.metrics(batch, out)
+    torch.cuda.current_stream().wait_stream(side)
+    for x, y in zip(bound.mem, saved):
+        x.copy_(y)
+    for g, state in zip(gens, states):
+        g.set_state(state)
+    del out, saved
+    for p in params:
+        p.grad = None
+    graphs = tuple(torch.cuda.CUDAGraph() for _ in range(4))
+    for g in gens:
+        graphs[0].register_generator_state(g)
+    pool = torch.cuda.graph_pool_handle()
+    with torch.cuda.graph(graphs[0], pool=pool, stream=side):
+        out = parts.forward(batch, rows)
+    with torch.cuda.graph(graphs[1], pool=pool, stream=side):
+        parts.backward(out)
+    # the autograd graph is spent: its nodes, kept alive by the outputs,
+    # would tie the parameters' gradient accumulators to this stream
+    out = _detached(out)
+    with torch.cuda.graph(graphs[2], pool=pool, stream=side):
+        parts.protocol(batch, out)
+    with torch.cuda.graph(graphs[3], pool=pool, stream=side):
+        row = parts.metrics(batch, out)
+    return _Capture(bound, shapes, parts, batch, rows, out, row,
+                    [(p, p.grad) for p in params if p.grad is not None],
+                    graphs)

@@ -22,8 +22,12 @@ and a stop request takes effect at the end of the epoch.
 Under a ``torch.profiler`` the epoch's host work lands in the program's
 spans (``utils/profiling.py``): ``zebra.reset``, ``zebra.negatives``, per
 superchunk ``zebra.wave_plan`` and ``zebra.wave_scan`` (with the columns'
-``zebra.read_ids`` inside), ``run_phase``'s ``zebra.batch`` spans, then
-``zebra.readback``; evaluation's phases take the same spans.
+``zebra.read_ids`` inside), ``run_phase``'s ``zebra.batch`` spans (with
+``zebra.capture`` where a batch's CUDA graphs are captured), then
+``zebra.readback``; evaluation's phases take the same spans. On the card
+the full train batches of the streaming diffusion path replay CUDA graphs
+(``train/graphs.py``), bound to the memory tables that each epoch's reset
+zeroes in place.
 
 validate: flush pending messages (the train→eval transition), run the
 transductive val stream from (train-end memory, train-end index), keep that
@@ -140,6 +144,7 @@ from zebra_tpu_torch.train.memory_budget import (
 from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
+from zebra_tpu_torch.train.graphs import BatchGraphs
 from zebra_tpu_torch.train.phase import (
     RowPlan,
     Stream,
@@ -421,6 +426,9 @@ class Trainer:
         self.index_waves = 0
         self.index_sharded_waves = 0
         self.index_scans = 0
+        # the CUDA graphs of the full streaming train batch, bound to the
+        # memory tables the epoch reset keeps (train/graphs.py)
+        self._graphs: Optional[BatchGraphs] = BatchGraphs()
         # set once a batch overflowed the lazy compaction's cap: training
         # then runs per position for the rest of the run
         self._lazy_fallback = False
@@ -454,6 +462,21 @@ class Trainer:
                           else float(stopper.last_best)),
         }
 
+    @property
+    def graph_captures(self) -> int:
+        """Captures of the train batch's CUDA graphs so far."""
+        return self._graphs.captures
+
+    @property
+    def graph_batches(self) -> int:
+        """Full train batches replayed from the CUDA graphs so far."""
+        return self._graphs.replays
+
+    @property
+    def eager_batches(self) -> int:
+        """Train batches that ran eagerly so far (on the CPU: every one)."""
+        return self._graphs.eager
+
     def set_params(self, params) -> None:
         """Train ``params`` (an ``nn.ModuleDict`` on this Trainer's device)
         from here on, with a fresh Adam state."""
@@ -462,18 +485,26 @@ class Trainer:
 
     # ---------------------------------------------------------------- helpers
 
-    def _fresh_state(self, whole: bool = False
+    def _fresh_state(self, whole: bool = False,
+                     tables: Optional[MemoryState] = None
                      ) -> Tuple[MemoryState, Optional[TpprState]]:
         """Zeroed memory (S·N flat rows for S seeds; a row-sharded rank's
         N/D, or all N rows of one seed under ``whole``) and an empty index
         (None where no T-PPR index is kept: the pruning strategy and the
-        towers other than diffusion)."""
+        towers other than diffusion). ``tables``, this Trainer's own, are
+        zeroed in place and returned in place of new ones."""
         cfg = self.cfg
         rows = cfg.n_nodes if whole else self._rows
-        mem = init_memory(rows * (1 if whole else self._n_seeds),
-                          cfg.memory_dim, cfg.msg_table_dim,
-                          torch_dtype(cfg.message_dtype),
-                          torch_dtype(cfg.memory_dtype), device=self.device)
+        if tables is not None:
+            mem = tables
+            for x in mem:
+                x.zero_()
+        else:
+            mem = init_memory(rows * (1 if whole else self._n_seeds),
+                              cfg.memory_dim, cfg.msg_table_dim,
+                              torch_dtype(cfg.message_dtype),
+                              torch_dtype(cfg.memory_dtype),
+                              device=self.device)
         if not cfg.keeps_tppr_index:
             return mem, None
         return mem, init_tppr_state(cfg.n_tppr, rows, cfg.topk,
@@ -659,12 +690,15 @@ class Trainer:
                     self.edge_feats, cs, queries, batches, row_plans[ci],
                     self.exchange, self._dropout if train else None, marks,
                     name, bfs_s, nbr_index, overflow))
+                if train and self._graphs is not None:
+                    self._graphs.eager += len(batches)
             else:
                 metrics.append(run_phase(
                     run_cfg, train, self.params, self.optimizer, self.mem,
                     self.edge_feats, cs, queries, batches,
                     self._dropout if train else None, marks, self._offs,
-                    bfs_s, nbr_index, overflow, name))
+                    bfs_s, nbr_index, overflow, name,
+                    self._graphs if train else None))
             if train:
                 self._chunk_cursor = ci + 1
                 if wave_scan and self._agree_stop():
@@ -739,8 +773,7 @@ class Trainer:
                 and self._lazy_compaction_active()):
             snapshot = self._snapshot()
         if start_chunk == 0:
-            with span(RESET):
-                self.mem, self.index_state = self._fresh_state()
+            self._reset()
         self.index_state, result = self._phase(
             "train", True, self.index_state, marks, start_chunk, max_chunks)
         if result.overflow > 0 and not self._lazy_fallback:
@@ -752,8 +785,7 @@ class Trainer:
                     "switching to it for the rest of the run "
                     "(set --lazy_unique_cap to resize)", self._epoch_id)
                 self._restore_snapshot(snapshot)
-                with span(RESET):
-                    self.mem, self.index_state = self._fresh_state()
+                self._reset()
                 self.index_state, result = self._phase(
                     "train", True, self.index_state, marks)
             else:
@@ -767,6 +799,15 @@ class Trainer:
             self._chunk_cursor = 0
             self._epoch_id += 1
         return result
+
+    def _reset(self) -> None:
+        """A train epoch's zeroed memory and empty index. The tables the
+        batch graphs are bound to are zeroed in place, so a new epoch keeps
+        its graphs."""
+        with span(RESET):
+            self.mem, self.index_state = self._fresh_state(
+                tables=None if self._graphs is None else self._graphs
+                .tables())
 
     def _lazy_compaction_active(self) -> bool:
         """Whether the train forward runs the compacted lazy updates (the

@@ -11,7 +11,9 @@ adjacency index of the phase's graph (``models/embedding.py``).
 Eager PyTorch replaces the JAX package's one ``lax.scan`` per phase: the
 batches run as a Python loop that only enqueues device work. Nothing is
 read back inside the loop: per-batch metrics stay on the device, and the
-caller reads a phase's metrics once.
+caller reads a phase's metrics once. On the card a full streaming train
+batch replays CUDA graphs of its parts in place of that enqueue
+(``train/graphs.py``).
 
 The same loop runs S seeds in one pass (``_run_phase_seeds``,
 ``zebra_tpu/train/phase.py:377-558``) when given the lane offsets ``offs``:
@@ -62,7 +64,15 @@ from zebra_tpu_torch.models.embedding import (
     lane_ids,
     tree_embed,
 )
+from zebra_tpu_torch.train.graphs import (
+    BatchGraphs,
+    Bound,
+    Parts,
+    load,
+    replays,
+)
 from zebra_tpu_torch.train.step import (
+    LazyPlan,
     _commit_pending,
     _forward,
     _masked_mean,
@@ -195,7 +205,8 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
               bfs_s: Optional[List[float]] = None,
               nbr_index: Optional[NeighborIndex] = None,
               overflow: Optional[List] = None,
-              phase: str = "train") -> torch.Tensor:
+              phase: str = "train",
+              graphs: Optional[BatchGraphs] = None) -> torch.Tensor:
     """One pass over the batches of ``stream`` with their T-PPR queries:
     ``queries`` holds the extraction rows [E, 3, F] (streaming), or is the
     adjacency index the batches' BFS calls search (pruning; ``bfs_s``, a
@@ -233,20 +244,49 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     ``cfg.debug_nans`` each batch ends with a host read of whether its
     loss, logits, updated parameters and written memory rows are finite
     (:func:`check_finite`, naming ``phase``); without it nothing is
-    added."""
+    added.
+
+    With ``graphs`` (``train/graphs.py``), each batch that
+    :func:`~zebra_tpu_torch.train.graphs.replays` selects (a full
+    streaming train batch on the card) replays the graphs captured from
+    this function's parts, Adam's step eager between them
+    (:func:`_replay`); ``graphs`` counts those and the train batches that
+    ran eagerly."""
     b = cfg.bs
     per_lane = offs is not None and stream.neg.dim() == 2
     index = queries if isinstance(queries, NeighborIndex) else None
     if index is not None:
         alpha_beta = ensemble_tensors(cfg, index.arena.device)
+    blocks = None
     if per_lane and queries is not None:
         n_l = offs.shape[0]
         blocks = (_lane_rows(n_l, b, offs.device) if index is not None
                   else _lane_blocks(n_l, offs.device))
+    if graphs is not None:
+        bound = Bound(cfg, params, mem, edge_feats, generator, offs)
+        parts = Parts(
+            lambda s, rows: _train_forward(
+                cfg, params, mem, edge_feats, s,
+                _row_queries(cfg, rows, s.t, blocks), generator, offs,
+                per_lane, nbr_index),
+            lambda out: _backward(out.loss, offs),
+            lambda s, out: _train_protocol(cfg, params, mem, edge_feats, s,
+                                           None, offs, out.emb),
+            lambda s, out: _metrics_row(out.loss, out.pos_logit,
+                                        out.neg_logit, s.valid))
+    dev = mem.memory.device
     out = []
     for i, nv in enumerate(n_valid):
         with span(BATCH):
             s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+            if graphs is not None and replays(cfg, train, dev, queries,
+                                              nv == b):
+                out.append(_replay(graphs, bound, parts, s,
+                                   queries[i * b: (i + 1) * b], optimizer,
+                                   marks, overflow))
+                continue
+            if graphs is not None and train:
+                graphs.eager += 1
             valid = None if nv == b else s.valid
             q = None
             if index is not None:
@@ -265,53 +305,30 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                 _mark(marks, "query")
             elif queries is not None:
                 with span(QUERY):
-                    rows = queries[i * b: (i + 1) * b]
-                    q = batch_queries(cfg, rows[:, blocks].transpose(0, 1)
-                                      if per_lane else rows, s.t)
-            src_emb = dst_emb = None
+                    q = _row_queries(cfg, queries[i * b: (i + 1) * b], s.t,
+                                     blocks)
             if train:
                 with span(FORWARD):
-                    nodes3, times3 = _roots(cfg, s, offs, per_lane)
-                    plan = train_plan(cfg, q, nodes3, offs)
-                    if overflow is not None and plan is not None:
-                        overflow.append(plan.overflow)
                     optimizer.zero_grad(set_to_none=True)
-                    emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                                   train=True, generator=generator, offs=offs,
-                                   times=times3, nbr_index=nbr_index,
-                                   plan=plan)
-                    pos_logit, neg_logit = _scores(cfg, params, emb, b)
-                    bce = F.binary_cross_entropy_with_logits
-                    loss = (
-                        _masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
-                                         reduction="none"), s.valid)
-                        + _masked_mean(bce(neg_logit,
-                                           torch.zeros_like(neg_logit),
-                                           reduction="none"), s.valid))
+                    fwd = _train_forward(cfg, params, mem, edge_feats, s, q,
+                                         generator, offs, per_lane,
+                                         nbr_index)
+                    if overflow is not None and fwd.plan is not None:
+                        overflow.append(fwd.plan.overflow)
+                    pos_logit, neg_logit = fwd.pos_logit, fwd.neg_logit
                 _mark(marks, "forward")
                 with span(BACKWARD):
-                    # the lanes share no parameter: the sum's gradient is
-                    # each lane's own
-                    (loss if offs is None else loss.sum()).backward()
+                    _backward(fwd.loss, offs)
                 _mark(marks, "backward")
                 with span(ADAM):
                     optimizer.step()
                 _mark(marks, "adam")
                 with span(PROTOCOL):
-                    if cfg.need_emb:
-                        emb = emb.detach()
-                        src_emb, dst_emb = (emb[..., :b, :],
-                                            emb[..., b: 2 * b, :])
-                    # commit earlier batches' messages with the updated
-                    # parameters, then store this batch's (one-batch
-                    # staleness)
-                    _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
-                                    None if valid is None
-                                    else torch.cat([valid, valid]), offs)
-                    _store_messages(cfg, params, mem, edge_feats, s.src, s.dst,
-                                    s.t, s.eidx, valid, offs, src_emb, dst_emb)
-                    loss = loss.detach()
+                    _train_protocol(cfg, params, mem, edge_feats, s, valid,
+                                    offs, fwd.emb)
+                    loss = fwd.loss.detach()
             else:
+                src_emb = dst_emb = None
                 with span(FORWARD), torch.no_grad():
                     nodes3, times3 = _roots(cfg, s, offs, per_lane)
                     emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
@@ -338,15 +355,113 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
                                  params=(list(params.parameters()) if train
                                          else []),
                                  memory=[mem.memory[rows], mem.messages[rows]])
-                with torch.no_grad():
-                    pos_p = torch.sigmoid(pos_logit)
-                    neg_p = torch.sigmoid(neg_logit)
-                    out.append(torch.stack([
-                        loss, masked_ap(pos_p, neg_p, s.valid),
-                        masked_auc(pos_p, neg_p, s.valid),
-                        masked_rank_acc(pos_p, neg_p, s.valid)], dim=-1))
+                out.append(_metrics_row(loss, pos_logit, neg_logit, s.valid))
             _mark(marks, "metrics")
     return torch.stack(out)
+
+
+class _TrainOut(NamedTuple):
+    """A train batch's forward: its lazy plan (None for the towers other
+    than diffusion), embeddings, link logits and loss."""
+
+    plan: Optional[LazyPlan]
+    emb: torch.Tensor
+    pos_logit: torch.Tensor
+    neg_logit: torch.Tensor
+    loss: torch.Tensor
+
+
+def _row_queries(cfg: Config, rows: torch.Tensor, t: torch.Tensor,
+                 blocks: Optional[torch.Tensor]) -> TpprQueries:
+    """A batch's queries from its extraction rows; per lane (``blocks``,
+    :func:`_lane_blocks`), lane s reads the blocks [src, dst, neg_s]."""
+    return batch_queries(cfg, rows if blocks is None
+                         else rows[:, blocks].transpose(0, 1), t)
+
+
+def _train_forward(cfg: Config, params, mem: MemoryState, edge_feats,
+                   s: Stream, q: Optional[TpprQueries], generator, offs,
+                   per_lane: bool, nbr_index) -> _TrainOut:
+    """The train forward of a batch: the queries' roots, the lazy plan,
+    the towers, the scores and the loss (masked means of BCE)."""
+    nodes3, times3 = _roots(cfg, s, offs, per_lane)
+    plan = train_plan(cfg, q, nodes3, offs)
+    emb = _forward(cfg, params, mem, edge_feats, nodes3, q, train=True,
+                   generator=generator, offs=offs, times=times3,
+                   nbr_index=nbr_index, plan=plan)
+    pos_logit, neg_logit = _scores(cfg, params, emb, cfg.bs)
+    bce = F.binary_cross_entropy_with_logits
+    loss = (_masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
+                             reduction="none"), s.valid)
+            + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
+                               reduction="none"), s.valid))
+    return _TrainOut(plan, emb, pos_logit, neg_logit, loss)
+
+
+def _backward(loss: torch.Tensor, offs) -> None:
+    # the lanes share no parameter: the sum's gradient is each lane's own
+    (loss if offs is None else loss.sum()).backward()
+
+
+def _train_protocol(cfg: Config, params, mem: MemoryState, edge_feats,
+                    s: Stream, valid, offs, emb: torch.Tensor) -> None:
+    """The train memory protocol: commit earlier batches' messages with the
+    updated parameters, then store this batch's (one-batch staleness);
+    under a message-source flag with the forward's detached src and dst
+    embeddings."""
+    b = cfg.bs
+    src_emb = dst_emb = None
+    if cfg.need_emb:
+        emb = emb.detach()
+        src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
+    _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
+                    None if valid is None else torch.cat([valid, valid]),
+                    offs)
+    _store_messages(cfg, params, mem, edge_feats, s.src, s.dst, s.t, s.eidx,
+                    valid, offs, src_emb, dst_emb)
+
+
+@torch.no_grad()
+def _metrics_row(loss, pos_logit, neg_logit, valid) -> torch.Tensor:
+    """A batch's row of :data:`METRICS` ([S, 4] per lane)."""
+    pos_p = torch.sigmoid(pos_logit)
+    neg_p = torch.sigmoid(neg_logit)
+    return torch.stack([loss, masked_ap(pos_p, neg_p, valid),
+                        masked_auc(pos_p, neg_p, valid),
+                        masked_rank_acc(pos_p, neg_p, valid)], dim=-1)
+
+
+def _replay(graphs: BatchGraphs, bound: Bound, parts: Parts, s: Stream,
+            rows: torch.Tensor, optimizer, marks, overflow) -> torch.Tensor:
+    """A full streaming train batch from the graphs (``train/graphs.py``),
+    under the same spans and marks as an eager one, with Adam's eager step
+    between the backward and the protocol replays. Returns a copy of its
+    metrics row, which the next replay overwrites."""
+    c = graphs.bind(bound, parts, s, rows)
+    with span(FORWARD):
+        load(c, s, rows)
+        c.graphs[0].replay()
+        plan = c.out.plan
+        if overflow is not None and plan is not None:
+            # per position the flag is a constant 0 the graph fills
+            overflow.append(plan.overflow.clone() if plan.uniq is not None
+                            else plan.overflow)
+    _mark(marks, "forward")
+    with span(BACKWARD):
+        c.graphs[1].replay()
+    _mark(marks, "backward")
+    with span(ADAM):
+        optimizer.step()
+    _mark(marks, "adam")
+    with span(PROTOCOL):
+        c.graphs[2].replay()
+    _mark(marks, "protocol")
+    with span(profiling.METRICS):
+        c.graphs[3].replay()
+        row = c.row.clone()
+    _mark(marks, "metrics")
+    graphs.replays += 1
+    return row
 
 
 # ------------------------------------------------------------ row-sharded

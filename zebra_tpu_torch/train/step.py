@@ -120,8 +120,12 @@ class SeedAdam:
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
         lanes = lambda ts: [v for t in ts for v in t.unbind(0)]
-        self._p, self._m, self._v = (lanes(ts) for ts in (
-            self.params, self.exp_avg, self.exp_avg_sq))
+        # views without autograd history: one would keep each parameter's
+        # gradient accumulator alive on the stream it was made on, which a
+        # CUDA graph's backward on another stream cannot use
+        with torch.no_grad():
+            self._p, self._m, self._v = (lanes(ts) for ts in (
+                self.params, self.exp_avg, self.exp_avg_sq))
         self._lr = [lr for _ in self.params for lr in self.lrs]
 
     def zero_grad(self, set_to_none: bool = True) -> None:
@@ -468,8 +472,10 @@ def _commit_pending(cfg: Config, params, mem: MemoryState, positives,
             positives[..., sel], new_memory[..., sel, :], new_last[..., sel])
     mem.memory[positives] = new_memory
     mem.last_update[positives] = new_last
-    mem.messages[positives] = 0.0
-    mem.msg_count[positives] = 0.0
+    # device scalars: a Python number is copied in from the host, which
+    # waits for the device and cannot be captured in a CUDA graph
+    mem.messages[positives] = mem.messages.new_zeros(())
+    mem.msg_count[positives] = mem.msg_count.new_zeros(())
     return mem
 
 
@@ -583,7 +589,7 @@ def _store_messages(cfg: Config, params, mem: MemoryState, edge_feats, src,
     rows, take = _winner_writes(snd, valid2, win)
     mem.messages[rows] = msg[..., take, :]
     mem.msg_ts[rows] = t2[take]
-    mem.msg_count[rows] = 1.0
+    mem.msg_count[rows] = mem.msg_count.new_ones(())   # a device scalar
     return mem
 
 

@@ -47,6 +47,7 @@ WAVE_PLAN = "zebra.wave_plan"    # one superchunk's host wave plan and upload
 WAVE_SCAN = "zebra.wave_scan"    # one superchunk's wave scan
 READ_IDS = "zebra.read_ids"      # the host read of the columns' id range
 BATCH = "zebra.batch"            # parent: one batch of a phase
+CAPTURE = "zebra.capture"        # the CUDA graphs of a train batch captured
 QUERY = "zebra.query"            # T-PPR queries: the BFS, or the index rows
 FORWARD = "zebra.forward"        # towers, scores and loss
 BACKWARD = "zebra.backward"
@@ -59,8 +60,8 @@ SCORE = "zebra.score"            # parent: LinkPredictor.score
 REQUEST = "zebra.request"        # host columns checked, mapped and uploaded
 SCAN = "zebra.scan"              # serving's index scan
 PARENTS = (BATCH, OBSERVE, SCORE)
-SPANS = (RESET, NEGATIVES, WAVE_PLAN, WAVE_SCAN, READ_IDS, BATCH, QUERY,
-         FORWARD, BACKWARD, ADAM, PROTOCOL, METRICS, READBACK, OBSERVE,
+SPANS = (RESET, NEGATIVES, WAVE_PLAN, WAVE_SCAN, READ_IDS, BATCH, CAPTURE,
+         QUERY, FORWARD, BACKWARD, ADAM, PROTOCOL, METRICS, READBACK, OBSERVE,
          SCORE, REQUEST, SCAN)
 
 
