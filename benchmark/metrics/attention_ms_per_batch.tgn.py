@@ -1,0 +1,9 @@
+"""Device milliseconds per train batch launched inside the program's
+``zebra.attention`` span (``spans.reduce`` of the traced superchunk); None
+where the program records no such span."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.per(ctx, ["zebra.attention"], "device_s", "zebra.batch", 1e3)

@@ -1,0 +1,10 @@
+"""Device milliseconds per train batch launched inside the program's
+``zebra.backward`` span (the tower's, head's and lazy GRU's gradients;
+``spans.reduce`` of the traced superchunk); None where the program records
+no such span."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.per(ctx, ["zebra.backward"], "device_s", "zebra.batch", 1e3)

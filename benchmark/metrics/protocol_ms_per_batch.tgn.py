@@ -1,0 +1,10 @@
+"""Device milliseconds per train batch launched inside the program's
+``zebra.protocol`` span (the memory protocol after Adam's step;
+``spans.reduce`` of the traced superchunk); None where the program records
+no such span."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.per(ctx, ["zebra.protocol"], "device_s", "zebra.batch", 1e3)

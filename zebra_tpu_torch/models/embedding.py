@@ -42,6 +42,7 @@ from zebra_tpu_torch.models.cells import add_bias, matmul
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import cell_apply, message_input
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
+from zebra_tpu_torch.utils.profiling import ATTENTION, HOPS, ROWS, span
 
 
 def lane_ids(ids: torch.Tensor, offs: Optional[torch.Tensor],
@@ -117,24 +118,28 @@ def combine_tree(cfg: Config, params, edge_feats: torch.Tensor,
     """graph_attention / graph_sum over a :func:`hop_tree`: ``rows`` maps a
     level's node ids to their memory rows (gathered level by level from the
     roots down), then each layer combines a level's rows with its children's
-    embeddings from the deepest level up → the roots' [..., Q, node_dim]."""
+    embeddings from the deepest level up → the roots' [..., Q, node_dim].
+    The gathers are one ``zebra.rows`` span, the layers one
+    ``zebra.attention`` span."""
     basis = time_basis(cfg.time_dim, edge_feats.device)
     last_edge = edge_feats.shape[0] - 1
-    feats = [rows(h.nodes) for h in tree]
-    emb = feats[-1]
-    for d in range(len(tree) - 2, -1, -1):
-        layer = len(tree) - 1 - d
-        parent, child = tree[d], tree[d + 1]
-        hop = child.valid.shape
-        nbr_emb = emb.reshape(emb.shape[:-2] + hop[-2:]
-                              + emb.shape[-1:])               # [.., Q, n, D]
-        te_src = time_encode(torch.zeros_like(parent.times),
-                             basis)                           # [.., Q, Dt]
-        te_nbr = time_encode(parent.times[..., None]
-                             - child.times.reshape(hop), basis)
-        ef = edge_feats[child.eidx.clamp(max=last_edge)]      # [.., Q, n, De]
-        emb = _layer(cfg, params, layer, feats[d], te_src, nbr_emb, te_nbr,
-                     ef, child.valid)
+    with span(ROWS):
+        feats = [rows(h.nodes) for h in tree]
+    with span(ATTENTION):
+        emb = feats[-1]
+        for d in range(len(tree) - 2, -1, -1):
+            layer = len(tree) - 1 - d
+            parent, child = tree[d], tree[d + 1]
+            hop = child.valid.shape
+            nbr_emb = emb.reshape(emb.shape[:-2] + hop[-2:]
+                                  + emb.shape[-1:])           # [.., Q, n, D]
+            te_src = time_encode(torch.zeros_like(parent.times),
+                                 basis)                       # [.., Q, Dt]
+            te_nbr = time_encode(parent.times[..., None]
+                                 - child.times.reshape(hop), basis)
+            ef = edge_feats[child.eidx.clamp(max=last_edge)]  # [.., Q, n, De]
+            emb = _layer(cfg, params, layer, feats[d], te_src, nbr_emb,
+                         te_nbr, ef, child.valid)
     return emb
 
 
@@ -175,9 +180,11 @@ def recursive_embed(cfg: Config, params, mem: MemoryState,
                     offs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """graph_attention / graph_sum embeddings of ``nodes`` [Q] at ``times``
     [Q] → [Q, node_dim] f32. Seed-parallel (``offs``, stacked params):
-    ``nodes`` [S, Q] per lane or [Q] shared, ``times`` [Q] → [S, Q, D]."""
-    return tree_embed(cfg, params, mem, edge_feats,
-                      hop_tree(cfg, nbr_index, nodes, times), train, offs)
+    ``nodes`` [S, Q] per lane or [Q] shared, ``times`` [Q] → [S, Q, D].
+    The hop tree is one ``zebra.hops`` span."""
+    with span(HOPS):
+        tree = hop_tree(cfg, nbr_index, nodes, times)
+    return tree_embed(cfg, params, mem, edge_feats, tree, train, offs)
 
 
 def time_embed(cfg: Config, params, mem: MemoryState, nodes: torch.Tensor,

@@ -26,8 +26,10 @@ command line's flags), runs a warm-up epoch, then:
   span's calls, host ms and the device ms of the work launched inside it
   (``zebra.wave_plan`` and ``zebra.wave_scan`` under streaming diffusion,
   then per batch ``zebra.query``, the BFS under pruning, ``zebra.forward``,
-  for the recursive towers with the neighbor lookups, the lazy GRU over
-  every gathered row and the attention or sum layers, ``zebra.backward``,
+  for the recursive towers with the hop tree's neighbor lookups
+  (``zebra.hops``), the lazy GRU over every gathered row
+  (``zebra.rows``) and the attention or sum layers
+  (``zebra.attention``) inside it, ``zebra.backward``,
   ``zebra.adam``, ``zebra.protocol`` and ``zebra.metrics``);
   ``parts_device_share`` is each part's device ms over the busy ms;
 - under pruning, one train batch's BFS alone: its device time (CUDA

@@ -82,6 +82,7 @@ from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import _forward, eval_protocol
 from zebra_tpu_torch.utils.profiling import (
+    FOLD,
     FORWARD,
     OBSERVE,
     PROTOCOL,
@@ -316,15 +317,16 @@ class LinkPredictor:
     def flush_index(self) -> None:
         """Fold every pending observed interaction into the adjacency index:
         a rebuild on the host from the base stream and the pending events,
-        then one upload."""
+        then one upload: one ``zebra.fold`` span."""
         if not self._pending:
             return
-        self._events = tuple(
-            np.concatenate([base] + [p[i] for p in self._pending])
-            for i, base in enumerate(self._events))
-        self._pending, self._pending_n = [], 0
-        self.nbr_index = build_neighbor_index(*self._events, self.cfg.n_nodes,
-                                              self.device)
+        with span(FOLD):
+            self._events = tuple(
+                np.concatenate([base] + [p[i] for p in self._pending])
+                for i, base in enumerate(self._events))
+            self._pending, self._pending_n = [], 0
+            self.nbr_index = build_neighbor_index(
+                *self._events, self.cfg.n_nodes, self.device)
 
     # ------------------------------------------------------------ requests
 

@@ -50,6 +50,10 @@ BATCH = "zebra.batch"            # parent: one batch of a phase
 CAPTURE = "zebra.capture"        # the CUDA graphs of a train batch captured
 QUERY = "zebra.query"            # T-PPR queries: the BFS, or the index rows
 FORWARD = "zebra.forward"        # towers, scores and loss
+HOPS = "zebra.hops"              # a recursive tower's hop tree (forward)
+ROWS = "zebra.rows"              # its memory rows, level by level, lazily
+                                 # updated in training (forward)
+ATTENTION = "zebra.attention"    # its layers, deepest first (forward)
 BACKWARD = "zebra.backward"
 ADAM = "zebra.adam"
 PROTOCOL = "zebra.protocol"      # the memory protocol
@@ -59,10 +63,11 @@ OBSERVE = "zebra.observe"        # parent: LinkPredictor.observe
 SCORE = "zebra.score"            # parent: LinkPredictor.score
 REQUEST = "zebra.request"        # host columns checked, mapped and uploaded
 SCAN = "zebra.scan"              # serving's index scan
+FOLD = "zebra.fold"              # serving's adjacency rebuild (observe)
 PARENTS = (BATCH, OBSERVE, SCORE)
 SPANS = (RESET, NEGATIVES, WAVE_PLAN, WAVE_SCAN, READ_IDS, BATCH, CAPTURE,
-         QUERY, FORWARD, BACKWARD, ADAM, PROTOCOL, METRICS, READBACK, OBSERVE,
-         SCORE, REQUEST, SCAN)
+         QUERY, FORWARD, HOPS, ROWS, ATTENTION, BACKWARD, ADAM, PROTOCOL,
+         METRICS, READBACK, OBSERVE, SCORE, REQUEST, SCAN, FOLD)
 
 
 class _NoSpan:
