@@ -8,6 +8,13 @@ each event are inserted), and entries with equal timestamps keep stream
 order. It is built on the host with numpy, exactly as the JAX package
 builds it, and uploaded once.
 
+Events observed later in time fold in on the index's device
+(:func:`append_events`): each new slot goes to the end of its owner's run,
+the old slots shift up by the new slots of the owners before theirs, and
+new distinct times append to U, so no old rank moves. The result is
+bit-equal to a rebuild over every event wherever appending keeps the
+build's order; elsewhere it returns None and the caller rebuilds.
+
 Temporal lookups are sorted searches, not a loop: each arena slot carries
 the int64 key ``owner·2^32 + rank(ts)``, where ``rank`` is the position of
 its f32 time among the arena's sorted distinct times U. A slot's time is
@@ -19,7 +26,7 @@ search."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +41,12 @@ class NeighborIndex(NamedTuple):
     keys: torch.Tensor     # i64 [T]: owner·2^32 + rank of the slot's time
     times: torch.Tensor    # f32 [U]: the arena's distinct times, ascending
     max_degree: int        # the most slots one node owns
+    # host bookkeeping of append_events (None on an index built elsewhere)
+    degree: Optional[np.ndarray] = None      # i64 [N]: slots each node owns
+    newest: float = float("-inf")            # the newest f64 time held
+    newest_dst: Optional[np.ndarray] = None  # i64: the nodes that own a
+                                             # destination-direction slot
+                                             # at ``newest``, ascending
 
     @property
     def nbr(self) -> torch.Tensor:
@@ -75,9 +88,7 @@ def build_neighbor_index(sources, destinations, timestamps, edge_idxs,
     edge_idxs = np.asarray(edge_idxs, np.int64)
 
     owner = np.concatenate([sources, destinations])
-    if len(owner) and (owner.min() < 0 or owner.max() >= n_nodes):
-        raise ValueError(f"node ids must lie in [0, {n_nodes}), got "
-                         f"[{owner.min()}, {owner.max()}]")
+    _check_owners(owner, n_nodes)
     nbr = np.concatenate([destinations, sources])
     ts = np.concatenate([timestamps, timestamps])
     eidx = np.concatenate([edge_idxs, edge_idxs])
@@ -93,12 +104,105 @@ def build_neighbor_index(sources, destinations, timestamps, edge_idxs,
         # one slot that no offset range holds, so a lookup gathers in bounds
         nbr, eidx, ts32 = (np.zeros(1, a.dtype) for a in (nbr, eidx, ts32))
         keys = np.full(1, n_nodes << 32, np.int64)
-    arena = np.stack([nbr.astype(np.int32), eidx.astype(np.int32),
-                      ts32.view(np.int32)], axis=1)
-    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return NeighborIndex(arena=up(arena), offsets=up(offsets), keys=up(keys),
-                         times=up(times),
-                         max_degree=int(np.diff(offsets).max(initial=0)))
+    arena = _arena_rows(nbr, eidx, ts32)
+    degree = np.diff(offsets)
+    newest = float(timestamps.max()) if len(timestamps) else float("-inf")
+    return NeighborIndex(arena=_up(arena, dev), offsets=_up(offsets, dev),
+                         keys=_up(keys, dev), times=_up(times, dev),
+                         max_degree=int(degree.max(initial=0)), degree=degree,
+                         newest=newest, newest_dst=np.unique(
+                             destinations[timestamps == newest]))
+
+
+def append_events(index: NeighborIndex, sources, destinations, timestamps,
+                  edge_idxs) -> Optional[NeighborIndex]:
+    """A new index holding ``index``'s events and these, bit-equal to
+    :func:`build_neighbor_index` over both streams concatenated, built on
+    ``index``'s device from the new slots alone (``index`` is left as it
+    is). None where appending would not keep the build's order (owner, f64
+    time, then position in ``[sources ‖ destinations]``), and the caller
+    must rebuild: ``index`` holds no events or no bookkeeping, a new time
+    lies below ``index.newest``, or a new source-direction slot at
+    ``index.newest`` belongs to a node with a destination-direction slot
+    there already (the build puts the new slot first)."""
+    if index.degree is None or not index.degree.any():
+        return None
+    sources = np.asarray(sources, np.int64)
+    destinations = np.asarray(destinations, np.int64)
+    timestamps = np.asarray(timestamps, np.float64)
+    edge_idxs = np.asarray(edge_idxs, np.int64)
+    n_nodes = index.n_nodes
+    owner = np.concatenate([sources, destinations])
+    _check_owners(owner, n_nodes)
+    if not len(timestamps):
+        return index
+    # written so that a NaN time rebuilds too
+    if not (timestamps >= index.newest).all():
+        return None
+    if np.isin(sources[timestamps == index.newest], index.newest_dst).any():
+        return None
+
+    # the new slots in the build's order among themselves
+    ts = np.concatenate([timestamps, timestamps])
+    order = np.lexsort((ts, owner))
+    owner, ts = owner[order], ts[order]
+    nbr = np.concatenate([destinations, sources])[order]
+    eidx = np.concatenate([edge_idxs, edge_idxs])[order]
+    # every new f32 time is at least the newest held, times[-1]: it takes
+    # that rank or a new one above it
+    ts32 = ts.astype(np.float32)
+    new_times = np.unique(ts32)
+    held = new_times[0] == np.float32(index.newest)
+    u = index.times.shape[0] - int(held)
+    keys = (owner << 32) + u + np.searchsorted(new_times, ts32)
+
+    degree = index.degree + np.bincount(owner, minlength=n_nodes)
+    newest = max(index.newest, float(timestamps.max()))
+    at_newest = np.unique(destinations[timestamps == newest])
+    if newest == index.newest:
+        at_newest = np.union1d(index.newest_dst, at_newest)
+
+    dev = index.arena.device
+    new_keys = _up(keys, dev)
+    new_owner = new_keys >> 32
+    # slots of the owners before each node's run: old runs shift by them
+    shift = torch.searchsorted(new_owner,
+                               torch.arange(n_nodes + 1, device=dev))
+    n_old, n_new = index.keys.shape[0], len(keys)
+    old_pos = torch.arange(n_old, device=dev) + shift[index.keys >> 32]
+    # a new slot j of owner o lands past o's old run, at old offsets[o+1]
+    # + j (j counts the new slots of owners up to o)
+    new_pos = (index.offsets[new_owner + 1]
+               + torch.arange(n_new, device=dev))
+    arena = index.arena.new_empty((n_old + n_new, 3))
+    arena.index_copy_(0, old_pos, index.arena)
+    arena.index_copy_(0, new_pos, _up(_arena_rows(nbr, eidx, ts32), dev))
+    all_keys = index.keys.new_empty(n_old + n_new)
+    all_keys.index_copy_(0, old_pos, index.keys)
+    all_keys.index_copy_(0, new_pos, new_keys)
+    times = new_times[1:] if held else new_times
+    return NeighborIndex(
+        arena=arena, offsets=index.offsets + shift, keys=all_keys,
+        times=(torch.cat([index.times, _up(times, dev)]) if len(times)
+               else index.times),
+        max_degree=max(index.max_degree, int(degree[owner].max())),
+        degree=degree, newest=newest, newest_dst=at_newest)
+
+
+def _check_owners(owner: np.ndarray, n_nodes: int) -> None:
+    if len(owner) and (owner.min() < 0 or owner.max() >= n_nodes):
+        raise ValueError(f"node ids must lie in [0, {n_nodes}), got "
+                         f"[{owner.min()}, {owner.max()}]")
+
+
+def _arena_rows(nbr, eidx, ts32) -> np.ndarray:
+    """i32 [T, 3] arena rows: neighbor id, edge id, the f32 time's bits."""
+    return np.stack([nbr.astype(np.int32), eidx.astype(np.int32),
+                     ts32.view(np.int32)], axis=1)
+
+
+def _up(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
 def count_before(index: NeighborIndex, nodes: torch.Tensor,

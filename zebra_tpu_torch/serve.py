@@ -22,12 +22,14 @@ one ``santa_scan`` launch) or, under pruning, one BFS.
 Under the pruning strategy the predictor holds no T-PPR state but an
 adjacency index (``nbr_index``) and the event stream it was built from
 (``events``); ``score`` queries it by a bounded BFS, and ``observe`` folds
-the new events into it (a rebuild on the host every ``rebuild_every``
-events, or at ``flush_index()``) before the memory protocol. The towers
-other than diffusion hold no T-PPR state under either strategy; the
-recursive ones search the adjacency index, which ``observe`` folds the
-same way. An observed edge id past the feature table reads the table's
-last row there, as JAX's clamped gather does.
+the new events into it (every ``rebuild_every`` events, or at
+``flush_index()``) before the memory protocol: on the index's device by
+appending the new slots where they keep the build's order (events
+observed in time order), else by a rebuild on the host. The towers other
+than diffusion hold no T-PPR state under either strategy; the recursive
+ones search the adjacency index, which ``observe`` folds the same way. An
+observed edge id past the feature table reads the table's last row there,
+as JAX's clamped gather does.
 
 A state file trained with interleaved node ids (``Config.
 interleave_shards``: a row-sharded run with ``--interleave_node_ids``)
@@ -64,6 +66,7 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.device import resolve_device
 from zebra_tpu_torch.index.neighbor_finder import (
     NeighborIndex,
+    append_events,
     build_neighbor_index,
 )
 from zebra_tpu_torch.index.streaming import (
@@ -141,11 +144,10 @@ class LinkPredictor:
         (None otherwise). ``nbr_index`` is the adjacency index of the
         pruning strategy and the recursive towers, and ``events`` the
         (sources, destinations, timestamps, edge_idxs) stream it was built
-        from: with them ``observe()`` folds
-        new interactions into the index, by a rebuild on the host once
-        ``rebuild_every`` events are pending (1: at every call;
-        ``flush_index()`` forces one). Without ``events`` the index stays
-        as given, and observe() warns once. ``events`` carry external ids
+        from: with them ``observe()`` folds new interactions into the
+        index once ``rebuild_every`` events are pending (1: at every call;
+        ``flush_index()`` forces a fold). Without ``events`` the index
+        stays as given, and observe() warns once. ``events`` carry external ids
         (mapped through the interleave, where the config used one) unless
         ``internal_ids``."""
         self.device = resolve_device(device)
@@ -176,8 +178,14 @@ class LinkPredictor:
             events = events_to_internal(cfg, events)
         self._events = (None if events is None else
                         tuple(np.array(c) for c in events[:4]))
+        # capacity buffers of the folded stream: while ``_events`` is the
+        # tuple ``_events_out`` that the last fold handed out, it is a view
+        # of their filled rows
+        self._events_buf: Tuple[np.ndarray, ...] = ()
+        self._events_out: Optional[Tuple[np.ndarray, ...]] = None
         self._pending: list = []
         self._pending_n = 0
+        self._fold_appends = self._fold_rebuilds = 0
         self.rebuild_every = max(1, int(rebuild_every))
         self._warned_static = False
 
@@ -314,19 +322,58 @@ class LinkPredictor:
         if self._pending_n >= self.rebuild_every:
             self.flush_index()
 
+    @property
+    def fold_appends(self) -> int:
+        """Folds made by appending the new slots on the device so far."""
+        return self._fold_appends
+
+    @property
+    def fold_rebuilds(self) -> int:
+        """Folds made by rebuilding the whole index on the host so far."""
+        return self._fold_rebuilds
+
     def flush_index(self) -> None:
-        """Fold every pending observed interaction into the adjacency index:
-        a rebuild on the host from the base stream and the pending events,
-        then one upload: one ``zebra.fold`` span."""
+        """Fold every pending observed interaction into a new adjacency
+        index (the old one is left as it is), one ``zebra.fold`` span: the
+        pending slots appended on the index's device
+        (``neighbor_finder.append_events``), or, where that would not keep
+        the build's order, a rebuild on the host from the base stream and
+        the pending events, then one upload."""
         if not self._pending:
             return
         with span(FOLD):
-            self._events = tuple(
-                np.concatenate([base] + [p[i] for p in self._pending])
-                for i, base in enumerate(self._events))
+            new = tuple(np.concatenate([p[i] for p in self._pending])
+                        for i in range(4))
             self._pending, self._pending_n = [], 0
-            self.nbr_index = build_neighbor_index(
-                *self._events, self.cfg.n_nodes, self.device)
+            self._events = self._grown(new)
+            index = append_events(self.nbr_index, *new)
+            if index is None:
+                index = build_neighbor_index(*self._events, self.cfg.n_nodes,
+                                             self.device)
+                self._fold_rebuilds += 1
+            else:
+                self._fold_appends += 1
+            self.nbr_index = index
+
+    def _grown(self, new) -> Tuple[np.ndarray, ...]:
+        """``_events`` followed by the columns ``new``, as views of the
+        capacity buffers: amortised O(len(new)). Rows a handed-out tuple
+        holds are never written; a tuple other than the last one handed
+        out (a caller put back an older state) is first copied into fresh
+        buffers."""
+        n, k = len(self._events[0]), len(new[0])
+        if (self._events is not self._events_out
+                or n + k > len(self._events_buf[0])):
+            cap = 2 * (n + k)
+            self._events_buf = tuple(
+                np.empty(cap, np.result_type(np.asarray(c).dtype, d.dtype))
+                for c, d in zip(self._events, new))
+            for buf, c in zip(self._events_buf, self._events):
+                buf[:n] = c
+        for buf, c in zip(self._events_buf, new):
+            buf[n: n + k] = c
+        self._events_out = tuple(buf[: n + k] for buf in self._events_buf)
+        return self._events_out
 
     # ------------------------------------------------------------ requests
 
