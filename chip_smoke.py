@@ -286,7 +286,7 @@ from zebra_tpu_torch.train.checkpoint import load_checkpoint
 from zebra_tpu_torch.train import phase as phase_mod
 from zebra_tpu_torch.train.node_classification import run_node_classification
 from zebra_tpu_torch.train.loop import Trainer
-from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
+from zebra_tpu_torch.index.queries import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import flush_pending_
 from zebra_tpu_torch.utils.profiling import device_ms
 

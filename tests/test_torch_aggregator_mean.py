@@ -63,6 +63,7 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.models import tgn
 from zebra_tpu_torch.train import phase, step
+from zebra_tpu_torch.train.graphs import Bound
 from zebra_tpu_torch.train.loop import Trainer
 
 B = 40
@@ -169,9 +170,9 @@ def check_run_phase(dtype, train, **kw):
         jcfg, train, 2, jp, opt.init(jp), jmem, (), jax.random.PRNGKey(0),
         jnp.asarray(ef), (), jstream, jnp.asarray(rows))
     stream = phase.Stream(**{k: torch.from_numpy(v) for k, v in cols.items()})
-    ms = phase.run_phase(cfg, train, pp, step.make_optimizer(cfg, pp), pmem,
-                         torch.from_numpy(ef), stream, torch.from_numpy(rows),
-                         [B, B - 9])
+    bound = Bound(cfg, pp, pmem, torch.from_numpy(ef), None, None)
+    ms = phase.run_phase(bound, train, step.make_optimizer(cfg, pp), stream,
+                         torch.from_numpy(rows), [B, B - 9]).metrics
     bar = BARS[dtype]
     for i, name in enumerate(phase.METRICS):
         _close(ms[:, i], getattr(j_ms, name), bar)

@@ -43,6 +43,7 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
 from zebra_tpu_torch.train import phase, step
+from zebra_tpu_torch.train.graphs import Bound
 from zebra_tpu_torch.train.loop import Trainer
 from zebra_tpu_torch.train.node_classification import collect_source_embeddings
 
@@ -83,10 +84,10 @@ def test_one_train_step_matches_jax():
         jnp.asarray(ef), jax_build(*graph, jcfg.n_nodes),
         jphase.Stream(**{k: jnp.asarray(v) for k, v in batch.items()}))
     ms = phase.run_phase(
-        cfg, True, pp, step.make_optimizer(cfg, pp), pmem,
-        torch.from_numpy(ef),
+        Bound(cfg, pp, pmem, torch.from_numpy(ef), None, None), True,
+        step.make_optimizer(cfg, pp),
         phase.Stream(**{k: torch.from_numpy(v) for k, v in batch.items()}),
-        build_neighbor_index(*graph, cfg.n_nodes, "cpu"), [B - 9])
+        build_neighbor_index(*graph, cfg.n_nodes, "cpu"), [B - 9]).metrics
     for i, name in enumerate(phase.METRICS):
         _close(ms[:, i], getattr(j_ms, name), 6e-7)
     for name, layer in pp.items():

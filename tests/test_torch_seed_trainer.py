@@ -44,6 +44,7 @@ from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.index.waves import wave_scan_chunk
 from zebra_tpu_torch.train.loop import Trainer
+from zebra_tpu_torch.train.graphs import Bound
 from zebra_tpu_torch.train.phase import run_phase
 
 S = 3
@@ -172,8 +173,8 @@ def _batch_ops(tmp_path, n_seeds):
     plan = t._wave_plans("train", negs, range(4, 5))[4]
     _, rows = wave_scan_chunk(t.index_state, t._tppr, *cs, plan)
     with _Count() as count:
-        run_phase(t.cfg, True, t.params, t.optimizer, t.mem, t.edge_feats,
-                  cs, rows, [50], t._dropout, None, t._offs)
+        run_phase(Bound(t.cfg, t.params, t.mem, t.edge_feats, t._dropout,
+                        t._offs), True, t.optimizer, cs, rows, [50])
     return sum(count.n.values())
 
 

@@ -88,7 +88,7 @@ def test_phase_spans(tmp_path, strategy, phase):
     batches = [s for s in spans if s[0] == "zebra.batch"]
     assert len(batches) == len(r.per_batch)
     waves = strategy == "streaming"
-    query = strategy != "identity"
+    query = strategy == "pruning"
     head = names[:names.index("zebra.batch")]
     if phase == "train":
         want = ["zebra.reset", "zebra.negatives"]

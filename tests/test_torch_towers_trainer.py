@@ -60,6 +60,7 @@ from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.index import merge, scan
 from zebra_tpu_torch.index.neighbor_finder import build_neighbor_index
 from zebra_tpu_torch.train import phase, step
+from zebra_tpu_torch.train.graphs import Bound
 from zebra_tpu_torch.train.loop import Trainer
 
 TOWER = "graph_attention"
@@ -170,11 +171,11 @@ def _one_step(tower, **kw):
         jnp.asarray(ef), jax_build(*graph, jcfg.n_nodes),
         jphase.Stream(**{k: jnp.asarray(v) for k, v in batch.items()}))
     ms = phase.run_phase(
-        cfg, True, pp, step.make_optimizer(cfg, pp), pmem,
-        torch.from_numpy(ef),
+        Bound(cfg, pp, pmem, torch.from_numpy(ef), None, None), True,
+        step.make_optimizer(cfg, pp),
         phase.Stream(**{k: torch.from_numpy(v) for k, v in batch.items()}),
-        None, [B - 9], nbr_index=build_neighbor_index(*graph, cfg.n_nodes,
-                                                      "cpu"))
+        None, [B - 9],
+        nbr_index=build_neighbor_index(*graph, cfg.n_nodes, "cpu")).metrics
     for i, name in enumerate(phase.METRICS):
         np.testing.assert_allclose(ms[:, i].numpy(),
                                    np.asarray(getattr(j_ms, name)), rtol=0,

@@ -46,6 +46,7 @@ from zebra_tpu_torch.index.streaming import (
     streaming_scan,
 )
 from zebra_tpu_torch.train import phase, step
+from zebra_tpu_torch.train.graphs import Bound
 
 B = 40
 BARS = {"float32": 1e-5, "bfloat16": 1e-4}
@@ -183,8 +184,9 @@ def test_run_phase_matches_jax(dtype, train):
 
     optimizer = step.make_optimizer(cfg, pp)
     stream = phase.Stream(**{k: torch.from_numpy(v) for k, v in cols.items()})
-    ms = phase.run_phase(cfg, train, pp, optimizer, pmem, torch.from_numpy(ef),
-                         stream, torch.from_numpy(rows), [B, B - 9])
+    bound = Bound(cfg, pp, pmem, torch.from_numpy(ef), None, None)
+    ms = phase.run_phase(bound, train, optimizer, stream,
+                         torch.from_numpy(rows), [B, B - 9]).metrics
     bar = BARS[dtype]
     for i, name in enumerate(phase.METRICS):
         _close(ms[:, i], getattr(j_ms, name), bar)

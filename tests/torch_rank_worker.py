@@ -477,6 +477,28 @@ def sc_rows_paths(tmp: str) -> dict:
     return res
 
 
+# the row-sharded paths whose marks tests/test_torch_marks.py pins
+MARK_PATHS = {
+    "streaming": {},
+    "pruning": dict(tppr_strategy="pruning", n_degree=4, n_layer=2),
+}
+
+
+def sc_rows_marks(tmp: str) -> dict:
+    """The mark names of a train superchunk over 2 ranks, per path of
+    :data:`MARK_PATHS`, with the recorder's event factory a stand-in."""
+    from zebra_tpu_torch.utils import profiling
+
+    profiling.mark_event = object
+    res = {}
+    for name, kw in MARK_PATHS.items():
+        t = trainer(os.path.join(tmp, f"marks_{name}"), n_devices=D, **kw)
+        marks: list = []
+        t.train_epoch(max_chunks=1, marks=marks)
+        res[name] = [n for n, _ in marks]
+    return res
+
+
 def replay_embeddings(t: Trainer) -> dict:
     """The node-classification replay's source embeddings of the train,
     val and test streams, from fresh tables at full N (the valid events')."""

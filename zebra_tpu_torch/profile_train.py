@@ -77,18 +77,15 @@ from zebra_tpu_torch.data.dataset import split_data
 from zebra_tpu_torch.data.synthetic import synthetic_stream
 from zebra_tpu_torch.index import merge
 from zebra_tpu_torch.index.neighbor_finder import most_recent_neighbors
+from zebra_tpu_torch.index.queries import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.index.streaming import TpprState
 from zebra_tpu_torch.index.wave_kernel import SANTA_WAVES
 from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
 from zebra_tpu_torch.parallel.launch import launch
 from zebra_tpu_torch.profile_serve import device_ops
 from zebra_tpu_torch.train.loop import Trainer
-from zebra_tpu_torch.train.phase import (
-    Stream,
-    ensemble_tensors,
-    pruned_queries,
-    run_phase,
-)
+from zebra_tpu_torch.train.graphs import Bound
+from zebra_tpu_torch.train.phase import Stream, run_phase
 from zebra_tpu_torch.utils.profiling import (
     PARENTS,
     add_option_args,
@@ -212,10 +209,10 @@ def train_batch(trainer: Trainer, i: int = 0):
         _, rows = wave_scan_chunk(index, trainer._tppr,
                                   *(x[sl] for x in stream), plan)
         queries = rows[i * b - sl.start: i * b - sl.start + b]
-    return lambda: run_phase(
-        cfg, True, trainer.params, trainer.optimizer, trainer.mem,
-        trainer.edge_feats, s, queries, [b], trainer._dropout, None,
-        trainer._offs, None, trainer.train_nbr_index)
+    bound = Bound(cfg, trainer.params, trainer.mem, trainer.edge_feats,
+                  trainer._dropout, trainer._offs)
+    return lambda: run_phase(bound, True, trainer.optimizer, s, queries, [b],
+                             nbr_index=trainer.train_nbr_index)
 
 
 def bfs_roots(trainer: Trainer, i: int = 0):

@@ -69,6 +69,11 @@ from zebra_tpu_torch.index.neighbor_finder import (
     append_events,
     build_neighbor_index,
 )
+from zebra_tpu_torch.index.queries import (
+    ensemble_tensors,
+    flat_blocks,
+    pruned_queries,
+)
 from zebra_tpu_torch.index.streaming import (
     TpprParams,
     TpprQueries,
@@ -82,7 +87,6 @@ from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import affinity_score, params_from_state_dict
 from zebra_tpu_torch.parallel.sharding import interleave_permutation
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
-from zebra_tpu_torch.train.phase import ensemble_tensors, pruned_queries
 from zebra_tpu_torch.train.step import _forward, eval_protocol
 from zebra_tpu_torch.utils.profiling import (
     FOLD,
@@ -405,11 +409,9 @@ class LinkPredictor:
             if self.cfg.tppr_strategy == "pruning":
                 return pruned_queries(self.cfg, self.nbr_index,
                                       self._alpha_beta, cols, t)
-            q = read_topk(self.index_state, torch.stack(cols, dim=1), t,
-                          self.cfg.n_tppr, self.cfg.topk)   # [B, M, nb, k]
-            m, k = self.cfg.n_tppr, self.cfg.topk
-            return TpprQueries(*(x.permute(1, 2, 0, 3).reshape(m, -1, k)
-                                 for x in q))
+            return flat_blocks(read_topk(self.index_state,
+                                         torch.stack(cols, dim=1), t,
+                                         self.cfg.n_tppr, self.cfg.topk))
 
     def score(self, src, dst, t) -> np.ndarray:
         """P(interaction) for each (src, dst) candidate at its timestamp."""
@@ -471,9 +473,7 @@ class LinkPredictor:
                         self.index_state, q = streaming_scan(
                             self.index_state, self._tppr, src, dst, dst, t,
                             eidx, valid)
-                        m, k = self.cfg.n_tppr, self.cfg.topk
-                        q = TpprQueries(*(x.permute(1, 2, 0, 3).reshape(
-                            m, -1, k) for x in q))
+                        q = flat_blocks(q)
                     else:
                         self.index_state = fill_scan(self.index_state,
                                                      self._tppr, src, dst, t,

@@ -14,8 +14,10 @@ one memory pool, and each later full batch replays them:
 - protocol: the memory protocol, commit then store;
 - metrics: the batch's row of :data:`~zebra_tpu_torch.train.phase.METRICS`.
 
-The part functions are ``train/phase.py``'s own, captured as they run
-eagerly. Adam's step stays an eager call between the backward and the
+The part functions are the ones ``train/phase.py``'s eager batch calls,
+captured as they run; :meth:`BatchGraphs.bind` hands back the same parts
+as replays, and the batch runs them in the same order under the same
+spans. Adam's step stays an eager call between the backward and the
 protocol replays, so it reads the gradients the backward graph wrote and
 anything wrapping ``optimizer.step`` sees every step. The dropout
 generators are registered with the forward graph, so a replay draws the
@@ -60,9 +62,10 @@ def replays(cfg: Config, train: bool, device: torch.device, queries,
 class Parts(NamedTuple):
     """The parts of a train batch as functions of its inputs: ``forward``
     (batch columns, extraction rows) → its outputs, with ``loss`` and
-    ``plan`` (the lazy plan, or None) among their fields; ``backward``,
-    ``protocol`` (columns, outputs) → None; ``metrics`` (columns,
-    outputs) → the batch's metrics row."""
+    ``plan`` (the lazy plan, or None) among their fields; ``backward``
+    (outputs) and ``protocol`` (columns, outputs, valid mask or None for
+    a full batch) → None; ``metrics`` (columns, outputs) → the batch's
+    metrics row."""
 
     forward: Callable
     backward: Callable
@@ -71,8 +74,9 @@ class Parts(NamedTuple):
 
 
 class Bound(NamedTuple):
-    """What a capture is bound to: the objects whose storage its graphs
-    read or write."""
+    """The model state a phase's batches read and write, and so what a
+    capture is bound to: the objects whose storage its graphs read or
+    write."""
 
     cfg: Config
     params: torch.nn.Module
@@ -122,6 +126,7 @@ class BatchGraphs:
         self.replays = 0
         self.eager = 0
         self._c: Optional[_Capture] = None
+        self._replayed: Optional[Parts] = None
 
     def tables(self) -> Optional[MemoryState]:
         """The memory tables the graphs are bound to (None before a
@@ -129,23 +134,27 @@ class BatchGraphs:
         return None if self._c is None else self._c.bound.mem
 
     def bind(self, bound: Bound, parts: Parts, batch: tuple,
-             rows: torch.Tensor) -> "_Capture":
-        """The graphs of this batch's shape on the state ``bound`` names,
-        captured first (from ``parts``, warmed up on ``batch`` and
-        ``rows``) unless the ones held were captured on the same objects;
-        the parameters' ``.grad`` set to the backward graph's gradients
-        (an eager batch drops them)."""
+             rows: torch.Tensor) -> Parts:
+        """This batch's ``parts`` as replays of their graphs on the state
+        ``bound`` names (:func:`_replayed`), captured first (warmed up on
+        ``batch`` and ``rows``) unless the ones held were captured on the
+        same objects; the parameters' ``.grad`` set to the backward
+        graph's gradients (an eager batch drops them). Counts the batch
+        as replayed."""
         c = self._c
         shapes = (tuple(rows.shape),) + tuple(tuple(x.shape) for x in batch)
         if c is None or shapes != c.shapes or not _same(c.bound, bound):
-            self._c = None      # free the old graphs and their pool first
+            # free the old graphs and their pool first
+            self._c = self._replayed = None
             with span(CAPTURE):
                 c = self._c = _capture(bound, shapes, parts, batch, rows)
+            self._replayed = _replayed(c)
             self.captures += 1
         for p, g in c.grads:
             if p.grad is not g:
                 p.grad = g
-        return c
+        self.replays += 1
+        return self._replayed
 
 
 def _same(a: Bound, b: Bound) -> bool:
@@ -154,12 +163,33 @@ def _same(a: Bound, b: Bound) -> bool:
             and a.offs is b.offs and (a.cfg is b.cfg or a.cfg == b.cfg))
 
 
-def load(c: _Capture, batch: tuple, rows: torch.Tensor) -> None:
-    """Copy a batch's columns and extraction rows into the static inputs
-    of the forward graph."""
-    for dst, src in zip(c.batch, batch):
-        dst.copy_(src)
-    c.rows.copy_(rows)
+def _replayed(c: _Capture) -> Parts:
+    """The parts of ``c`` as replays of its graphs: ``forward`` copies the
+    batch's columns and extraction rows into the static inputs first;
+    ``metrics`` returns a copy of the row, which the next replay
+    overwrites. The forward's outputs are the static ones, save the lazy
+    plan's overflow flag, which the caller keeps past the batch: copied
+    where the graph writes it (the compaction's; per position it is a
+    constant 0)."""
+    graphs = c.graphs
+
+    def forward(batch, rows):
+        for dst, src in zip(c.batch, batch):
+            dst.copy_(src)
+        c.rows.copy_(rows)
+        graphs[0].replay()
+        plan = c.out.plan
+        if plan is None or plan.uniq is None:
+            return c.out
+        return c.out._replace(plan=plan._replace(
+            overflow=plan.overflow.clone()))
+
+    def metrics(batch, out):
+        graphs[3].replay()
+        return c.row.clone()
+
+    return Parts(forward, lambda out: graphs[1].replay(),
+                 lambda batch, out, valid: graphs[2].replay(), metrics)
 
 
 def _capture(bound: Bound, shapes, parts: Parts, batch: tuple,
@@ -179,7 +209,7 @@ def _capture(bound: Bound, shapes, parts: Parts, batch: tuple,
     with torch.cuda.stream(side):
         out = parts.forward(batch, rows)
         parts.backward(out)
-        parts.protocol(batch, out)
+        parts.protocol(batch, out, None)
         parts.metrics(batch, out)
     torch.cuda.current_stream().wait_stream(side)
     for x, y in zip(bound.mem, saved):
@@ -201,7 +231,7 @@ def _capture(bound: Bound, shapes, parts: Parts, batch: tuple,
     # would tie the parameters' gradient accumulators to this stream
     out = _detached(out)
     with torch.cuda.graph(graphs[2], pool=pool, stream=side):
-        parts.protocol(batch, out)
+        parts.protocol(batch, out, None)
     with torch.cuda.graph(graphs[3], pool=pool, stream=side):
         row = parts.metrics(batch, out)
     return _Capture(bound, shapes, parts, batch, rows, out, row,

@@ -144,11 +144,10 @@ from zebra_tpu_torch.train.memory_budget import (
 from zebra_tpu_torch.models.tgn import init_seed_params, init_tgn_params
 from zebra_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from zebra_tpu_torch.train.early_stopping import EarlyStopMonitor
-from zebra_tpu_torch.train.graphs import BatchGraphs
+from zebra_tpu_torch.train.graphs import BatchGraphs, Bound
 from zebra_tpu_torch.train.phase import (
     RowPlan,
     Stream,
-    _mark,
     plan_rows,
     rows_metrics,
     run_phase,
@@ -170,6 +169,9 @@ from zebra_tpu_torch.utils.profiling import (
     WAVE_PLAN,
     WAVE_SCAN,
     PhaseTimers,
+    mark,
+    marking,
+    part,
     span,
     trace_context,
 )
@@ -602,8 +604,7 @@ class Trainer:
                 for ci in chunks}
 
     def _phase(self, name: str, train: bool,
-               index_state: Optional[TpprState],
-               marks: Optional[list] = None, start_chunk: int = 0,
+               index_state: Optional[TpprState], start_chunk: int = 0,
                max_chunks: Optional[int] = None
                ) -> Tuple[Optional[TpprState], PhaseResult]:
         """One pass over stream ``name``: per superchunk, the wave scan of
@@ -662,14 +663,16 @@ class Trainer:
         chunk = stream.src.shape[0] // ps.n_chunks
         per_chunk = chunk // cfg.bs
         n_valid = ps.n_valid()
-        metrics, waves, scans, bfs_s, overflow = [], 0, 0, [], []
+        metrics, waves, scans, bfs_s, overflow = [], 0, 0, 0.0, []
         nbr_index = self.train_nbr_index if train else self.full_nbr_index
-        _mark(marks, "start")
+        bound = Bound(run_cfg, self.params, self.mem, self.edge_feats,
+                      self._dropout if train else None, self._offs)
+        mark("start")
         for ci in chunks:
             cs = Stream(*(x[ci * chunk: (ci + 1) * chunk] for x in stream))
             if wave_scan:
                 ti = time.perf_counter()
-                with span(WAVE_SCAN):
+                with part(WAVE_SCAN):
                     index_state, queries = wave_scan_chunk(
                         index_state, self._tppr, *cs, plans[ci], self.exchange)
                     if cfg.profile and self.device.type == "cuda":
@@ -679,26 +682,25 @@ class Trainer:
                 t_index += time.perf_counter() - ti
                 waves += plans[ci].n_waves
                 scans += 1
-                _mark(marks, "index")
             else:
                 # the BFS's index, or none for a tower without T-PPR
                 queries = nbr_index if cfg.uses_tppr else None
             batches = n_valid[ci * per_chunk: (ci + 1) * per_chunk].tolist()
             if row_sharded:
-                metrics.append(run_phase_rows(
-                    run_cfg, train, self.params, self.optimizer, self.mem,
-                    self.edge_feats, cs, queries, batches, row_plans[ci],
-                    self.exchange, self._dropout if train else None, marks,
-                    name, bfs_s, nbr_index, overflow))
+                ran = run_phase_rows(
+                    bound, train, self.optimizer, cs, queries, batches,
+                    row_plans[ci], self.exchange, nbr_index=nbr_index,
+                    phase=name)
                 if train and self._graphs is not None:
                     self._graphs.eager += len(batches)
             else:
-                metrics.append(run_phase(
-                    run_cfg, train, self.params, self.optimizer, self.mem,
-                    self.edge_feats, cs, queries, batches,
-                    self._dropout if train else None, marks, self._offs,
-                    bfs_s, nbr_index, overflow, name,
-                    self._graphs if train else None))
+                ran = run_phase(
+                    bound, train, self.optimizer, cs, queries, batches,
+                    nbr_index=nbr_index, phase=name,
+                    graphs=self._graphs if train else None)
+            metrics.append(ran.metrics)
+            bfs_s += ran.bfs_s
+            overflow += ran.overflow
             if train:
                 self._chunk_cursor = ci + 1
                 if wave_scan and self._agree_stop():
@@ -741,7 +743,7 @@ class Trainer:
         return index_state, PhaseResult(
             loss=mean[0], ap=mean[1], auc=mean[2], acc=mean[3],
             seconds=time.perf_counter() - t0,
-            index_seconds=t_index + sum(bfs_s), waves=waves,
+            index_seconds=t_index + bfs_s, waves=waves,
             gather_seconds=t_gather, overflow=overflowed,
             per_batch=per_batch)
 
@@ -757,9 +759,10 @@ class Trainer:
         caller can ``save_state`` a mid-epoch cursor. The epoch id advances
         and the cursor returns to 0 only when the epoch's last superchunk
         ran. ``marks``, a list (CUDA only), collects (part, CUDA event)
-        pairs that time the epoch's parts on the device: "start", then
-        "index" after each superchunk's wave scan, then ``run_phase``'s
-        per-batch parts.
+        pairs that time the epoch's parts on the device (the recorder of
+        ``utils/profiling.py``, armed for the call): "start", then
+        "wave_scan" after each superchunk's wave scan, then the end of
+        each part of each batch (``train/phase.py``).
 
         Under the lazy compaction (``lazy_unique_cap`` ≠ 0) a whole epoch
         starts from a snapshot of the params, Adam's state and the dropout
@@ -767,38 +770,39 @@ class Trainer:
         batch overflowed the cap, the epoch is rerun per position from the
         snapshot, and training stays per position; a windowed epoch cannot
         be rerun and logs an error instead."""
-        snapshot = None
-        if (start_chunk == 0 and max_chunks is None
-                and not self._lazy_fallback
-                and self._lazy_compaction_active()):
-            snapshot = self._snapshot()
-        if start_chunk == 0:
-            self._reset()
-        self.index_state, result = self._phase(
-            "train", True, self.index_state, marks, start_chunk, max_chunks)
-        if result.overflow > 0 and not self._lazy_fallback:
-            self._lazy_fallback = True
-            if snapshot is not None:
-                logger.warning(
-                    "lazy-update compaction cap overflowed (epoch %d); "
-                    "rerunning the epoch on the per-position path and "
-                    "switching to it for the rest of the run "
-                    "(set --lazy_unique_cap to resize)", self._epoch_id)
-                self._restore_snapshot(snapshot)
+        with marking(marks):
+            snapshot = None
+            if (start_chunk == 0 and max_chunks is None
+                    and not self._lazy_fallback
+                    and self._lazy_compaction_active()):
+                snapshot = self._snapshot()
+            if start_chunk == 0:
                 self._reset()
-                self.index_state, result = self._phase(
-                    "train", True, self.index_state, marks)
-            else:
-                logger.error(
-                    "lazy-update compaction cap overflowed during a windowed "
-                    "epoch run; this epoch's updates used the compacted path "
-                    "(set --lazy_unique_cap 0 or restart from the last "
-                    "checkpoint for exact results)")
-        if self._chunk_cursor >= self._streams["train"].n_chunks:
-            # epoch complete: the cursor expires
-            self._chunk_cursor = 0
-            self._epoch_id += 1
-        return result
+            self.index_state, result = self._phase(
+                "train", True, self.index_state, start_chunk, max_chunks)
+            if result.overflow > 0 and not self._lazy_fallback:
+                self._lazy_fallback = True
+                if snapshot is not None:
+                    logger.warning(
+                        "lazy-update compaction cap overflowed (epoch %d); "
+                        "rerunning the epoch on the per-position path and "
+                        "switching to it for the rest of the run "
+                        "(set --lazy_unique_cap to resize)", self._epoch_id)
+                    self._restore_snapshot(snapshot)
+                    self._reset()
+                    self.index_state, result = self._phase(
+                        "train", True, self.index_state)
+                else:
+                    logger.error(
+                        "lazy-update compaction cap overflowed during a "
+                        "windowed epoch run; this epoch's updates used the "
+                        "compacted path (set --lazy_unique_cap 0 or restart "
+                        "from the last checkpoint for exact results)")
+            if self._chunk_cursor >= self._streams["train"].n_chunks:
+                # epoch complete: the cursor expires
+                self._chunk_cursor = 0
+                self._epoch_id += 1
+            return result
 
     def _reset(self) -> None:
         """A train epoch's zeroed memory and empty index. The tables the

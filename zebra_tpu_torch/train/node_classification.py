@@ -28,16 +28,19 @@ from torch import nn
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.index.layout import TpprParams
 from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
-from zebra_tpu_torch.index.streaming import TpprQueries, TpprState
-from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
-from zebra_tpu_torch.models.memory import MemoryState
-from zebra_tpu_torch.train.phase import (
-    Stream,
+from zebra_tpu_torch.index.queries import (
     batch_queries,
     ensemble_tensors,
     pruned_queries,
 )
-from zebra_tpu_torch.train.step import _forward, eval_store_then_commit
+from zebra_tpu_torch.index.streaming import TpprQueries, TpprState
+from zebra_tpu_torch.index.waves import plan_waves, wave_scan_chunk
+from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.train.step import (
+    Stream,
+    _forward,
+    eval_store_then_commit,
+)
 
 DECODER_DROPOUT = 0.3
 

@@ -11,9 +11,11 @@ adjacency index of the phase's graph (``models/embedding.py``).
 Eager PyTorch replaces the JAX package's one ``lax.scan`` per phase: the
 batches run as a Python loop that only enqueues device work. Nothing is
 read back inside the loop: per-batch metrics stay on the device, and the
-caller reads a phase's metrics once. On the card a full streaming train
-batch replays CUDA graphs of its parts in place of that enqueue
-(``train/graphs.py``).
+caller reads a phase's metrics once. A train batch is one sequence of
+parts (:func:`_train_batch`): forward, backward, Adam's step, memory
+protocol, metrics. The part functions run eagerly, or, for a full
+streaming train batch on the card, replay as the CUDA graphs captured
+from them in place of that enqueue (``train/graphs.py``).
 
 The same loop runs S seeds in one pass (``_run_phase_seeds``,
 ``zebra_tpu/train/phase.py:377-558``) when given the lane offsets ``offs``:
@@ -53,8 +55,12 @@ import torch.nn.functional as F
 
 from zebra_tpu_torch.config import RECURSIVE, Config
 from zebra_tpu_torch.index.neighbor_finder import NeighborIndex
-from zebra_tpu_torch.index.pruning import pruned_topk
-from zebra_tpu_torch.index.streaming import TpprQueries, unpack_queries
+from zebra_tpu_torch.index.queries import (
+    batch_queries,
+    ensemble_tensors,
+    pruned_queries,
+)
+from zebra_tpu_torch.index.streaming import TpprQueries
 from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import BlockMasks
 from zebra_tpu_torch.ops.metrics import masked_ap, masked_auc, masked_rank_acc
@@ -64,15 +70,10 @@ from zebra_tpu_torch.models.embedding import (
     lane_ids,
     tree_embed,
 )
-from zebra_tpu_torch.train.graphs import (
-    BatchGraphs,
-    Bound,
-    Parts,
-    load,
-    replays,
-)
+from zebra_tpu_torch.train.graphs import BatchGraphs, Bound, Parts, replays
 from zebra_tpu_torch.train.step import (
     LazyPlan,
+    Stream,
     _commit_pending,
     _forward,
     _masked_mean,
@@ -87,59 +88,32 @@ from zebra_tpu_torch.train.step import (
 from zebra_tpu_torch.utils import profiling
 from zebra_tpu_torch.utils.profiling import (
     ADAM,
+    ALLREDUCE,
     BACKWARD,
     BATCH,
+    FETCH,
     FORWARD,
     PROTOCOL,
     QUERY,
+    SEND,
+    part,
     span,
 )
 
 METRICS = ("loss", "ap", "auc", "acc")
 
 
-class Stream(NamedTuple):
-    """A phase's events, padded to whole batches, on the device."""
+class Ran(NamedTuple):
+    """What a pass over a superchunk's batches hands back, on the device
+    but for the seconds."""
 
-    src: torch.Tensor    # i32 [E]
-    dst: torch.Tensor    # i32 [E]
-    neg: torch.Tensor    # i32 [E] negative node per event ([E, S]: one per
-                         # seed, seed-parallel training)
-    t: torch.Tensor      # f32 [E]
-    eidx: torch.Tensor   # i32 [E]
-    valid: torch.Tensor  # bool [E]
-
-
-def batch_queries(cfg: Config, rows: torch.Tensor,
-                  t: torch.Tensor) -> TpprQueries:
-    """A batch's extraction rows [b, 3, F] → queries [M, 3b, k] in
-    src‖dst‖neg row order; per lane, [S, b, 3, F] → [S, M, 3b, k]."""
-    lanes, (b, _, f) = rows.shape[:-3], rows.shape[-3:]
-    m, k = cfg.n_tppr, cfg.topk
-    if lanes:
-        rows, t = rows.reshape(-1, 3, f), t.repeat(lanes[0])
-    q = unpack_queries(rows, t, m, k)                      # [·b, M, 3, k]
-    return TpprQueries(*(x.reshape(lanes + (b, m, 3, k)).movedim(-4, -2)
-                         .reshape(lanes + (m, 3 * b, k)) for x in q))
-
-
-def ensemble_tensors(cfg: Config, device):
-    """(α, β) of the ensemble members as f32 [M] tensors on ``device``;
-    made once per phase, since a copy from the host would wait for the
-    device."""
-    return (torch.tensor(cfg.alpha_list, device=device),
-            torch.tensor(cfg.beta_list, device=device))
-
-
-def pruned_queries(cfg: Config, index: NeighborIndex, alpha_beta, blocks,
-                   t: torch.Tensor) -> TpprQueries:
-    """The pruning strategy's queries of the id blocks ``blocks`` (each
-    [b]), all at the times ``t`` [b]: one BFS over the concatenated roots
-    → fields [M, len(blocks)·b, k] in block order. ``alpha_beta`` is
-    :func:`ensemble_tensors`."""
-    return pruned_topk(index, *alpha_beta, torch.cat(blocks),
-                       t.repeat(len(blocks)), cfg.n_degree, cfg.n_layer,
-                       cfg.topk)
+    metrics: Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+    # run_phase: the per-batch metrics [n_batches, 4] (:data:`METRICS`;
+    # [n_batches, S, 4] per lane); run_phase_rows: this block's (pos, neg)
+    # probabilities [n_batches, 2, b'] and loss shares [n_batches]
+    bfs_s: float                  # host seconds of the batches' BFS calls
+    overflow: List[torch.Tensor]  # each train batch's lazy-compaction
+                                  # overflow flag (``make_lazy_plan``)
 
 
 def _lane_rows(n_seeds: int, b: int, device) -> torch.Tensor:
@@ -156,15 +130,6 @@ def _lane_blocks(n_seeds: int, device) -> torch.Tensor:
     lanes = torch.arange(n_seeds, device=device)
     return torch.stack([torch.zeros_like(lanes), torch.ones_like(lanes),
                         2 + lanes], dim=1)
-
-
-def _mark(marks: Optional[list], name: str) -> None:
-    """Record a CUDA event after the work enqueued so far (``marks`` None:
-    no timing)."""
-    if marks is not None:
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        marks.append((name, event))
 
 
 def check_finite(phase: str, batch: int, **parts) -> None:
@@ -197,34 +162,43 @@ def _roots(cfg: Config, s: Stream, offs, per_lane: bool):
     return torch.cat([s.src, s.dst, s.neg]), times3
 
 
-def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
-              edge_feats: torch.Tensor, stream: Stream,
+def _bfs(cfg: Config, index: NeighborIndex, alpha_beta, s: Stream,
+         blocks: Optional[torch.Tensor]) -> Tuple[TpprQueries, float]:
+    """A batch's ``query`` part under the pruning strategy and its host
+    seconds: one BFS over the roots [src; dst; neg] (per lane, where
+    ``blocks`` is :func:`_lane_rows`, [src; dst; neg_0 … neg_{S-1}], lane
+    s reading the shared src and dst roots and its own negatives)."""
+    with part(QUERY):
+        t0 = time.perf_counter()
+        negs = [s.neg] if blocks is None else list(s.neg.T)
+        q = pruned_queries(cfg, index, alpha_beta, [s.src, s.dst, *negs], s.t)
+        if blocks is not None:
+            q = TpprQueries(*(x[:, blocks].movedim(1, 0) for x in q))
+        return q, time.perf_counter() - t0
+
+
+def run_phase(bound: Bound, train: bool, optimizer, stream: Stream,
               queries: Union[torch.Tensor, NeighborIndex, None],
-              n_valid: Sequence[int], generator=None,
-              marks: Optional[List] = None, offs=None,
-              bfs_s: Optional[List[float]] = None,
+              n_valid: Sequence[int], *,
               nbr_index: Optional[NeighborIndex] = None,
-              overflow: Optional[List] = None,
               phase: str = "train",
-              graphs: Optional[BatchGraphs] = None) -> torch.Tensor:
-    """One pass over the batches of ``stream`` with their T-PPR queries:
+              graphs: Optional[BatchGraphs] = None) -> Ran:
+    """One pass over the batches of ``stream`` on the model state
+    ``bound`` (``cfg``, ``params``, ``mem``, ``edge_feats``, the dropout
+    ``generator``, the lane offsets ``offs``) with their T-PPR queries:
     ``queries`` holds the extraction rows [E, 3, F] (streaming), or is the
-    adjacency index the batches' BFS calls search (pruning; ``bfs_s``, a
-    list, then receives the host seconds of each call), or is None for a
-    tower that reads no T-PPR query (``cfg.uses_tppr`` false). Those
-    towers embed each root at its event time; the recursive ones search
-    ``nbr_index``, the adjacency index of the phase's graph. ``n_valid``
-    holds each batch's count of valid events (known on the host): a batch
-    with padding passes its mask to the memory protocol, a full one passes
-    None. Train batches take an Adam step of ``optimizer`` on ``params``;
-    ``generator`` draws the dropout masks. Updates ``mem`` in place;
-    returns the per-batch metrics [n_batches, 4] (:data:`METRICS`) on the
-    device.
+    adjacency index the batches' BFS calls search (pruning), or is None
+    for a tower that reads no T-PPR query (``cfg.uses_tppr`` false).
+    Those towers embed each root at its event time; the recursive ones
+    search ``nbr_index``, the adjacency index of the phase's graph.
+    ``n_valid`` holds each batch's count of valid events (known on the
+    host): a batch with padding passes its mask to the memory protocol, a
+    full one passes None. Train batches take an Adam step of
+    ``optimizer``. Updates ``mem`` and the parameters in place.
 
     Seed-parallel, ``offs`` (i64 [S], s·N) selects the S-lane pass (module
     docstring): stacked ``params``, flat ``mem``, ``generator`` one per
-    lane, train negatives [E, S] with rows [E, 2+S, F]; the metrics are
-    [n_batches, S, 4].
+    lane, train negatives [E, S] with rows [E, 2+S, F].
 
     Under a message-source flag the batch's src and dst embeddings feed
     its messages: in training those of the train forward, detached
@@ -232,137 +206,102 @@ def run_phase(cfg: Config, train: bool, params, optimizer, mem: MemoryState,
     take the fused protocol under ``last`` and store then commit under
     ``mean``.
 
-    ``overflow``, a list, receives each train batch's lazy-compaction
-    overflow flag (a device scalar, ``make_lazy_plan``), read by the
-    caller with the metrics. ``marks``, a list, receives a (part, CUDA
-    event) pair after each part of each batch: "query" (the BFS, pruning
-    only), "forward" (queries, towers, loss), "backward", "adam" (train
-    only), "protocol" (the memory protocol), "metrics". Each batch is a
-    ``zebra.batch`` span of the parts' spans (``utils/profiling.py``):
-    query, forward (the queries' roots, the towers, the scores and the
-    loss), backward, adam, protocol and metrics. Under
-    ``cfg.debug_nans`` each batch ends with a host read of whether its
-    loss, logits, updated parameters and written memory rows are finite
-    (:func:`check_finite`, naming ``phase``); without it nothing is
-    added.
+    Each batch is a ``zebra.batch`` span of its parts (``part``,
+    ``utils/profiling.py``): the BFS (``query``, pruning), then
+    :func:`_train_batch`'s parts, or in eval forward, protocol and
+    metrics. Under ``cfg.debug_nans`` each batch ends with a host read of
+    whether its loss, logits, updated parameters and written memory rows
+    are finite (:func:`check_finite`, naming ``phase``); without it
+    nothing is added.
 
     With ``graphs`` (``train/graphs.py``), each batch that
     :func:`~zebra_tpu_torch.train.graphs.replays` selects (a full
     streaming train batch on the card) replays the graphs captured from
-    this function's parts, Adam's step eager between them
-    (:func:`_replay`); ``graphs`` counts those and the train batches that
-    ran eagerly."""
+    the parts; ``graphs`` counts those and the train batches that ran
+    eagerly."""
+    cfg, params, mem, edge_feats, generator, offs = bound
     b = cfg.bs
     per_lane = offs is not None and stream.neg.dim() == 2
+    rows = queries if isinstance(queries, torch.Tensor) else None
     index = queries if isinstance(queries, NeighborIndex) else None
-    if index is not None:
-        alpha_beta = ensemble_tensors(cfg, index.arena.device)
+    alpha_beta = None if index is None else ensemble_tensors(
+        cfg, index.arena.device)
     blocks = None
     if per_lane and queries is not None:
         n_l = offs.shape[0]
         blocks = (_lane_rows(n_l, b, offs.device) if index is not None
                   else _lane_blocks(n_l, offs.device))
-    if graphs is not None:
-        bound = Bound(cfg, params, mem, edge_feats, generator, offs)
-        parts = Parts(
-            lambda s, rows: _train_forward(
-                cfg, params, mem, edge_feats, s,
-                _row_queries(cfg, rows, s.t, blocks), generator, offs,
-                per_lane, nbr_index),
-            lambda out: _backward(out.loss, offs),
-            lambda s, out: _train_protocol(cfg, params, mem, edge_feats, s,
-                                           None, offs, out.emb),
-            lambda s, out: _metrics_row(out.loss, out.pos_logit,
-                                        out.neg_logit, s.valid))
+
+    def query(s: Stream, x):
+        # a batch's extraction rows → its queries (per lane, lane s reads
+        # the blocks [src, dst, neg_s]); a BFS's, or None, as they are
+        if not isinstance(x, torch.Tensor):
+            return x
+        return batch_queries(cfg, x if blocks is None
+                             else x[:, blocks].transpose(0, 1), s.t)
+
+    def forward(s: Stream, x) -> _Out:
+        optimizer.zero_grad(set_to_none=True)
+        return _train_forward(cfg, params, mem, edge_feats, s, query(s, x),
+                              generator, offs, per_lane, nbr_index)
+
+    def backward(out: _Out) -> None:
+        # the lanes share no parameter: the sum's gradient is each lane's
+        (out.loss if offs is None else out.loss.sum()).backward()
+
+    parts = Parts(
+        forward, backward,
+        lambda s, out, valid: _train_protocol(cfg, params, mem, edge_feats,
+                                              s, valid, offs, out.emb),
+        _batch_metrics)
     dev = mem.memory.device
-    out = []
+    out, bfs_s, overflow = [], 0.0, []
     for i, nv in enumerate(n_valid):
         with span(BATCH):
             s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
-            if graphs is not None and replays(cfg, train, dev, queries,
-                                              nv == b):
-                out.append(_replay(graphs, bound, parts, s,
-                                   queries[i * b: (i + 1) * b], optimizer,
-                                   marks, overflow))
-                continue
-            if graphs is not None and train:
-                graphs.eager += 1
             valid = None if nv == b else s.valid
-            q = None
+            x = None if rows is None else rows[i * b: (i + 1) * b]
             if index is not None:
-                with span(QUERY):
-                    t0 = time.perf_counter()
-                    negs = list(s.neg.T) if per_lane else [s.neg]
-                    q = pruned_queries(cfg, index, alpha_beta,
-                                       [s.src, s.dst, *negs], s.t)
-                    if per_lane:
-                        # lane s: the shared src and dst roots and its own
-                        # negatives
-                        q = TpprQueries(*(x[:, blocks].movedim(1, 0)
-                                          for x in q))
-                    if bfs_s is not None:
-                        bfs_s.append(time.perf_counter() - t0)
-                _mark(marks, "query")
-            elif queries is not None:
-                with span(QUERY):
-                    q = _row_queries(cfg, queries[i * b: (i + 1) * b], s.t,
-                                     blocks)
+                x, secs = _bfs(cfg, index, alpha_beta, s, blocks)
+                bfs_s += secs
             if train:
-                with span(FORWARD):
-                    optimizer.zero_grad(set_to_none=True)
-                    fwd = _train_forward(cfg, params, mem, edge_feats, s, q,
-                                         generator, offs, per_lane,
-                                         nbr_index)
-                    if overflow is not None and fwd.plan is not None:
-                        overflow.append(fwd.plan.overflow)
-                    pos_logit, neg_logit = fwd.pos_logit, fwd.neg_logit
-                _mark(marks, "forward")
-                with span(BACKWARD):
-                    _backward(fwd.loss, offs)
-                _mark(marks, "backward")
-                with span(ADAM):
-                    optimizer.step()
-                _mark(marks, "adam")
-                with span(PROTOCOL):
-                    _train_protocol(cfg, params, mem, edge_feats, s, valid,
-                                    offs, fwd.emb)
-                    loss = fwd.loss.detach()
+                p = parts
+                if graphs is not None:
+                    if replays(cfg, train, dev, queries, nv == b):
+                        p = graphs.bind(bound, parts, s, x)
+                    else:
+                        graphs.eager += 1
+                fwd, row = _train_batch(p, optimizer, s, x, valid)
+                if fwd.plan is not None:
+                    overflow.append(fwd.plan.overflow)
             else:
-                src_emb = dst_emb = None
-                with span(FORWARD), torch.no_grad():
-                    nodes3, times3 = _roots(cfg, s, offs, per_lane)
-                    emb = _forward(cfg, params, mem, edge_feats, nodes3, q,
-                                   offs=offs, times=times3,
-                                   nbr_index=nbr_index)
-                    pos_logit, neg_logit = _scores(cfg, params, emb, b)
-                    loss = torch.zeros(pos_logit.shape[:-1],
-                                       device=emb.device)
-                _mark(marks, "forward")
-                with span(PROTOCOL):
-                    if cfg.need_emb:
-                        src_emb, dst_emb = (emb[..., :b, :],
-                                            emb[..., b: 2 * b, :])
+                with part(FORWARD), torch.no_grad():
+                    fwd = _eval_forward(cfg, params, mem, edge_feats, s,
+                                        query(s, x), offs, per_lane,
+                                        nbr_index)
+                with part(PROTOCOL):
+                    src_emb, dst_emb = _message_embs(cfg, fwd.emb, b)
                     eval_protocol(cfg, params, mem, edge_feats, s.src, s.dst,
                                   s.t, s.eidx, valid, offs, src_emb, dst_emb)
-            _mark(marks, "protocol")
-            with span(profiling.METRICS):
-                if cfg.debug_nans:
-                    rows = lane_ids(torch.cat([s.src, s.dst]).to(torch.int64),
-                                    offs)
-                    check_finite(phase, i, loss=loss,
-                                 logits=[pos_logit.detach(),
-                                         neg_logit.detach()],
-                                 params=(list(params.parameters()) if train
-                                         else []),
-                                 memory=[mem.memory[rows], mem.messages[rows]])
-                out.append(_metrics_row(loss, pos_logit, neg_logit, s.valid))
-            _mark(marks, "metrics")
-    return torch.stack(out)
+                with part(profiling.METRICS):
+                    row = _batch_metrics(s, fwd)
+            if cfg.debug_nans:
+                ids = lane_ids(torch.cat([s.src, s.dst]).to(torch.int64),
+                               offs)
+                check_finite(phase, i, loss=fwd.loss.detach(),
+                             logits=[fwd.pos_logit.detach(),
+                                     fwd.neg_logit.detach()],
+                             params=(list(params.parameters()) if train
+                                     else []),
+                             memory=[mem.memory[ids], mem.messages[ids]])
+            out.append(row)
+    return Ran(torch.stack(out), bfs_s, overflow)
 
 
-class _TrainOut(NamedTuple):
-    """A train batch's forward: its lazy plan (None for the towers other
-    than diffusion), embeddings, link logits and loss."""
+class _Out(NamedTuple):
+    """A batch's forward: its lazy plan (None for the towers other than
+    diffusion, and in eval), embeddings, link logits and loss (0 in
+    eval)."""
 
     plan: Optional[LazyPlan]
     emb: torch.Tensor
@@ -371,36 +310,69 @@ class _TrainOut(NamedTuple):
     loss: torch.Tensor
 
 
-def _row_queries(cfg: Config, rows: torch.Tensor, t: torch.Tensor,
-                 blocks: Optional[torch.Tensor]) -> TpprQueries:
-    """A batch's queries from its extraction rows; per lane (``blocks``,
-    :func:`_lane_blocks`), lane s reads the blocks [src, dst, neg_s]."""
-    return batch_queries(cfg, rows if blocks is None
-                         else rows[:, blocks].transpose(0, 1), t)
+def _train_batch(p: Parts, optimizer, s: Stream, x, valid):
+    """A train batch's parts in order, each a ``part``: ``forward`` (from
+    ``x``: the extraction rows, the BFS's queries or None), ``backward``,
+    Adam's eager step, ``protocol`` (``valid`` the mask of a padded batch,
+    else None) and ``metrics``. ``p`` holds the functions that run them
+    eagerly, or their replays (``BatchGraphs.bind``). Returns the
+    forward's outputs and the batch's metrics row."""
+    with part(FORWARD):
+        out = p.forward(s, x)
+    with part(BACKWARD):
+        p.backward(out)
+    with part(ADAM):
+        optimizer.step()
+    with part(PROTOCOL):
+        p.protocol(s, out, valid)
+    with part(profiling.METRICS):
+        return out, p.metrics(s, out)
+
+
+def _link_loss(pos_logit, neg_logit, valid, count=None) -> torch.Tensor:
+    """BCE(pos, 1) + BCE(neg, 0), each a masked mean over ``valid`` (over
+    ``count`` events where given: a block's share of its batch's)."""
+    bce = F.binary_cross_entropy_with_logits
+    return (_masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
+                             reduction="none"), valid, count)
+            + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
+                               reduction="none"), valid, count))
 
 
 def _train_forward(cfg: Config, params, mem: MemoryState, edge_feats,
                    s: Stream, q: Optional[TpprQueries], generator, offs,
-                   per_lane: bool, nbr_index) -> _TrainOut:
+                   per_lane: bool, nbr_index) -> _Out:
     """The train forward of a batch: the queries' roots, the lazy plan,
-    the towers, the scores and the loss (masked means of BCE)."""
+    the towers, the scores and the loss."""
     nodes3, times3 = _roots(cfg, s, offs, per_lane)
     plan = train_plan(cfg, q, nodes3, offs)
     emb = _forward(cfg, params, mem, edge_feats, nodes3, q, train=True,
                    generator=generator, offs=offs, times=times3,
                    nbr_index=nbr_index, plan=plan)
     pos_logit, neg_logit = _scores(cfg, params, emb, cfg.bs)
-    bce = F.binary_cross_entropy_with_logits
-    loss = (_masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
-                             reduction="none"), s.valid)
-            + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
-                               reduction="none"), s.valid))
-    return _TrainOut(plan, emb, pos_logit, neg_logit, loss)
+    return _Out(plan, emb, pos_logit, neg_logit,
+                _link_loss(pos_logit, neg_logit, s.valid))
 
 
-def _backward(loss: torch.Tensor, offs) -> None:
-    # the lanes share no parameter: the sum's gradient is each lane's own
-    (loss if offs is None else loss.sum()).backward()
+def _eval_forward(cfg: Config, params, mem: MemoryState, edge_feats,
+                  s: Stream, q: Optional[TpprQueries], offs, per_lane: bool,
+                  nbr_index) -> _Out:
+    """The eval forward of a batch (raw memory, no dropout)."""
+    nodes3, times3 = _roots(cfg, s, offs, per_lane)
+    emb = _forward(cfg, params, mem, edge_feats, nodes3, q, offs=offs,
+                   times=times3, nbr_index=nbr_index)
+    pos_logit, neg_logit = _scores(cfg, params, emb, cfg.bs)
+    return _Out(None, emb, pos_logit, neg_logit,
+                torch.zeros(pos_logit.shape[:-1], device=emb.device))
+
+
+def _message_embs(cfg: Config, emb: torch.Tensor, b: int):
+    """Under a message-source flag the batch's src and dst embeddings (the
+    first two blocks of ``b`` rows of ``emb``), detached; else None."""
+    if not cfg.need_emb:
+        return None, None
+    emb = emb.detach()
+    return emb[..., :b, :], emb[..., b: 2 * b, :]
 
 
 def _train_protocol(cfg: Config, params, mem: MemoryState, edge_feats,
@@ -409,11 +381,7 @@ def _train_protocol(cfg: Config, params, mem: MemoryState, edge_feats,
     updated parameters, then store this batch's (one-batch staleness);
     under a message-source flag with the forward's detached src and dst
     embeddings."""
-    b = cfg.bs
-    src_emb = dst_emb = None
-    if cfg.need_emb:
-        emb = emb.detach()
-        src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
+    src_emb, dst_emb = _message_embs(cfg, emb, cfg.bs)
     _commit_pending(cfg, params, mem, torch.cat([s.src, s.dst]),
                     None if valid is None else torch.cat([valid, valid]),
                     offs)
@@ -422,46 +390,18 @@ def _train_protocol(cfg: Config, params, mem: MemoryState, edge_feats,
 
 
 @torch.no_grad()
-def _metrics_row(loss, pos_logit, neg_logit, valid) -> torch.Tensor:
-    """A batch's row of :data:`METRICS` ([S, 4] per lane)."""
-    pos_p = torch.sigmoid(pos_logit)
-    neg_p = torch.sigmoid(neg_logit)
+def _metrics_row(loss, pos_p, neg_p, valid) -> torch.Tensor:
+    """A batch's row of :data:`METRICS` from its link probabilities
+    ([S, 4] per lane)."""
     return torch.stack([loss, masked_ap(pos_p, neg_p, valid),
                         masked_auc(pos_p, neg_p, valid),
                         masked_rank_acc(pos_p, neg_p, valid)], dim=-1)
 
 
-def _replay(graphs: BatchGraphs, bound: Bound, parts: Parts, s: Stream,
-            rows: torch.Tensor, optimizer, marks, overflow) -> torch.Tensor:
-    """A full streaming train batch from the graphs (``train/graphs.py``),
-    under the same spans and marks as an eager one, with Adam's eager step
-    between the backward and the protocol replays. Returns a copy of its
-    metrics row, which the next replay overwrites."""
-    c = graphs.bind(bound, parts, s, rows)
-    with span(FORWARD):
-        load(c, s, rows)
-        c.graphs[0].replay()
-        plan = c.out.plan
-        if overflow is not None and plan is not None:
-            # per position the flag is a constant 0 the graph fills
-            overflow.append(plan.overflow.clone() if plan.uniq is not None
-                            else plan.overflow)
-    _mark(marks, "forward")
-    with span(BACKWARD):
-        c.graphs[1].replay()
-    _mark(marks, "backward")
-    with span(ADAM):
-        optimizer.step()
-    _mark(marks, "adam")
-    with span(PROTOCOL):
-        c.graphs[2].replay()
-    _mark(marks, "protocol")
-    with span(profiling.METRICS):
-        c.graphs[3].replay()
-        row = c.row.clone()
-    _mark(marks, "metrics")
-    graphs.replays += 1
-    return row
+@torch.no_grad()
+def _batch_metrics(s: Stream, out: _Out) -> torch.Tensor:
+    return _metrics_row(out.loss, torch.sigmoid(out.pos_logit),
+                        torch.sigmoid(out.neg_logit), s.valid)
 
 
 # ------------------------------------------------------------ row-sharded
@@ -627,36 +567,26 @@ class _Block(NamedTuple):
 
 
 def _fetch_block(cfg: Config, i: int, s: Stream, plan: RowPlan, exchange,
-                 tables, queries, alpha_beta, nbr_index, bfs_s,
-                 marks) -> _Block:
+                 tables, qs: Optional[TpprQueries], nbr_index) -> _Block:
     """The rows one block reads, fetched (every rank knows every block's
-    ids): the diffusion tower's distinct query nodes and T-PPR neighbors,
-    from the extraction rows or one BFS over the whole batch's roots; the
-    recursive towers' distinct ids of the whole batch's hop tree, per
-    block; the memory-only towers' distinct query nodes."""
+    ids): the diffusion tower's distinct query nodes and the T-PPR
+    neighbors of ``qs``, the whole batch's queries; the recursive towers'
+    distinct ids of the whole batch's hop tree, per block; the memory-only
+    towers' distinct query nodes."""
     b, world, rank = cfg.bs, exchange.mesh.size, exchange.mesh.rank
     bl, m, k = b // world, cfg.n_tppr, cfg.topk
-    roots = torch.cat([s.src, s.dst, s.neg])
     if not cfg.uses_tppr:
         if cfg.embedding_module not in RECURSIVE:
             view = MemoryState(*exchange.fetch(tables, plan.uniq[i],
                                                "tower_fetch"))
             return _Block(view, plan.inv[i], None, None, None, None)
         ids, tree, named = block_tree(
-            hop_tree(cfg, nbr_index, roots, torch.cat([s.t, s.t, s.t])),
+            hop_tree(cfg, nbr_index, torch.cat([s.src, s.dst, s.neg]),
+                     torch.cat([s.t, s.t, s.t])),
             world, cfg.n_nodes, rank)
         view = MemoryState(*exchange.fetch(tables, ids, "tower_fetch",
                                            named))
         return _Block(view, tree[0].nodes, None, None, None, tree)
-    if isinstance(queries, NeighborIndex):
-        t0 = time.perf_counter()
-        qs = pruned_queries(cfg, queries, alpha_beta, [s.src, s.dst, s.neg],
-                            s.t)
-        if bfs_s is not None:
-            bfs_s.append(time.perf_counter() - t0)
-        _mark(marks, "query")
-    else:
-        qs = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
     qs = split_blocks(qs, world)
     q = TpprQueries(*(x[rank] for x in qs))
     ids = torch.cat([plan.uniq[i], qs.nbr.reshape(world, -1).to(torch.int64)],
@@ -670,173 +600,174 @@ def _fetch_block(cfg: Config, i: int, s: Stream, plan: RowPlan, exchange,
                   None)
 
 
-def run_phase_rows(cfg: Config, train: bool, params, optimizer,
-                   mem: MemoryState, edge_feats: torch.Tensor,
-                   stream: Stream, queries, n_valid: Sequence[int],
-                   plan: RowPlan, exchange, generator=None,
-                   marks: Optional[List] = None, phase: str = "train",
-                   bfs_s: Optional[List[float]] = None,
-                   nbr_index: Optional[NeighborIndex] = None,
-                   overflow: Optional[List] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def run_phase_rows(bound: Bound, train: bool, optimizer, stream: Stream,
+                   queries, n_valid: Sequence[int], plan: RowPlan, exchange,
+                   *, nbr_index: Optional[NeighborIndex] = None,
+                   phase: str = "train") -> Ran:
     """One pass of a row-sharded rank over the batches of ``stream`` (the
     whole batches, the same on every rank) and the chunk's
-    :class:`RowPlan`. ``queries`` is what :func:`run_phase` takes: the
-    chunk's extraction rows [E, 3, F] (every rank holds all of them), the
-    adjacency index of the batches' BFS calls (pruning; ``bfs_s`` then
-    receives each call's host seconds), or None for the other towers, the
-    recursive ones searching ``nbr_index``. ``mem`` holds this rank's
-    rows; it changes in place where this rank owns a row a batch writes.
+    :class:`RowPlan`, on the model state ``bound`` (one seed, ``mem``
+    this rank's rows, which change in place where this rank owns a row a
+    batch writes). ``queries`` and ``nbr_index`` are what
+    :func:`run_phase` takes: the chunk's extraction rows [E, 3, F] (every
+    rank holds all of them), the adjacency index of the batches' BFS
+    calls (pruning), or None for the other towers, the recursive ones
+    searching ``nbr_index``.
 
-    Per batch: one ``exchange.fetch`` of the rows of every rank's block
-    (:func:`_fetch_block`: each rank knows every block's ids) into a table
-    of its own; the towers on this rank's block over that table, with the
-    lazy-update plan made from the global ids and the dropout masks of the
-    whole batch (:class:`BlockMasks`), a query row updating lazily where
-    its node is among the whole batch's selected neighbors
-    (:func:`block_lazy_plan`, whose overflow flag, the whole batch's,
-    ``overflow`` receives); in training the loss as this block's share of
-    the batch's masked means (over the batch's valid count), one backward,
-    the gradients summed over the ranks, one Adam step; the memory
-    protocol of the block on the table, with the block's embeddings in its
-    messages under a message-source flag; one ``exchange.send`` of the
-    rows this rank's block wins. Under ``mean`` the messages cross whole:
-    every block's stored message rows are gathered, and each owner adds
-    the ones of its senders in batch order, as one process does; in eval
-    the owner then commits its senders' rows. ``marks`` takes (part, CUDA
-    event) pairs: "query" (pruning), "fetch", "forward", "backward",
-    "allreduce" and "adam" (train), "protocol", "send".
+    Each batch is a ``zebra.batch`` span of its parts: the BFS over the
+    whole batch's roots (``query``, pruning); ``fetch``, one
+    ``exchange.fetch`` of the rows of every rank's block
+    (:func:`_fetch_block`) into a table of its own; ``forward``, the
+    towers on this rank's block over that table, with the lazy-update
+    plan made from the global ids and the dropout masks of the whole
+    batch (:class:`BlockMasks`), a query row updating lazily where its
+    node is among the whole batch's selected neighbors
+    (:func:`block_lazy_plan`, whose overflow flag is the whole batch's),
+    and in training the loss as this block's share of the batch's masked
+    means (over the batch's valid count); in training ``backward``,
+    ``allreduce`` (the gradients summed over the ranks) and ``adam``;
+    ``protocol``, the block's memory protocol on the table, with the
+    block's embeddings in its messages under a message-source flag; and
+    ``send``, one ``exchange.send`` of the rows this rank's block wins.
+    Under ``mean`` the messages cross whole: every block's stored message
+    rows are gathered, and each owner adds the ones of its senders in
+    batch order, as one process does; in eval the owner then commits its
+    senders' rows.
 
-    Returns this block's (pos, neg) probabilities [n_batches, 2, b'] and
-    its share of each batch's loss [n_batches] (0 in eval), on the
-    device; the caller gathers them at the phase's end."""
+    The metrics of the returned :class:`Ran` are this block's (pos, neg)
+    probabilities [n_batches, 2, b'] and its share of each batch's loss
+    [n_batches] (0 in eval); the caller gathers them at the phase's end
+    (:func:`rows_metrics`)."""
+    cfg, params, mem, edge_feats, generator, _ = bound
     b, world, rank = cfg.bs, exchange.mesh.size, exchange.mesh.rank
     bl = b // world
     bcfg = cfg.single_seed().replace(bs=bl)   # the config of one block
     dev = mem.memory.device
     tables = tuple(mem)
     mean = cfg.aggregator == "mean"
-    alpha_beta = (ensemble_tensors(cfg, dev)
-                  if isinstance(queries, NeighborIndex) else None)
+    index = queries if isinstance(queries, NeighborIndex) else None
+    alpha_beta = None if index is None else ensemble_tensors(cfg, dev)
     mine = slice(rank * bl, (rank + 1) * bl)
     ar = torch.arange(bl, device=dev)
     # this block's rows among the batch's 3b query rows (its dropout masks)
     block_rows = torch.cat([rank * bl + ar, b + rank * bl + ar,
                             2 * b + rank * bl + ar])
-    probs, losses = [], []
+    probs, losses, bfs_s, overflow = [], [], 0.0, []
     for i, nv in enumerate(n_valid):
-        s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
-        blk = Stream(*(x[mine] for x in s))
-        valid = None if nv == b else blk.valid
-        bb = _fetch_block(cfg, i, s, plan, exchange, tables, queries,
-                          alpha_beta, nbr_index, bfs_s, marks)
-        view, nodes = bb.view, bb.nodes
-        _mark(marks, "fetch")
-        src_l, dst_l = nodes[:bl], nodes[bl: 2 * bl]
-        times3 = torch.cat([blk.t, blk.t, blk.t])
-        src_emb = dst_emb = msg = None
-        if train:
-            lazy = None
-            if cfg.uses_tppr:
-                lazy = block_lazy_plan(
-                    cfg, bb.every, torch.cat([blk.src, blk.dst, blk.neg]),
-                    bb.block_nbr, bb.q.nbr)
-                if overflow is not None:
-                    overflow.append(lazy.overflow)
-            optimizer.zero_grad(set_to_none=True)
-            if bb.tree is not None:
-                emb = tree_embed(bcfg, params, view, edge_feats, bb.tree,
-                                 True)
-            else:
-                emb = _forward(
-                    bcfg, params, view, edge_feats, nodes, bb.q, train=True,
-                    plan=lazy, times=times3,
-                    generator=BlockMasks(generator, block_rows, 3 * b))
-            pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
-            bce = F.binary_cross_entropy_with_logits
-            count = max(int(nv), 1)
-            loss = (
-                _masked_mean(bce(pos_logit, torch.ones_like(pos_logit),
-                                 reduction="none"), blk.valid, count)
-                + _masked_mean(bce(neg_logit, torch.zeros_like(neg_logit),
-                                   reduction="none"), blk.valid, count))
-            _mark(marks, "forward")
-            loss.backward()
-            _mark(marks, "backward")
-            _all_reduce_grads(params, exchange)
-            _mark(marks, "allreduce")
-            optimizer.step()
-            _mark(marks, "adam")
-            if cfg.need_emb:
-                emb = emb.detach()
-                src_emb, dst_emb = emb[:bl], emb[bl: 2 * bl]
-            _commit_pending(bcfg, params, view, torch.cat([src_l, dst_l]),
-                            None if valid is None else torch.cat([valid,
-                                                                  valid]))
-            if mean:
-                msg = stored_messages(bcfg, view, edge_feats, src_l, dst_l,
-                                      blk.t, blk.eidx, None, None, src_emb,
-                                      dst_emb)[-1]
-            else:
-                _store_messages(bcfg, params, view, edge_feats, src_l, dst_l,
-                                blk.t, blk.eidx, valid, None, src_emb,
-                                dst_emb)
-            loss = loss.detach()
-        else:
-            with torch.no_grad():
+        with span(BATCH):
+            s = Stream(*(x[i * b: (i + 1) * b] for x in stream))
+            blk = Stream(*(x[mine] for x in s))
+            valid = None if nv == b else blk.valid
+            qs = None
+            if index is not None:
+                qs, secs = _bfs(cfg, index, alpha_beta, s, None)
+                bfs_s += secs
+            with part(FETCH):
+                if isinstance(queries, torch.Tensor):
+                    qs = batch_queries(cfg, queries[i * b: (i + 1) * b], s.t)
+                bb = _fetch_block(cfg, i, s, plan, exchange, tables, qs,
+                                  nbr_index)
+            view, nodes = bb.view, bb.nodes
+            src_l, dst_l = nodes[:bl], nodes[bl: 2 * bl]
+
+            def embed(lazy=None):
                 if bb.tree is not None:
-                    emb = tree_embed(bcfg, params, view, edge_feats, bb.tree,
-                                     False)
-                else:
-                    emb = _forward(bcfg, params, view, edge_feats, nodes,
-                                   bb.q, times=times3)
-                pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
-                if cfg.need_emb:
-                    src_emb, dst_emb = emb[:bl], emb[bl: 2 * bl]
+                    return tree_embed(bcfg, params, view, edge_feats,
+                                      bb.tree, train)
+                return _forward(
+                    bcfg, params, view, edge_feats, nodes, bb.q, train=train,
+                    plan=lazy, times=torch.cat([blk.t, blk.t, blk.t]),
+                    generator=(BlockMasks(generator, block_rows, 3 * b)
+                               if train else None))
+
+            def store(src_emb, dst_emb):
+                # mean: this block's message rows, which _add_messages
+                # gathers; last: the store (in eval, store-commit) on the
+                # table
                 if mean:
-                    msg = stored_messages(bcfg, view, edge_feats, src_l,
-                                          dst_l, blk.t, blk.eidx, None, None,
-                                          src_emb, dst_emb)[-1]
-                else:
-                    eval_protocol(bcfg, params, view, edge_feats, src_l,
-                                  dst_l, blk.t, blk.eidx, valid, None,
-                                  src_emb, dst_emb)
-            loss = torch.zeros((), device=dev)
-        _mark(marks, "protocol")
-        if train or not mean:
-            # the rows this block wins, every column, to their owners
-            lo, hi = plan.bounds[i], plan.bounds[i + 1]
-            won = nodes.index_select(0, plan.send[i])
-            exchange.send(tables, [x.index_select(0, won) for x in view],
-                          plan.take[lo:hi], plan.rows[lo:hi], "tower_send")
-        lo, hi = plan.acc_bounds[i], plan.acc_bounds[i + 1]
-        owned = plan.acc_rows[lo:hi]
-        if mean:
-            _add_messages(exchange, mem, msg, plan.acc[lo:hi], owned, s.t,
-                          bl)
-            if not train:
-                # the eval commit reads the sums every block adds to: the
-                # owner commits its senders, over the batch's 2b positions
-                # as one process does (other ranks' rows masked out)
-                snd = torch.cat([s.src, s.dst]).to(torch.int64) - exchange.lo
-                mask = ((snd >= 0) & (snd < exchange.rows)
-                        & torch.cat([s.valid, s.valid]))
-                _commit_pending(bcfg, params, mem,
-                                torch.where(mask, snd, 0), mask)
-        _mark(marks, "send")
-        if cfg.debug_nans:
-            rows = torch.cat([src_l, dst_l])
-            written = ([mem.memory[owned], mem.messages[owned]] if mean
-                       else [view.memory[rows], view.messages[rows]])
-            check_finite(phase, i, loss=loss,
-                         logits=[pos_logit.detach(), neg_logit.detach()],
-                         params=list(params.parameters()) if train else [],
-                         memory=written)
-        with torch.no_grad():
-            probs.append(torch.stack([torch.sigmoid(pos_logit),
-                                      torch.sigmoid(neg_logit)]))
-        losses.append(loss)
-    return torch.stack(probs), torch.stack(losses)
+                    return stored_messages(bcfg, view, edge_feats, src_l,
+                                           dst_l, blk.t, blk.eidx, None,
+                                           None, src_emb, dst_emb)[-1]
+                (_store_messages if train else eval_protocol)(
+                    bcfg, params, view, edge_feats, src_l, dst_l, blk.t,
+                    blk.eidx, valid, None, src_emb, dst_emb)
+                return None
+
+            if train:
+                with part(FORWARD):
+                    lazy = None
+                    if cfg.uses_tppr:
+                        lazy = block_lazy_plan(
+                            cfg, bb.every,
+                            torch.cat([blk.src, blk.dst, blk.neg]),
+                            bb.block_nbr, bb.q.nbr)
+                        overflow.append(lazy.overflow)
+                    optimizer.zero_grad(set_to_none=True)
+                    emb = embed(lazy)
+                    pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
+                    loss = _link_loss(pos_logit, neg_logit, blk.valid,
+                                      max(int(nv), 1))
+                with part(BACKWARD):
+                    loss.backward()
+                with part(ALLREDUCE):
+                    _all_reduce_grads(params, exchange)
+                with part(ADAM):
+                    optimizer.step()
+                with part(PROTOCOL):
+                    _commit_pending(bcfg, params, view,
+                                    torch.cat([src_l, dst_l]),
+                                    None if valid is None
+                                    else torch.cat([valid, valid]))
+                    msg = store(*_message_embs(cfg, emb, bl))
+                    loss = loss.detach()
+            else:
+                with torch.no_grad():
+                    with part(FORWARD):
+                        emb = embed()
+                        pos_logit, neg_logit = _scores(bcfg, params, emb, bl)
+                    with part(PROTOCOL):
+                        msg = store(*_message_embs(cfg, emb, bl))
+                loss = torch.zeros((), device=dev)
+            with part(SEND):
+                if train or not mean:
+                    # the rows this block wins, every column, to their
+                    # owners
+                    lo, hi = plan.bounds[i], plan.bounds[i + 1]
+                    won = nodes.index_select(0, plan.send[i])
+                    exchange.send(tables,
+                                  [x.index_select(0, won) for x in view],
+                                  plan.take[lo:hi], plan.rows[lo:hi],
+                                  "tower_send")
+                lo, hi = plan.acc_bounds[i], plan.acc_bounds[i + 1]
+                owned = plan.acc_rows[lo:hi]
+                if mean:
+                    _add_messages(exchange, mem, msg, plan.acc[lo:hi], owned,
+                                  s.t, bl)
+                    if not train:
+                        # the eval commit reads the sums every block adds
+                        # to: the owner commits its senders, over the
+                        # batch's 2b positions as one process does (other
+                        # ranks' rows masked out)
+                        snd = (torch.cat([s.src, s.dst]).to(torch.int64)
+                               - exchange.lo)
+                        mask = ((snd >= 0) & (snd < exchange.rows)
+                                & torch.cat([s.valid, s.valid]))
+                        _commit_pending(bcfg, params, mem,
+                                        torch.where(mask, snd, 0), mask)
+            if cfg.debug_nans:
+                rows = torch.cat([src_l, dst_l])
+                written = ([mem.memory[owned], mem.messages[owned]] if mean
+                           else [view.memory[rows], view.messages[rows]])
+                check_finite(phase, i, loss=loss,
+                             logits=[pos_logit.detach(), neg_logit.detach()],
+                             params=list(params.parameters()) if train
+                             else [],
+                             memory=written)
+            with torch.no_grad():
+                probs.append(torch.stack([torch.sigmoid(pos_logit),
+                                          torch.sigmoid(neg_logit)]))
+            losses.append(loss)
+    return Ran((torch.stack(probs), torch.stack(losses)), bfs_s, overflow)
 
 
 @torch.no_grad()
@@ -870,10 +801,5 @@ def rows_metrics(exchange, probs: torch.Tensor, losses: torch.Tensor,
     probs = g.permute(1, 2, 0, 3).reshape(n_b, 2, -1)
     loss = exchange.all_gather(losses, "scores").sum(0)
     valid = valid.view(n_b, -1)
-    out = []
-    for i in range(n_b):
-        pos_p, neg_p, v = probs[i, 0], probs[i, 1], valid[i]
-        out.append(torch.stack([loss[i], masked_ap(pos_p, neg_p, v),
-                                masked_auc(pos_p, neg_p, v),
-                                masked_rank_acc(pos_p, neg_p, v)]))
-    return torch.stack(out)
+    return torch.stack([_metrics_row(loss[i], probs[i, 0], probs[i, 1],
+                                     valid[i]) for i in range(n_b)])

@@ -73,6 +73,18 @@ from zebra_tpu_torch.models.tgn import (
 from zebra_tpu_torch.models.time_encoding import time_basis, time_encode
 
 
+class Stream(NamedTuple):
+    """A phase's events, padded to whole batches, on the device."""
+
+    src: torch.Tensor    # i32 [E]
+    dst: torch.Tensor    # i32 [E]
+    neg: torch.Tensor    # i32 [E] negative node per event ([E, S]: one per
+                         # seed, seed-parallel training)
+    t: torch.Tensor      # f32 [E]
+    eidx: torch.Tensor   # i32 [E]
+    valid: torch.Tensor  # bool [E]
+
+
 def lane_lrs(cfg: Config, lanes: Optional[Sequence[int]] = None):
     """The lr of each seed lane of ``lanes`` (global ids; every lane by
     default): ``cfg.parallel_lr``, or ``cfg.lr`` for every seed when

@@ -5,6 +5,9 @@
   ``torch.profiler`` trace beside the aten operations and kernels it
   encloses, and costs one flag read when no profiler records;
   ``span_table`` reads a profile's spans back by name.
+- ``part``: the span of a part of a train batch (or of the wave scan),
+  which also marks its end on the device while the recorder is armed
+  (``marking``: ``Trainer.train_epoch(marks=...)``).
 - ``PhaseTimers``: named wall-clock accumulators with an event counter,
   which give the per-epoch log line (tppr/train/val seconds) and the
   events/s rate.
@@ -55,9 +58,12 @@ ROWS = "zebra.rows"              # its memory rows, level by level, lazily
                                  # updated in training (forward)
 ATTENTION = "zebra.attention"    # its layers, deepest first (forward)
 BACKWARD = "zebra.backward"
+ALLREDUCE = "zebra.allreduce"    # a row-sharded batch's gradients summed
 ADAM = "zebra.adam"
 PROTOCOL = "zebra.protocol"      # the memory protocol
 METRICS = "zebra.metrics"        # a batch's metrics on the device
+FETCH = "zebra.fetch"            # a row-sharded block's rows fetched
+SEND = "zebra.send"              # the rows a block wins sent to their owners
 READBACK = "zebra.readback"      # the host reads of metrics or scores
 OBSERVE = "zebra.observe"        # parent: LinkPredictor.observe
 SCORE = "zebra.score"            # parent: LinkPredictor.score
@@ -66,8 +72,9 @@ SCAN = "zebra.scan"              # serving's index scan
 FOLD = "zebra.fold"              # serving's adjacency rebuild (observe)
 PARENTS = (BATCH, OBSERVE, SCORE)
 SPANS = (RESET, NEGATIVES, WAVE_PLAN, WAVE_SCAN, READ_IDS, BATCH, CAPTURE,
-         QUERY, FORWARD, HOPS, ROWS, ATTENTION, BACKWARD, ADAM, PROTOCOL,
-         METRICS, READBACK, OBSERVE, SCORE, REQUEST, SCAN, FOLD)
+         QUERY, FORWARD, HOPS, ROWS, ATTENTION, BACKWARD, ALLREDUCE, ADAM,
+         PROTOCOL, METRICS, FETCH, SEND, READBACK, OBSERVE, SCORE, REQUEST,
+         SCAN, FOLD)
 
 
 class _NoSpan:
@@ -92,6 +99,53 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return record_function(name)
     return NO_SPAN
+
+
+# The recorder: the list that ``marking`` armed, else None.
+_marks: Optional[list] = None
+
+
+def mark_event():
+    """The recorder's event factory: a CUDA event recorded after the work
+    enqueued so far."""
+    import torch
+
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+@contextlib.contextmanager
+def marking(marks: Optional[list]) -> Iterator[None]:
+    """Arm the recorder for the block: ``marks``, a list, receives a
+    (name, event) pair at each ``mark`` and at the end of each ``part``;
+    None records nothing."""
+    global _marks
+    armed, _marks = _marks, marks
+    try:
+        yield
+    finally:
+        _marks = armed
+
+
+def mark(name: str) -> None:
+    """A mark named ``name`` while the recorder is armed."""
+    if _marks is not None:
+        _marks.append((name, mark_event()))
+
+
+@contextlib.contextmanager
+def _marked(name: str) -> Iterator[None]:
+    with span(name):
+        yield
+    mark(name.split(".", 1)[1])
+
+
+def part(name: str):
+    """``with part(FORWARD): ...``: ``span(name)``, which marks its end
+    (``forward``) while the recorder is armed. Only the parts of a batch
+    and the wave scan take it; parents and nested spans take ``span``."""
+    return span(name) if _marks is None else _marked(name)
 
 
 def span_table(prof) -> Dict[str, Dict[str, float]]:
