@@ -19,8 +19,9 @@ flag the eval forward first). ``scan_wrapper_host_us`` is the scan's host
 µs less the id read's. ``paced_by`` names the part with the most host
 time; ``device_busy_share`` is the traced calls' device time over their
 wall time, so well under 1 means the host sets the pace. Also the chunk's
-levels (``scan.scan_levels``) and the kernel's cluster. Prints one JSON
-line. Needs a CUDA device."""
+levels (``scan.scan_levels``) and the kernel's cluster, and how many
+observes captured, replayed or ran eagerly their protocol's CUDA graph
+(``protocol_graphs``). Prints one JSON line. Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -159,6 +160,9 @@ def main() -> None:
         scan_cluster=index_scan.SANTA_SCAN.geom._asdict(),
         top_device_ops=[(name[:60], k, round(us / TRACED, 1))
                         for name, (k, us) in top],
+        protocol_graphs=dict(captures=pred.protocol_captures,
+                             replays=pred.protocol_replays,
+                             eager=pred.protocol_eager),
         card=torch.cuda.get_device_name(0),
     )
     print(json.dumps(res))

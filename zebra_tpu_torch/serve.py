@@ -12,12 +12,14 @@ Example::
 The predictor runs on CUDA unless ``device="cpu"`` is passed. ``observe``
 streams the events through the T-PPR index (``fill_scan``: one
 ``santa_scan`` kernel launch per call on the card), then applies the
-eval-mode memory protocol; ``score`` is read-only. Both refuse node ids
-outside [0, N) on the host, before anything reaches the device. Under a
-message-source flag the messages take the events' embeddings: ``observe``
-then runs an eval forward at [src; dst; dst] first, whose diffusion
-queries are the pre-edge rows the scan extracts (``streaming_scan``, still
-one ``santa_scan`` launch) or, under pruning, one BFS.
+eval-mode memory protocol, on the card replayed from a CUDA graph of the
+call's length (``train/graphs.py:ProtocolGraphs``); ``score`` is
+read-only. Both refuse node ids outside [0, N) on the host, before
+anything reaches the device. Under a message-source flag the messages
+take the events' embeddings: ``observe`` then runs an eval forward at
+[src; dst; dst] first, whose diffusion queries are the pre-edge rows the
+scan extracts (``streaming_scan``, still one ``santa_scan`` launch) or,
+under pruning, one BFS.
 
 Under the pruning strategy the predictor holds no T-PPR state but an
 adjacency index (``nbr_index``) and the event stream it was built from
@@ -50,8 +52,9 @@ Under a ``torch.profiler`` each call runs in a span
 (``utils/profiling.py``): ``zebra.observe`` holds ``zebra.request`` (the id
 check, the id map and the uploads; under pruning and the recursive towers
 the adjacency fold too), ``zebra.scan`` (with its ``zebra.read_ids``) and
-``zebra.protocol``; ``zebra.score`` holds ``zebra.request``,
-``zebra.query``, ``zebra.forward`` and ``zebra.readback``."""
+``zebra.protocol`` (a replay, or a ``zebra.capture``); ``zebra.score``
+holds ``zebra.request``, ``zebra.query``, ``zebra.forward`` and
+``zebra.readback``."""
 
 from __future__ import annotations
 
@@ -87,6 +90,7 @@ from zebra_tpu_torch.models.memory import MemoryState
 from zebra_tpu_torch.models.tgn import affinity_score, params_from_state_dict
 from zebra_tpu_torch.parallel.sharding import interleave_permutation
 from zebra_tpu_torch.train.checkpoint import load_checkpoint
+from zebra_tpu_torch.train.graphs import Bound, ProtocolGraphs
 from zebra_tpu_torch.train.step import _forward, eval_protocol
 from zebra_tpu_torch.utils.profiling import (
     FOLD,
@@ -192,6 +196,7 @@ class LinkPredictor:
         self._fold_appends = self._fold_rebuilds = 0
         self.rebuild_every = max(1, int(rebuild_every))
         self._warned_static = False
+        self._protocol = ProtocolGraphs()
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[Config] = None,
@@ -336,6 +341,22 @@ class LinkPredictor:
         """Folds made by rebuilding the whole index on the host so far."""
         return self._fold_rebuilds
 
+    @property
+    def protocol_captures(self) -> int:
+        """Observes whose eval protocol was captured in a CUDA graph (and
+        ran eagerly once, on the capture stream) so far."""
+        return self._protocol.captures
+
+    @property
+    def protocol_replays(self) -> int:
+        """Observes whose eval protocol replayed its graph so far."""
+        return self._protocol.replays
+
+    @property
+    def protocol_eager(self) -> int:
+        """Observes whose eval protocol ran eagerly so far."""
+        return self._protocol.eager
+
     def flush_index(self) -> None:
         """Fold every pending observed interaction into a new adjacency
         index (the old one is left as it is), one ``zebra.fold`` span: the
@@ -453,7 +474,14 @@ class LinkPredictor:
         message-source flag the messages carry the embeddings of an eval
         forward at [src; dst; dst], after the fold (an event's recursive
         query sees the earlier events of the call) and on the pre-edge
-        T-PPR queries."""
+        T-PPR queries.
+
+        Every observed event is valid, so the protocol takes no mask and
+        reads nothing back. On the card, without a message-source flag, it
+        replays a CUDA graph of the call's length (``train/graphs.py:
+        ProtocolGraphs``: the first call of a length captures it, a few
+        lengths are held, others run eagerly); ``protocol_captures``,
+        ``protocol_replays`` and ``protocol_eager`` count the calls."""
         with span(OBSERVE), torch.no_grad():
             with span(REQUEST):
                 cols = self._request(src, dst, t)
@@ -462,11 +490,11 @@ class LinkPredictor:
                 src, dst, t = cols
                 eidx = torch.as_tensor(np.asarray(eidx, np.int32)).to(
                     self.device)
-                valid = torch.ones(src.shape[0], dtype=torch.bool,
-                                   device=self.device)
             q = None
             if self.index_state is not None:
                 with span(SCAN):
+                    valid = torch.ones(src.shape[0], dtype=torch.bool,
+                                       device=self.device)
                     if self.cfg.need_emb:
                         # the scan's extraction is pre-edge: the queries an
                         # eval forward at these events reads
@@ -480,14 +508,20 @@ class LinkPredictor:
                                                      eidx, valid)
             elif self.cfg.need_emb:
                 q = self._queries(src, dst, t)
-            self.mem = self._updated_mem(q, src, dst, t, eidx, valid)
+            self.mem = self._updated_mem(q, src, dst, t, eidx)
 
-    def _updated_mem(self, q: Optional[TpprQueries], src, dst, t, eidx,
-                     valid) -> MemoryState:
+    def _updated_mem(self, q: Optional[TpprQueries], src, dst, t,
+                     eidx) -> MemoryState:
         """Eval-protocol memory update for observe(), every member of an
-        ensemble at once; under a message-source flag with the embeddings
-        of an eval forward over the queries ``q`` (src‖dst‖dst blocks)."""
+        ensemble at once, replayed from its graph where
+        :class:`ProtocolGraphs` holds or captures one; under a
+        message-source flag with the embeddings of an eval forward over
+        the queries ``q`` (src‖dst‖dst blocks)."""
         with span(PROTOCOL):
+            bound = Bound(self.cfg, self.params, self.mem, self.edge_feats,
+                          None, self._offs)
+            if self._protocol.run(bound, (src, dst, t, eidx)):
+                return self.mem
             src_emb = dst_emb = None
             if self.cfg.need_emb:
                 b = src.shape[0]
@@ -497,7 +531,7 @@ class LinkPredictor:
                                nbr_index=self.nbr_index)
                 src_emb, dst_emb = emb[..., :b, :], emb[..., b: 2 * b, :]
             return eval_protocol(self.cfg, self.params, self.mem,
-                                 self.edge_feats, src, dst, t, eidx, valid,
+                                 self.edge_feats, src, dst, t, eidx, None,
                                  self._offs, src_emb, dst_emb)
 
 

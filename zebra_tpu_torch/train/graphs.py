@@ -1,4 +1,5 @@
-"""CUDA graphs of the full streaming train batch.
+"""CUDA graphs of the full streaming train batch, and of serving's eval
+memory protocol (:class:`ProtocolGraphs`, at the end).
 
 A full train batch of the streaming diffusion path has static shapes and
 reads nothing back (``train/step.py``: a full batch passes no mask, so no
@@ -41,6 +42,7 @@ import torch
 
 from zebra_tpu_torch.config import Config
 from zebra_tpu_torch.models.memory import MemoryState
+from zebra_tpu_torch.train.step import eval_protocol
 from zebra_tpu_torch.utils.profiling import CAPTURE, span
 
 
@@ -74,9 +76,9 @@ class Parts(NamedTuple):
 
 
 class Bound(NamedTuple):
-    """The model state a phase's batches read and write, and so what a
-    capture is bound to: the objects whose storage its graphs read or
-    write."""
+    """The model state a phase's batches (or serving's protocol: no
+    generator) read and write, and so what a capture is bound to: the
+    objects whose storage its graphs read or write."""
 
     cfg: Config
     params: torch.nn.Module
@@ -237,3 +239,94 @@ def _capture(bound: Bound, shapes, parts: Parts, batch: tuple,
     return _Capture(bound, shapes, parts, batch, rows, out, row,
                     [(p, p.grad) for p in params if p.grad is not None],
                     graphs)
+
+
+# ------------------------------------------------------------ serving
+
+def protocol_replays(cfg: Config, device: torch.device) -> bool:
+    """Whether ``LinkPredictor.observe``'s eval protocol may run from a
+    graph: on a CUDA ``device``, and without a message-source flag
+    (``cfg.need_emb``), whose eval forward inside the protocol a recursive
+    tower would run over an adjacency index that every fold replaces.
+    Both aggregators replay (``mean``'s sort-based ``index_put_``
+    accumulates as it does eagerly)."""
+    return device.type == "cuda" and not cfg.need_emb
+
+
+LENGTHS = 4   # call lengths whose protocol graphs a predictor holds
+
+
+class _Protocol(NamedTuple):
+    cols: Tuple[torch.Tensor, ...]   # the static src, dst, t, eidx
+    graph: torch.cuda.CUDAGraph
+
+
+class ProtocolGraphs:
+    """Serving's eval memory protocol, ``eval_protocol`` with no mask (every
+    observed event is valid, so nothing is read back), as one CUDA graph
+    per call length, for at most :data:`LENGTHS` lengths (a steady step's
+    and a stream's shorter tail, say); a call of another length runs
+    eagerly.
+
+    :meth:`run` replays while the caller passes the objects the graphs
+    were captured on (:class:`Bound`: the parameters, the memory tables,
+    the edge features and the lane offsets) and drops them all otherwise.
+    The first call of a length runs its protocol eagerly on the capture
+    stream, which warms it up and does the call's work, then captures it
+    (a capture runs nothing, so no table is copied aside). All lengths
+    share one capture stream, and so its cuBLAS workspace. Counts each
+    call once: ``captures``, ``replays`` or ``eager``."""
+
+    def __init__(self):
+        self.lengths = LENGTHS
+        self.captures = self.replays = self.eager = 0
+        self._bound: Optional[Bound] = None
+        self._held: dict = {}    # call length -> _Protocol
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def run(self, bound: Bound, cols: Tuple[torch.Tensor, ...]) -> bool:
+        """The protocol of the call's columns ``cols`` (src, dst, t, eidx)
+        on ``bound``'s tables, in place, replayed or captured: True; False
+        (counted as eager) where the caller runs it itself, as
+        :func:`protocol_replays` or the length cap decides."""
+        if not protocol_replays(bound.cfg, bound.edge_feats.device):
+            self.eager += 1
+            return False
+        if self._bound is None or not _same(self._bound, bound):
+            self._bound, self._held = bound, {}
+        n = cols[0].shape[0]
+        held = self._held.get(n)
+        if held is None:
+            if len(self._held) >= self.lengths:
+                self.eager += 1
+                return False
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            with span(CAPTURE):
+                self._held[n] = _capture_protocol(bound, cols, self._stream)
+            self.captures += 1
+            return True
+        for dst, src in zip(held.cols, cols):
+            dst.copy_(src)
+        held.graph.replay()
+        self.replays += 1
+        return True
+
+
+def _capture_protocol(bound: Bound, cols, side) -> _Protocol:
+    """The call's protocol run eagerly on the capture stream ``side``, then
+    captured on static copies of its columns into a private pool."""
+    cols = tuple(c.clone() for c in cols)
+
+    def protocol():
+        eval_protocol(bound.cfg, bound.params, bound.mem, bound.edge_feats,
+                      *cols, None, bound.offs)
+
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        protocol()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        protocol()
+    return _Protocol(cols, graph)

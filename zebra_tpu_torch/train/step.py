@@ -48,7 +48,8 @@ every event of the batch is valid: each scatter then writes every row it
 touches, duplicates with equal values, so nothing is read back from the
 device. A ``valid`` mask selects the rows to write with ``nonzero``, which
 reads a count back (the trainer passes masks only for the padded tail of
-a stream)."""
+a stream; serving's ``observe`` passes none, every observed event being
+valid)."""
 
 from __future__ import annotations
 
@@ -614,9 +615,11 @@ def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
     batch's winner message, rounded through ``messages.dtype`` as the
     two-step path's table round trip would. Winners write memory,
     last_update and msg_ts; every valid sender's message row and count are
-    cleared. Updates ``mem`` in place and returns it. ``mean`` accumulates
-    over the rows pending before the batch, so it takes
-    :func:`eval_store_then_commit`."""
+    cleared. Updates ``mem`` in place and returns it. ``valid`` None (a
+    full trainer batch, every ``observe`` of serving) writes every sender's
+    rows with its winner's values and reads nothing back, so the protocol
+    can be captured in a CUDA graph. ``mean`` accumulates over the rows
+    pending before the batch, so it takes :func:`eval_store_then_commit`."""
     if cfg.aggregator != "last":
         raise ValueError(
             f"eval_store_commit fuses the last-aggregator protocol; "
@@ -635,8 +638,8 @@ def eval_store_commit(cfg: Config, params, mem: MemoryState, edge_feats,
     mem.memory[rows_w] = upd[..., take, :]
     mem.last_update[rows_w] = t2[take]
     mem.msg_ts[rows_w] = t2[take]
-    mem.messages[snd_v] = 0.0
-    mem.msg_count[snd_v] = 0.0
+    mem.messages[snd_v] = mem.messages.new_zeros(())    # device scalars
+    mem.msg_count[snd_v] = mem.msg_count.new_zeros(())
     return mem
 
 

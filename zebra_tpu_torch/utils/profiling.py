@@ -50,7 +50,8 @@ WAVE_PLAN = "zebra.wave_plan"    # one superchunk's host wave plan and upload
 WAVE_SCAN = "zebra.wave_scan"    # one superchunk's wave scan
 READ_IDS = "zebra.read_ids"      # the host read of the columns' id range
 BATCH = "zebra.batch"            # parent: one batch of a phase
-CAPTURE = "zebra.capture"        # the CUDA graphs of a train batch captured
+CAPTURE = "zebra.capture"        # the CUDA graphs of a train batch, or of
+                                 # serving's protocol, captured
 QUERY = "zebra.query"            # T-PPR queries: the BFS, or the index rows
 FORWARD = "zebra.forward"        # towers, scores and loss
 HOPS = "zebra.hops"              # a recursive tower's hop tree (forward)
